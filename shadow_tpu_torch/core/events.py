@@ -1,0 +1,294 @@
+"""Event records and bounded per-host event queues, struct-of-arrays.
+
+The counterpart of `shadow_tpu.core.events`. Every host's queue is a
+fixed-capacity slot array, and all hosts' queues form [H, C] tensors.
+Rows keep a sorted invariant: slots are ordered by the event key
+(time, src, seq), with empty slots (time == TIME_INVALID) at the end.
+A push groups the incoming events by destination with one flat sort,
+finds each destination's run with one searchsorted, and merges each
+run into its row with the fused merge (`core.merge`); overflow drops
+the largest keys and counts them in `drops`.
+
+The overflow spill ring of the reference is not ported: `EventQueue`
+has no `spill` field and `EventQueue.create(spill > 0)` raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from shadow_tpu_torch.core import merge
+from shadow_tpu_torch.core.timebase import TIME_INVALID
+
+N_ARGS = 6
+
+# Common-round block width for queue_push: covers every per-destination
+# per-sweep count a steady-state workload produces; rarer bursts take
+# the exact full-width fallback round.
+MERGE_W = 24
+
+# Hot-region width for the row-wise merge: when every row's resident
+# population plus the incoming block fits inside the first HOT_C
+# columns, the merge touches only [H, HOT_C + W].
+HOT_C = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class Events:
+    """A batch of event records (any leading shape).
+
+    time: i64[...]  absolute sim time (TIME_INVALID = empty)
+    dst:  i32[...]  destination (global) host id
+    src:  i32[...]  source (global) host id
+    seq:  i32[...]  per-source sequence number (tie-break)
+    kind: i32[...]  handler index
+    args: i32[..., N_ARGS] payload words
+    """
+
+    time: torch.Tensor
+    dst: torch.Tensor
+    src: torch.Tensor
+    seq: torch.Tensor
+    kind: torch.Tensor
+    args: torch.Tensor
+
+    def flatten(self) -> "Events":
+        """Collapse the batch dims into one; args keeps its last dim."""
+        nb = self.time.dim()
+        return Events(**{
+            f.name: getattr(self, f.name).reshape(
+                (-1,) + tuple(getattr(self, f.name).shape[nb:]))
+            for f in dataclasses.fields(self)
+        })
+
+
+@dataclasses.dataclass(frozen=True)
+class EventQueue:
+    """All hosts' bounded event queues: [H, C] slot tensors.
+
+    A slot is empty iff time == TIME_INVALID. `drops` counts events lost
+    to queue overflow per host.
+    """
+
+    time: torch.Tensor  # i64[H, C]
+    src: torch.Tensor  # i32[H, C]
+    seq: torch.Tensor  # i32[H, C]
+    kind: torch.Tensor  # i32[H, C]
+    args: torch.Tensor  # i32[H, C, N_ARGS]
+    drops: torch.Tensor  # i64[H]
+
+    @staticmethod
+    def create(n_hosts: int, capacity: int, n_args: int = N_ARGS,
+               spill: int = 0, *, device) -> "EventQueue":
+        if spill > 0:
+            raise NotImplementedError("the spill ring is not ported")
+        z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+        return EventQueue(
+            time=torch.full((n_hosts, capacity), TIME_INVALID,
+                            dtype=torch.int64, device=device),
+            src=z(n_hosts, capacity),
+            seq=z(n_hosts, capacity),
+            kind=z(n_hosts, capacity),
+            args=z(n_hosts, capacity, n_args),
+            drops=torch.zeros((n_hosts,), dtype=torch.int64, device=device),
+        )
+
+    def min_time(self) -> torch.Tensor:
+        """Earliest pending event time per host (TIME_INVALID if empty)."""
+        return self.time.min(dim=1).values
+
+
+def group_run_starts(sorted_group_ids: torch.Tensor) -> torch.Tensor:
+    """Index where each position's group run begins, for a group-sorted
+    1-D tensor. Subtracting it from the position index yields each
+    element's rank within its group."""
+    n = sorted_group_ids.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device=sorted_group_ids.device)
+    boundary = torch.ones(n, dtype=torch.bool, device=pos.device)
+    boundary[1:] = sorted_group_ids[1:] != sorted_group_ids[:-1]
+    return torch.cummax(torch.where(boundary, pos, 0), dim=0).values
+
+
+def pack_srcseq(src: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+    """Pack (src, seq) into one i64 preserving lexicographic order; seq is
+    taken as uint32 so a negative value cannot reach the src bits."""
+    return (src.to(torch.int64) << 32) | (seq.to(torch.int64) & 0xFFFFFFFF)
+
+
+def unpack_srcseq(p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return (p >> 32).to(torch.int32), (p & 0xFFFFFFFF).to(torch.int32)
+
+
+def _pack_words(words):
+    """i32 words -> i64 words, two per word (high first)."""
+    out = []
+    for i in range(0, len(words), 2):
+        hi = words[i].to(torch.int64) << 32
+        if i + 1 < len(words):
+            hi = hi | (words[i + 1].to(torch.int64) & 0xFFFFFFFF)
+        out.append(hi)
+    return out
+
+
+def _unpack_words(packed, n):
+    words = []
+    for i, p in enumerate(packed):
+        words.append((p >> 32).to(torch.int32))
+        if 2 * i + 1 < n:
+            words.append((p & 0xFFFFFFFF).to(torch.int32))
+    return words[:n]
+
+
+def queue_pop(q: EventQueue, before: torch.Tensor, host_ids: torch.Tensor
+              ) -> tuple[EventQueue, Events, torch.Tensor]:
+    """Pop, per host, the minimum-key event with time < `before`: column 0
+    of the sorted row, popped by a left shift of the popped rows.
+
+    Returns (queue', events[H], active[H]); inactive rows carry
+    time = TIME_INVALID.
+    """
+    t0 = q.time[:, 0]
+    active = (t0 < before) & (t0 != TIME_INVALID)
+    ev = Events(
+        time=torch.where(active, t0, TIME_INVALID),
+        dst=host_ids.to(torch.int32),
+        src=q.src[:, 0], seq=q.seq[:, 0], kind=q.kind[:, 0],
+        args=q.args[:, 0],
+    )
+
+    def shift(a, fill):
+        shifted = torch.cat([a[:, 1:], torch.full_like(a[:, :1], fill)], 1)
+        m = active.reshape((-1,) + (1,) * (a.dim() - 1))
+        return torch.where(m, shifted, a)
+
+    q2 = dataclasses.replace(
+        q,
+        time=shift(q.time, TIME_INVALID),
+        src=shift(q.src, 0), seq=shift(q.seq, 0), kind=shift(q.kind, 0),
+        args=shift(q.args, 0),
+    )
+    return q2, ev, active
+
+
+def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
+               read: Callable[[torch.Tensor], bool] = bool) -> EventQueue:
+    """Insert a flat batch of events [M] into their destination queues.
+
+    Events whose dst falls outside [host0, host0 + H), that are masked
+    off, or whose time is negative or TIME_INVALID are ignored. When a
+    destination queue overflows, the largest-key events are dropped and
+    counted in `drops`. The algorithm is that of the reference:
+
+    1. a flat sort groups incoming events by destination in
+       (time, src, seq) order; rejected events key to H;
+    2. one searchsorted over the grouped destinations gives each
+       destination's run start and count;
+    3. a merge round densifies an [H, W] block of each run and merges it
+       into the rows with `merge.fused_merge`, then truncates to
+       capacity, counting what falls off as drops;
+    4. rounds are two-level: W1 = MERGE_W first and, iff some
+       destination's count exceeds W1, a full-width round for the rest.
+
+    `read` turns a 0-d bool tensor into a Python bool; it is the only
+    device-to-host read here (the fallback round's and the hot region's
+    decisions), so a caller can count them.
+    """
+    h, c = q.time.shape
+    m = ev.time.shape[0]
+    a = q.args.shape[-1]
+    nw_words = 1 + a  # payload words per event: kind + args
+    dev = q.time.device
+
+    local = ev.dst - host0
+    ok = (mask & (local >= 0) & (local < h)
+          & (ev.time >= 0) & (ev.time != TIME_INVALID))
+
+    # -- 1. lexicographic (dkey, time, srcseq) as three stable sorts
+    dkey = torch.where(ok, local, h).to(torch.int32)
+    ss = pack_srcseq(ev.src, ev.seq)
+    order = torch.sort(ss, stable=True).indices
+    order = order[torch.sort(ev.time[order], stable=True).indices]
+    order = order[torch.sort(dkey[order], stable=True).indices]
+    sdst, st, sss = dkey[order], ev.time[order], ss[order]
+
+    # -- 2. per-destination run bounds in one searchsorted
+    bounds = torch.searchsorted(
+        sdst, torch.arange(h + 1, dtype=torch.int32, device=dev),
+        side="left", out_int32=True,
+    )
+    mpos = bounds[:h]
+    count = bounds[1:] - mpos
+
+    def merge_round(q, lo, w, count_tail):
+        """Admit rank in [lo, lo + w) into an [H, w] block, merge it into
+        the rows, truncate to capacity. `count_tail`: the last round,
+        which counts rank >= lo + w as drops."""
+        cnt_r = torch.clamp(count - lo, 0, w)
+        starts = mpos + lo
+        lane = torch.arange(w, dtype=torch.int32, device=dev)
+        gidx = starts[:, None] + lane[None, :]
+        okl = lane[None, :] < cnt_r[:, None]
+        oidx = order[torch.clamp(gidx, max=m - 1).long()]
+        bw = [torch.where(okl, ev.kind[oidx], 0)] + [
+            torch.where(okl, ev.args[:, i][oidx], 0) for i in range(a)
+        ]
+        bpay = torch.stack(_pack_words(bw), dim=-1)  # [H, w, NW]
+
+        def row_merge(q, hc):
+            """Merge the block into the first `hc` columns and truncate
+            back to hc; columns >= hc ride along untouched."""
+            qt = q.time[:, :hc].contiguous()
+            qss = pack_srcseq(q.src[:, :hc], q.seq[:, :hc])
+            qpay = torch.stack(_pack_words(
+                [q.kind[:, :hc]] + [q.args[:, :hc, i] for i in range(a)]
+            ), dim=-1)
+            mt, mss, mpay = merge.fused_merge(
+                qt, qss, qpay, st, sss, bpay, starts, cnt_r
+            )
+            over = torch.sum(mt[:, hc:] != TIME_INVALID, dim=1,
+                             dtype=torch.int32)
+            if count_tail:
+                over = over + torch.clamp(count - lo - w, min=0)
+            # truncate + re-canonicalize kept empties
+            keep_t = mt[:, :hc]
+            emp = keep_t == TIME_INVALID
+            new_src, new_seq = unpack_srcseq(
+                torch.where(emp, 0, mss[:, :hc]))
+            pay_k = torch.where(emp[:, :, None], 0, mpay[:, :hc, :])
+            words = _unpack_words(
+                [pay_k[:, :, i] for i in range(pay_k.shape[-1])], nw_words
+            )
+            glue = lambda head, tail: torch.cat([head, tail], dim=1)
+            return EventQueue(
+                time=glue(keep_t, q.time[:, hc:]),
+                src=glue(new_src, q.src[:, hc:]),
+                seq=glue(new_seq, q.seq[:, hc:]),
+                kind=glue(words[0], q.kind[:, hc:]),
+                args=torch.cat(
+                    [torch.stack(words[1:], dim=-1), q.args[:, hc:]], dim=1
+                ),
+                drops=q.drops + over.to(torch.int64),
+            )
+
+        if c < 2 * HOT_C:
+            return row_merge(q, c)
+        # hot-region fast path: every resident event in the first HOT_C
+        # columns and still fitting after admitting w more
+        valid = q.time != TIME_INVALID
+        n_res = torch.max(torch.sum(valid, dim=1, dtype=torch.int32))
+        tail_clear = ~torch.any(valid[:, HOT_C:])
+        if read(tail_clear & (n_res + w <= HOT_C)):
+            return row_merge(q, HOT_C)
+        return row_merge(q, c)
+
+    w_full = min(c, m)
+    w1 = min(w_full, MERGE_W)
+    if w1 == w_full:
+        return merge_round(q, 0, w_full, True)
+    q = merge_round(q, 0, w1, False)
+    if read(torch.any(count > w1)):
+        q = merge_round(q, w1, w_full, True)
+    return q

@@ -1,0 +1,155 @@
+"""PHOLD: the classic parallel-DES benchmark, on the batched drain.
+
+The counterpart of `shadow_tpu.models.phold` with `batched=True`. On
+receiving a message a host picks a random peer (uniform, or skewed to
+the first `hot_hosts` with probability `hot_weight`) and sends it a new
+message after an exponential service delay. Every draw comes from the
+event's threefry key, so the run is bit-identical to the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from shadow_tpu_torch.core import rng as srng
+from shadow_tpu_torch.core.engine import (
+    ConstantNetwork,
+    Emit,
+    Engine,
+    EngineConfig,
+    resolve_device,
+)
+from shadow_tpu_torch.core.events import Events
+from shadow_tpu_torch.core.timebase import MILLISECOND, TIME_INVALID
+
+KIND_MSG = 0
+
+# PHOLD events carry no payload; one arg word keeps the queue sorts narrow.
+N_PHOLD_ARGS = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class PholdHost:
+    n_received: torch.Tensor  # i64[H]
+
+    @staticmethod
+    def create(n_hosts: int, *, device) -> "PholdHost":
+        return PholdHost(n_received=torch.zeros((n_hosts,), dtype=torch.int64,
+                                                device=device))
+
+
+def _make_draw(n_hosts_global, mean_delay_ns, hot_hosts, hot_weight):
+    """The per-event (peer, delay) draw, elementwise over a key batch."""
+
+    def draw(key):
+        kp, kd, kh = srng.split(key, 3)
+        peer = srng.randint(kp, 0, n_hosts_global)
+        if hot_hosts > 0 and hot_weight > 0.0:
+            hot = srng.bernoulli(kh, hot_weight)
+            # folded sub-key, as the reference: reusing kp would
+            # correlate the hot draw with the uniform one
+            peer_hot = srng.randint(srng.fold_in(kp, 1), 0, hot_hosts)
+            peer = torch.where(hot, peer_hot, peer)
+        mean = torch.tensor(mean_delay_ns, dtype=torch.float32,
+                            device=key.device)
+        delay = (srng.exponential(kd) * mean).to(torch.int64)
+        return peer, delay
+
+    return draw
+
+
+def make_batch_handler(
+    n_hosts_global: int,
+    mean_delay_ns: int,
+    hot_hosts: int = 0,
+    hot_weight: float = 0.0,
+):
+    """Whole-frontier PHOLD handler for the batched drain: executes every
+    host's [B] below-barrier events in one call on [H, B] tensors."""
+
+    draw = _make_draw(n_hosts_global, mean_delay_ns, hot_hosts, hot_weight)
+
+    def on_msgs(hs: PholdHost, evs: Events, keys: torch.Tensor):
+        valid = evs.time != TIME_INVALID  # [H, B]
+        peers, delays = draw(keys)
+        hs = PholdHost(n_received=hs.n_received
+                       + torch.sum(valid, dim=1, dtype=torch.int64))
+        h, b = valid.shape
+        z = lambda *s, dtype: torch.zeros(s, dtype=dtype, device=keys.device)
+        em = Emit(
+            dst=peers[:, :, None],
+            dt=delays[:, :, None],
+            kind=torch.full((h, b, 1), KIND_MSG, dtype=torch.int32,
+                            device=keys.device),
+            args=z(h, b, 1, N_PHOLD_ARGS, dtype=torch.int32),
+            mask=valid[:, :, None],
+            local=z(h, b, 1, dtype=torch.bool),
+        )
+        return hs, em
+
+    return on_msgs
+
+
+def build(
+    n_hosts: int,
+    *,
+    hot_hosts: int = 0,
+    hot_weight: float = 0.0,
+    capacity: int = 64,
+    latency_ns: int = 50 * MILLISECOND,
+    mean_delay_ns: int = 10 * MILLISECOND,
+    msgs_per_host: int = 1,
+    seed: int = 0,
+    drain_batch: int = 24,
+    batched: bool = True,
+    device=None,
+):
+    """Build (engine, init) for an n_hosts PHOLD network on the batched
+    drain; `init(host0=0)` returns the initial EngineState.
+
+    The 50 ms single-PoI topology matches the reference's stock config.
+    `device=None` runs on CUDA; `batched=False` (the chained drain) is
+    not ported and raises.
+    """
+    if not batched:
+        raise NotImplementedError("the chained drain is not ported")
+    dev = resolve_device(device)
+    cfg = EngineConfig(
+        n_hosts=n_hosts,
+        capacity=capacity,
+        lookahead=latency_ns,
+        max_emit=1,
+        n_args=N_PHOLD_ARGS,
+        seed=seed,
+        drain_batch=drain_batch,
+    )
+    eng = Engine(
+        cfg,
+        [None],  # one event kind: KIND_MSG
+        ConstantNetwork(latency_ns),
+        batch_handler=make_batch_handler(
+            n_hosts, mean_delay_ns, hot_hosts, hot_weight),
+        device=dev,
+    )
+
+    def init(host0: int = 0):
+        shape = (n_hosts, msgs_per_host)
+        gids = host0 + torch.arange(n_hosts, dtype=torch.int32, device=dev)
+        ev = Events(
+            # stagger start times so the first window isn't one burst
+            time=((gids[:, None].to(torch.int64) % 16 + 1)
+                  * MILLISECOND).expand(shape),
+            dst=gids[:, None].expand(shape),
+            src=gids[:, None].expand(shape),
+            seq=torch.arange(msgs_per_host, dtype=torch.int32,
+                             device=dev)[None, :].expand(shape),
+            kind=torch.full(shape, KIND_MSG, dtype=torch.int32, device=dev),
+            args=torch.zeros(shape + (N_PHOLD_ARGS,), dtype=torch.int32,
+                             device=dev),
+        )
+        return eng.init_state(PholdHost.create(n_hosts, device=dev), ev,
+                              host0)
+
+    return eng, init

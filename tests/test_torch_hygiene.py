@@ -1,0 +1,79 @@
+"""shadow_tpu_torch stands alone: no JAX, no shadow_tpu, no CPU fallback.
+
+- importing the package, and loading chip_smoke.py, in a fresh
+  interpreter puts neither `jax` nor `shadow_tpu` in sys.modules;
+- no source file of the package, nor chip_smoke.py, imports them;
+- the entry points default to CUDA and, with no card, raise instead of
+  running on the CPU.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from shadow_tpu_torch.core import engine as tengine
+from shadow_tpu_torch.models import phold as tphold
+
+ROOT = Path(__file__).resolve().parent.parent
+SOURCES = sorted((ROOT / "shadow_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "shadow_tpu")
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys, importlib.util\n"
+        "import shadow_tpu_torch.convert, shadow_tpu_torch.models.phold\n"
+        "spec = importlib.util.spec_from_file_location("
+        "'chip_smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)
+def test_no_jax_imports_in_source(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: {name}"
+
+
+def test_default_device_is_cuda_without_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tphold.build(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tengine.resolve_device(None)
+    assert tengine.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """Alone in a directory (and here, with no card) the script exits
+    non-zero and prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    script = tmp_path / "chip_smoke.py"
+    script.write_text((ROOT / "chip_smoke.py").read_text())
+    proc = subprocess.run([sys.executable, str(script)], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
