@@ -24,14 +24,14 @@ It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
 package beside it, it exits 1 and prints no result.
 
-The pins come from JAX/CPU (jax 0.9.0, x64): `pytest -m slow
-tests/test_torch_phold.py` recomputes them. The merge-input generator
-below is shared with tests/test_torch_merge.py.
+The pins come from JAX/CPU (jax 0.9.0, x64):
+`python -m pytest -m slow tests/test_torch_phold.py` runs both shapes in
+both packages on the CPU and asserts the pins against the JAX leaves.
+The merge-input generator below is shared with tests/test_torch_merge.py.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import hashlib
 import json
 import subprocess
@@ -158,33 +158,24 @@ def device_kernels(prof) -> list:
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, reps: int) -> tuple[float | None, float]:
-    """Time of one fn() call, two ways: the device's own kernel time
-    summed from a torch.profiler trace of `reps` calls (None if the
-    trace holds no device events), and CUDA events around `reps`
-    back-to-back calls (launch gaps included)."""
+def device_ms(fn, reps: int) -> float:
+    """Device time of one fn() call: the kernels' own time summed from a
+    torch.profiler trace of `reps` calls. Fails if the trace holds no
+    device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    event_ms = start.elapsed_time(end) / reps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     kernels = device_kernels(prof)
-    kernel_ms = sum(us for _, us in kernels) / reps / 1e3 if kernels else None
-    return kernel_ms, event_ms
+    check(bool(kernels), "torch.profiler recorded no device events")
+    return sum(us for _, us in kernels) / reps / 1e3
 
 
 def profile_phold(phold, dev, n_hosts=4096, stop_ns=250 * MS):
@@ -237,17 +228,15 @@ def phase_device():
     return line
 
 
-def phase_build(modules):
-    """Build every kernel library at once: one nvcc per source."""
+def phase_build(merge):
+    """Build the port's one kernel library, the merge, with nvcc."""
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(modules)) as ex:
-        outs = list(ex.map(lambda mod: mod.build(), modules))
+    path, log = merge.build()
     secs = time.perf_counter() - t0
-    for mod, (path, log) in zip(modules, outs):
-        print(f"built {path.name} in {secs:.1f}s")
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "smem" in ln:
-                print(f"  ptxas: {ln.strip()}")
+    print(f"built {path.name} in {secs:.1f}s")
+    for ln in log.splitlines():
+        if "registers" in ln or "spill" in ln or "smem" in ln:
+            print(f"  ptxas: {ln.strip()}")
     return secs
 
 
@@ -301,9 +290,6 @@ def capture_merge_inputs(merge, events, phold, dev, n_calls=6):
             seen.append(tuple(a.clone() for a in args))
         return kernel(*args)
 
-    # the wrapper counts its launches on the module attribute it runs
-    # under, which is `record` while capturing
-    record.launches = 0
     events.merge.fused_merge = record
     try:
         run_phold(phold, 4096, dev, stop_ns=150 * MS)
@@ -313,7 +299,21 @@ def capture_merge_inputs(merge, events, phold, dev, n_calls=6):
 
 
 def merge_bytes(args, outs) -> int:
-    return sum(t.numel() * t.element_size() for t in (*args, *outs))
+    """Bytes the merge must move on these inputs: each output written
+    once and each input read once, except what no output depends on: of
+    the flat keys st/sss a row needs only its admitted run (min(cnt, w)
+    entries), and of its residents' srcseq and payload only the slots
+    behind its leading TIME_INVALID run."""
+    import torch
+
+    qt, qss, qpay, st, sss, bpay, starts, cnt = args
+    h, hc = qt.shape
+    w, nw = bpay.shape[1], qpay.shape[-1]
+    admitted = int(torch.clamp(cnt, 0, w).sum())
+    cleared = int(torch.cumprod((qt == I64MAX).to(torch.int32), 1).sum())
+    whole = (qt, bpay, starts, cnt, *outs)
+    return (sum(t.numel() * t.element_size() for t in whole)
+            + 8 * 2 * admitted + 8 * (1 + nw) * (h * hc - cleared))
 
 
 def merge_ops(args) -> int:
@@ -345,7 +345,7 @@ def main() -> int:
     smi_line = phase_device()
 
     print("== 2. build")
-    build_s = phase_build([merge])
+    build_s = phase_build(merge)
 
     print("== 3. kernels against their plain versions")
     phase_kernels_sweep(merge, dev)
@@ -363,9 +363,9 @@ def main() -> int:
     digests = []
     main_run = None
     for rep in range(2):
-        merge.fused_merge.launches = 0
+        merge.launches = 0
         eng, st, wall = run_phold(phold, 4096, dev)
-        launches = merge.fused_merge.launches
+        launches = merge.launches
         summ = state_summary(st)
         digest = convert.leaves_digest(convert.engine_state_to_numpy(st))
         digests.append(digest)
@@ -384,8 +384,10 @@ def main() -> int:
                             host_syncs=eng.host_syncs)
     check(digests[0] == digests[1], "two runs gave different states")
 
-    # per-launch time at the main path's sweep shape (the widest capture)
-    args = max(captured, key=lambda a: a[3].shape[0])
+    # per-launch time at the main path's sweep shape, on the last captured
+    # sweep: the first one finds every queue empty, later ones hold
+    # residents as the rest of the run does
+    args = captured[-1]
     outs = merge.fused_merge(*args)
     nbytes = merge_bytes(args, outs)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -393,10 +395,8 @@ def main() -> int:
     # no i64 rate, and this term is far below the bytes term either way
     ops_ms = merge_ops(args) / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    base = merge.fused_merge.launches
-    k_ms, k_ev_ms = device_ms(lambda: merge.fused_merge(*args), 200)
-    merge.fused_merge.launches = base  # timing launches are not the path's
-    p_ms, p_ev_ms = device_ms(lambda: merge.merge_body(*args), 20)
+    k_ms = device_ms(lambda: merge.fused_merge(*args), 200)
+    p_ms = device_ms(lambda: merge.merge_body(*args), 20)
     # no PyTorch call computes this merge; the nearest yardstick is a
     # two-key stable sort of the concatenated [H, hc + w] rows
     qt, qss, _, st_, sss, bpay, starts, cnt = args
@@ -409,14 +409,10 @@ def main() -> int:
         o = torch.sort(kss, dim=1, stable=True).indices
         return torch.sort(torch.gather(kt, 1, o), dim=1, stable=True)
 
-    sort_ms, sort_ev_ms = device_ms(two_sorts, 200)
-    how = "profiler"
-    if None in (k_ms, p_ms, sort_ms):
-        how = "cuda-events"
-        k_ms, p_ms, sort_ms = k_ev_ms, p_ev_ms, sort_ev_ms
-    print(f"  merge kernel {k_ms * 1e3:.2f} us/launch ({how}; "
-          f"{k_ev_ms * 1e3:.2f} us back to back by CUDA events), bound "
-          f"{bound_ms * 1e3:.2f} us ({nbytes} B), plain "
+    sort_ms = device_ms(two_sorts, 200)
+    print(f"  merge kernel {k_ms * 1e3:.2f} us/launch (torch.profiler "
+          f"device time), bound {bound_ms * 1e3:.2f} us ({nbytes} B, "
+          f"{int(cnt.sum())} events admitted, m={st_.shape[0]}), plain "
           f"{p_ms * 1e3:.2f} us, two stable torch.sort passes "
           f"(yardstick) {sort_ms * 1e3:.2f} us, at h={qt.shape[0]} "
           f"hc={qt.shape[1]} w={bpay.shape[1]} ({smi_line})")
@@ -458,8 +454,6 @@ def main() -> int:
         "library_ms": None,
         "yardstick": "two stable torch.sort passes over [H, hc + w]",
         "yardstick_ms": sort_ms,
-        "timing": how,
-        "event_ms": k_ev_ms,
         "us": k_ms * 1e3,
         "bound_us": bound_ms * 1e3,
         "build_s": build_s,

@@ -32,6 +32,10 @@ from shadow_tpu_torch.core.timebase import TIME_INVALID
 
 _I64MAX = (1 << 63) - 1
 
+# kernel launches so far: `fused_merge` adds one per launch, callers
+# read or reset it as `merge.launches`
+launches = 0
+
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "merge.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "shadow_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -174,7 +178,7 @@ def fused_merge(qt, qss, qpay, st, sss, bpay, starts, cnt):
 
     Returns (mt, mss, mpay) merged rows of width hc + w, equal to
     `merge_body` on the same inputs. CUDA tensors launch the kernel of
-    `csrc/merge.cu` (and count the launch in `fused_merge.launches`);
+    `csrc/merge.cu` (and count the launch in `launches`);
     CPU tensors run `merge_body`.
     """
     if qt.device.type == "cpu":
@@ -203,8 +207,6 @@ def fused_merge(qt, qss, qpay, st, sss, bpay, starts, cnt):
     if rc != 0:
         msg = lib.shadow_merge_error_string(rc).decode()
         raise RuntimeError(f"merge kernel launch failed: {msg} ({rc})")
-    fused_merge.launches += 1
+    global launches
+    launches += 1
     return ot, oss, opay
-
-
-fused_merge.launches = 0

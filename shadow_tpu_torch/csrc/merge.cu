@@ -24,8 +24,11 @@
 // selects them (each word is read at most once). No tensor cores, TMA or
 // tuning: the first port is right first.
 //
-// Preconditions (checked by the Python wrapper): all arrays contiguous,
-// m >= 1, starts[g] >= 0. The time sentinel TIME_INVALID is i64 max.
+// Preconditions: all arrays contiguous and m >= 1, which the Python
+// wrapper checks; starts[g] >= 0, which the caller guarantees (queue_push
+// takes starts from a searchsorted) and nothing checks, since a check
+// would cost a device-to-host read per launch. A negative start reads
+// before st. The time sentinel TIME_INVALID is i64 max.
 
 #include <cstdint>
 

@@ -50,11 +50,11 @@ def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(3)
     args = [torch.from_numpy(a)
             for a in chip_smoke.merge_inputs(rng, 4, 64, 24, 1, "cleared")]
-    before = tmerge.fused_merge.launches
+    before = tmerge.launches
     got = tmerge.fused_merge(*args)
     want = tmerge.merge_body(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert tmerge.fused_merge.launches == before
+    assert tmerge.launches == before
 
 
 def test_wrapper_rejects_other_devices():
@@ -63,3 +63,20 @@ def test_wrapper_rejects_other_devices():
             for a in chip_smoke.merge_inputs(rng, 2, 64, 24, 1, "sparse")]
     with pytest.raises(ValueError, match="cuda or cpu"):
         tmerge.fused_merge(*args)
+
+
+def test_bound_counts_only_the_bytes_the_merge_needs():
+    """chip_smoke's byte count for the bound skips the flat keys past
+    each row's admitted run and the residents behind a cleared prefix."""
+    mx = chip_smoke.I64MAX
+    qt = torch.tensor([[mx, mx, 5, 6], [1, 2, 3, 4]])
+    args = (qt, torch.zeros(2, 4, dtype=torch.int64),
+            torch.zeros(2, 4, 1, dtype=torch.int64),
+            torch.arange(10), torch.arange(10),
+            torch.zeros(2, 3, 1, dtype=torch.int64),
+            torch.tensor([0, 1], dtype=torch.int32),
+            torch.tensor([1, 5], dtype=torch.int32))
+    outs = tmerge.merge_body(*args)
+    # qt 64 + bpay 48 + starts 8 + cnt 8 + outputs 3 * 112,
+    # st/sss: 1 + 3 admitted entries, qss/qpay: 2 + 4 resident slots
+    assert chip_smoke.merge_bytes(args, outs) == 64 + 48 + 16 + 336 + 64 + 96

@@ -176,12 +176,18 @@ def test_unported_knobs_raise():
 
 
 @pytest.mark.slow
-def test_bench_shape_parity_and_pins():
-    """bench.py's PHOLD (4096 x 8, capacity 64, seed 1234, 20 sim-s) in
-    both packages: equal leaves, and the pins chip_smoke.py uses."""
-    lj, lt = run_both(4096, chip_smoke.BENCH_STOP_NS, **chip_smoke.BENCH)
+@pytest.mark.parametrize("n_hosts,pin", [
+    (4096, chip_smoke.PIN_4096),
+    (16384, chip_smoke.PIN_16384),
+], ids=["4096", "16384"])
+def test_bench_shape_parity_and_pins(n_hosts, pin):
+    """bench.py's PHOLD (8 messages per host, capacity 64, seed 1234,
+    20 sim-s) in both packages, at the `tpu_rate` shape (4096 hosts) and
+    the `phold_big_worker` shape (16384): equal leaves, and the JAX/CPU
+    pins chip_smoke.py holds the card to."""
+    lj, lt = run_both(n_hosts, chip_smoke.BENCH_STOP_NS, **chip_smoke.BENCH)
     assert_leaves_equal(lj, lt)
-    events, digest = chip_smoke.PIN_4096
+    events, digest = pin
     assert int(lj["stats.n_executed"].sum()) == events
     assert convert.leaves_digest(lj) == digest
 
