@@ -11,7 +11,9 @@ Phases, each of which fails the run (exit 1, no result line) on error:
 2. build: every kernel of the port, from the sources in the checkout;
 3. kernels: each kernel held against its plain PyTorch version with
    `torch.equal`, over a regime sweep and over inputs captured from the
-   first sweeps of the live PHOLD run;
+   first sweeps of the live PHOLD run; then the merge kernel's time
+   against its bound at the main path's captured shape and at the
+   TIMING shapes (PHOLD's fallback round, the packet stack's rows);
 4. main path: PHOLD at the bench shape (4096 hosts x 8 messages,
    capacity 64, seed 1234, batched drain, 20 sim-seconds) run twice; the
    event count and a sha256 over every final-state leaf must equal the
@@ -22,7 +24,10 @@ Phases, each of which fails the run (exit 1, no result line) on error:
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
-package beside it, it exits 1 and prints no result.
+package beside it, it exits 1 and prints no result. With
+`--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
+block, stops after phase 3 and prints the timing as one JSON line,
+without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py` runs both shapes in
@@ -138,6 +143,23 @@ SWEEP = [
     (256, 128, 64, 6, "unsorted"),
 ]
 
+# (h, hc, w, nw, regime): where the merge is timed besides the main path's
+# captured sweep input, all at 4096 rows so that the card is full: PHOLD's
+# fallback round (MERGE_W exceeded), the packet stack's hot region
+# (HOT_C = 128), and its full-width fallback rounds without TCP
+# (capacity 256) and with it (capacity 576)
+TIMING = [
+    (4096, 64, 64, 1, "overflow"), (4096, 128, 24, 6, "cleared"),
+    (4096, 256, 256, 6, "overflow"), (4096, 576, 576, 6, "cleared"),
+]
+# grids whose last block is part empty (h not a multiple of the rows per
+# block), and an unsorted row at the widest shape; held in the card tests
+RAGGED = [
+    (1, 64, 24, 1, "cleared"), (33, 64, 24, 1, "unsorted"),
+    (4095, 64, 24, 1, "cleared"), (4095, 128, 24, 6, "ties"),
+    (64, 576, 576, 6, "unsorted"),
+]
+
 
 # -- phases ------------------------------------------------------------------
 class PhaseError(RuntimeError):
@@ -158,30 +180,36 @@ def device_kernels(prof) -> list:
             if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, attempts: int = 3) -> float:
     """Device time of one fn() call: the kernels' own time summed from a
-    torch.profiler trace of `reps` calls. Fails if the trace holds no
-    device events."""
+    torch.profiler trace of `reps` calls. A trace that comes back without
+    device events is taken again (said on stderr), up to `attempts`
+    times; then the phase fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = device_kernels(prof)
-    check(bool(kernels), "torch.profiler recorded no device events")
-    return sum(us for _, us in kernels) / reps / 1e3
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = device_kernels(prof)
+        if kernels:
+            return sum(us for _, us in kernels) / reps / 1e3
+        print(f"  torch.profiler trace {attempt} held no device events",
+              file=sys.stderr)
+    raise PhaseError("torch.profiler recorded no device events")
 
 
 def profile_phold(phold, dev, n_hosts=4096, stop_ns=250 * MS):
     """Where the time goes on the main path: a torch.profiler trace of
     the first windows of PHOLD. Returns the device's busy share, kernel
-    launches per sweep and the top kernels by device time."""
+    launches per sweep, the top kernels by device time and the merge
+    kernel's share of it."""
     import collections
 
     import torch
@@ -201,6 +229,7 @@ def profile_phold(phold, dev, n_hosts=4096, stop_ns=250 * MS):
     for name, us in kernels:
         by_name[name[:60]] += us
     busy_us = sum(us for _, us in kernels)
+    merge_us = sum(us for name, us in kernels if "merge_rows" in name)
     sweeps = int(st.stats.n_sweeps)
     return {
         "wall_s": wall,
@@ -209,6 +238,8 @@ def profile_phold(phold, dev, n_hosts=4096, stop_ns=250 * MS):
         "device_events_per_sweep": len(kernels) / max(sweeps, 1),
         "sweeps": sweeps,
         "top_device_us": by_name.most_common(6),
+        "merge_kernel_us": merge_us,
+        "merge_share_of_device": merge_us / busy_us if kernels else None,
     }
 
 
@@ -324,9 +355,115 @@ def merge_ops(args) -> int:
     return h * (3 * hc * w + (hc + w) * w)
 
 
-def main() -> int:
+def merge_bound_ms(args, outs) -> tuple[float, str, int]:
+    """(least time on the card in ms, what bounds it, bytes moved)."""
+    nbytes = merge_bytes(args, outs)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    # integer compares over the f32 CUDA-core rate: the data sheet gives
+    # no i64 rate, and this term is far below the bytes term either way
+    ops_ms = merge_ops(args) / FP32_OPS_PER_S * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, nbytes
+
+
+def time_merge_shape(merge, args, reps=200) -> dict:
+    """The kernel's device time per launch on one input set, beside its
+    bound."""
+    outs = merge.fused_merge(*args)
+    bound_ms, by, nbytes = merge_bound_ms(args, outs)
+    del outs
+    k_ms = device_ms(lambda: merge.fused_merge(*args), reps)
+    qt, bpay = args[0], args[5]
+    return {"h": qt.shape[0], "hc": qt.shape[1], "w": bpay.shape[1],
+            "nw": bpay.shape[2], "us": k_ms * 1e3,
+            "bound_us": bound_ms * 1e3, "bound_by": by, "bytes": nbytes,
+            "share": bound_ms / k_ms}
+
+
+WARPS_PER_BLOCK_SWEEP = (1, 2, 4, 8)
+
+
+def plan_sweep(merge, args, reps=50) -> dict:
+    """Device us per launch against rows (warps) per block."""
+    h, hc = args[0].shape
+    w = args[5].shape[1]
+    out = {}
+    for warps in WARPS_PER_BLOCK_SWEEP:
+        plan = merge.launch_plan(h, hc, w, warps_per_block=warps)
+        if plan.warps_per_block == warps:
+            out[warps] = device_ms(lambda: merge.launch(args, plan),
+                                   reps) * 1e3
+    return out
+
+
+def phase_merge_timing(merge, dev, captured, smi_line,
+                       sweep_plans=False) -> dict:
+    """The merge kernel's time at the main path's sweep shape, on the
+    last captured sweep (the first one finds every queue empty, later
+    ones hold residents as the rest of the run does), with its plain
+    version and a yardstick; then at the TIMING shapes. `sweep_plans`
+    also times each shape at 1, 2, 4 and 8 rows (warps) per block."""
     import torch
 
+    args = captured[-1]
+    main = time_merge_shape(merge, args)
+    if sweep_plans:
+        main["us_by_plan"] = plan_sweep(merge, args)
+    p_ms = device_ms(lambda: merge.merge_body(*args), 20)
+    # no PyTorch call computes this merge; the nearest yardstick is a
+    # two-key stable sort of the concatenated [H, hc + w] rows
+    qt, qss, _, st_, sss, bpay, starts, cnt = args
+    lane = torch.arange(bpay.shape[1], device=dev, dtype=torch.int32)
+    gidx = torch.clamp(starts[:, None] + lane, max=st_.shape[0] - 1).long()
+    kt = torch.cat([qt, st_[gidx]], 1)
+    kss = torch.cat([qss, sss[gidx]], 1)
+
+    def two_sorts():
+        o = torch.sort(kss, dim=1, stable=True).indices
+        return torch.sort(torch.gather(kt, 1, o), dim=1, stable=True)
+
+    sort_ms = device_ms(two_sorts, 200)
+    print(f"  merge kernel {main['us']:.2f} us/launch (torch.profiler "
+          f"device time), bound {main['bound_us']:.2f} us "
+          f"({main['bytes']} B, {int(cnt.sum())} events admitted, "
+          f"m={st_.shape[0]}), {100 * main['share']:.1f}% of it; plain "
+          f"{p_ms * 1e3:.2f} us, two stable torch.sort passes "
+          f"(yardstick) {sort_ms * 1e3:.2f} us, at h={qt.shape[0]} "
+          f"hc={qt.shape[1]} w={bpay.shape[1]} ({smi_line}) "
+          f"{main.get('us_by_plan', '')}")
+    del kt, kss
+    shapes = [dict(main, regime="captured third sweep")]
+    rng = np.random.default_rng(20261017)
+    for h, hc, w, nw, regime in TIMING:
+        args = _on(dev, merge_inputs(rng, h, hc, w, nw, regime))
+        bad = compare_merge(merge, args)
+        check(bad == 0, f"merge kernel != plain at timing shape h={h} "
+                        f"hc={hc} w={w} nw={nw} {regime}: {bad} differ")
+        row = dict(time_merge_shape(merge, args, reps=50), regime=regime)
+        if sweep_plans:
+            row["us_by_plan"] = plan_sweep(merge, args)
+        shapes.append(row)
+        print(f"  merge kernel {row['us']:.2f} us/launch, bound "
+              f"{row['bound_us']:.2f} us ({row['bytes']} B), "
+              f"{100 * row['share']:.1f}% of it, at h={h} hc={hc} w={w} "
+              f"nw={nw} {regime} (== plain) "
+              f"{row.get('us_by_plan', '')}")
+        del args
+        torch.cuda.empty_cache()
+    return {"main": main, "plain_ms": p_ms, "yardstick_ms": sort_ms,
+            "shapes": shapes}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phases and their timing: "
+                         "no PHOLD runs, no result lines")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -358,6 +495,11 @@ def main() -> int:
         print(f"  merge == plain on live input {i}: "
               f"h={args[0].shape[0]} hc={args[0].shape[1]} "
               f"w={args[5].shape[1]} m={args[3].shape[0]}")
+    timing = phase_merge_timing(merge, dev, captured, smi_line,
+                                sweep_plans=opts.kernels_only)
+    if opts.kernels_only:
+        print(json.dumps({"merge_timing": timing, "card": smi_line}))
+        return 0
 
     print("== 4. main path: PHOLD 4096 hosts, 20 sim-s, batched drain")
     digests = []
@@ -384,38 +526,6 @@ def main() -> int:
                             host_syncs=eng.host_syncs)
     check(digests[0] == digests[1], "two runs gave different states")
 
-    # per-launch time at the main path's sweep shape, on the last captured
-    # sweep: the first one finds every queue empty, later ones hold
-    # residents as the rest of the run does
-    args = captured[-1]
-    outs = merge.fused_merge(*args)
-    nbytes = merge_bytes(args, outs)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    # integer compares over the f32 CUDA-core rate: the data sheet gives
-    # no i64 rate, and this term is far below the bytes term either way
-    ops_ms = merge_ops(args) / FP32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    k_ms = device_ms(lambda: merge.fused_merge(*args), 200)
-    p_ms = device_ms(lambda: merge.merge_body(*args), 20)
-    # no PyTorch call computes this merge; the nearest yardstick is a
-    # two-key stable sort of the concatenated [H, hc + w] rows
-    qt, qss, _, st_, sss, bpay, starts, cnt = args
-    lane = torch.arange(bpay.shape[1], device=dev, dtype=torch.int32)
-    gidx = torch.clamp(starts[:, None] + lane, max=st_.shape[0] - 1).long()
-    kt = torch.cat([qt, st_[gidx]], 1)
-    kss = torch.cat([qss, sss[gidx]], 1)
-
-    def two_sorts():
-        o = torch.sort(kss, dim=1, stable=True).indices
-        return torch.sort(torch.gather(kt, 1, o), dim=1, stable=True)
-
-    sort_ms = device_ms(two_sorts, 200)
-    print(f"  merge kernel {k_ms * 1e3:.2f} us/launch (torch.profiler "
-          f"device time), bound {bound_ms * 1e3:.2f} us ({nbytes} B, "
-          f"{int(cnt.sum())} events admitted, m={st_.shape[0]}), plain "
-          f"{p_ms * 1e3:.2f} us, two stable torch.sort passes "
-          f"(yardstick) {sort_ms * 1e3:.2f} us, at h={qt.shape[0]} "
-          f"hc={qt.shape[1]} w={bpay.shape[1]} ({smi_line})")
     print(json.dumps({"phold_4096": main_run, "card": smi_line}))
     prof = profile_phold(phold, dev)
     print(f"  profile of PHOLD 4096, first 250 sim-ms: {json.dumps(prof)}")
@@ -447,15 +557,18 @@ def main() -> int:
         "launches": main_run["launches"],
         "max_abs_err": 0,
         "equal_to_plain": True,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": timing["main"]["us"] / 1e3,
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["main"]["bound_us"] / 1e3,
+        "bound_by": timing["main"]["bound_by"],
         "library_ms": None,
         "yardstick": "two stable torch.sort passes over [H, hc + w]",
-        "yardstick_ms": sort_ms,
-        "us": k_ms * 1e3,
-        "bound_us": bound_ms * 1e3,
+        "yardstick_ms": timing["yardstick_ms"],
+        "us": timing["main"]["us"],
+        "bound_us": timing["main"]["bound_us"],
+        "shapes": [{key: row[key] for key in
+                    ("hc", "w", "nw", "regime", "us", "bound_us", "share")}
+                   for row in timing["shapes"]],
         "build_s": build_s,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -24,6 +24,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -42,6 +43,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # dynamic shared memory a Hopper block may use
 _SMEM_LIMIT = 232_448
+# rows (one warp each) per block, when shared memory and h allow
+WARPS_PER_BLOCK = 8
 
 
 def merge_body(qt, qss, qpay, st, sss, bpay, starts, cnt):
@@ -100,6 +103,40 @@ def merge_body(qt, qss, qpay, st, sss, bpay, starts, cnt):
     return mt, mss, mpay
 
 
+def row_smem_bytes(hc: int, w: int) -> int:
+    """Shared bytes the kernel stages for one row: resident times and
+    srcseq [hc] i64, densified incoming times and srcseq [w] i64, pos_b
+    [w] i32 and one i32 per output slot, rounded up to 16 bytes. The
+    payload is not staged, so nw does not enter."""
+    raw = 16 * hc + 20 * w + 4 * (hc + w)
+    return -(-raw // 16) * 16
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """`blocks` blocks of `warps_per_block` warps; warp r of block b
+    merges row b * warps_per_block + r, if that is below h."""
+
+    warps_per_block: int
+    smem_bytes: int
+    blocks: int
+
+
+def launch_plan(h: int, hc: int, w: int, *,
+                warps_per_block: int = WARPS_PER_BLOCK) -> LaunchPlan:
+    """The kernel's grid for h rows of hc residents and w incoming: one
+    warp per row, up to `warps_per_block` rows per block, fewer where
+    their shared memory would pass _SMEM_LIMIT or h is smaller. Raises
+    ValueError when one row alone does not fit."""
+    per_row = row_smem_bytes(hc, w)
+    if per_row > _SMEM_LIMIT:
+        raise ValueError(f"rows of hc={hc}, w={w} need {per_row} B of "
+                         f"shared memory, over a block's {_SMEM_LIMIT}")
+    warps = max(1, min(warps_per_block, _SMEM_LIMIT // per_row, h))
+    return LaunchPlan(warps_per_block=warps, smem_bytes=warps * per_row,
+                      blocks=-(-h // warps))
+
+
 def _library_path() -> Path:
     tag = hashlib.sha256(
         SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
@@ -135,10 +172,12 @@ def _load() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        lib.shadow_merge_launch.argtypes = [ptr] * 11 + [i] * 5 + [ptr]
+        size = ctypes.c_size_t
+        lib.shadow_merge_launch.argtypes = (
+            [ptr] * 11 + [i] * 7 + [size, ptr])
         lib.shadow_merge_launch.restype = i
-        lib.shadow_merge_smem_bytes.argtypes = [i, i]
-        lib.shadow_merge_smem_bytes.restype = ctypes.c_size_t
+        lib.shadow_merge_row_smem_bytes.argtypes = [i, i]
+        lib.shadow_merge_row_smem_bytes.restype = size
         lib.shadow_merge_error_string.argtypes = [i]
         lib.shadow_merge_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -178,20 +217,28 @@ def fused_merge(qt, qss, qpay, st, sss, bpay, starts, cnt):
 
     Returns (mt, mss, mpay) merged rows of width hc + w, equal to
     `merge_body` on the same inputs. CUDA tensors launch the kernel of
-    `csrc/merge.cu` (and count the launch in `launches`);
-    CPU tensors run `merge_body`.
+    `csrc/merge.cu` on the grid of `launch_plan` (and count the launch
+    in `launches`); CPU tensors run `merge_body`.
     """
     if qt.device.type == "cpu":
         return merge_body(qt, qss, qpay, st, sss, bpay, starts, cnt)
     if qt.device.type != "cuda":
         raise ValueError(f"fused_merge runs on cuda or cpu, not {qt.device}")
-    _check(qt, qss, qpay, st, sss, bpay, starts, cnt)
+    h, hc = qt.shape
+    return launch((qt, qss, qpay, st, sss, bpay, starts, cnt),
+                  launch_plan(h, hc, bpay.shape[1]))
+
+
+def launch(args, plan: LaunchPlan):
+    """Launch the kernel on CUDA operands with `plan`'s grid;
+    `fused_merge` is the entry point, this the place a caller timing
+    another plan comes in. Raises on operands the kernel does not take
+    and if the launch fails."""
+    _check(*args)
+    qt, qss, qpay, st, sss, bpay, starts, cnt = args
     h, hc = qt.shape
     w, nw = bpay.shape[1], qpay.shape[-1]
     lib = _load()
-    if lib.shadow_merge_smem_bytes(hc, w) > _SMEM_LIMIT:
-        raise ValueError(f"rows of hc={hc}, w={w} exceed a block's shared "
-                         "memory")
     ncol = hc + w
     ot = torch.empty((h, ncol), dtype=torch.int64, device=qt.device)
     oss = torch.empty_like(ot)
@@ -199,10 +246,9 @@ def fused_merge(qt, qss, qpay, st, sss, bpay, starts, cnt):
     with torch.cuda.device(qt.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.shadow_merge_launch(
-            qt.data_ptr(), qss.data_ptr(), qpay.data_ptr(), st.data_ptr(),
-            sss.data_ptr(), bpay.data_ptr(), starts.data_ptr(),
-            cnt.data_ptr(), ot.data_ptr(), oss.data_ptr(), opay.data_ptr(),
-            h, hc, w, st.shape[0], nw, stream,
+            *(t.data_ptr() for t in (*args, ot, oss, opay)),
+            h, hc, w, st.shape[0], nw, plan.blocks, plan.warps_per_block,
+            plan.smem_bytes, stream,
         )
     if rc != 0:
         msg = lib.shadow_merge_error_string(rc).decode()

@@ -9,6 +9,8 @@ repository root, on the card's machine:
 (`--noconftest` skips tests/conftest.py, which configures JAX.)
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -26,7 +28,9 @@ def _need_card():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
 
 
-@pytest.mark.parametrize("h,hc,w,nw,regime", chip_smoke.SWEEP)
+@pytest.mark.parametrize(
+    "h,hc,w,nw,regime",
+    chip_smoke.SWEEP + chip_smoke.TIMING + chip_smoke.RAGGED)
 def test_kernel_matches_plain(h, hc, w, nw, regime):
     _need_card()
     rng = np.random.default_rng(h + hc + w + nw)
@@ -59,3 +63,36 @@ def test_phold_on_cuda_matches_cpu(kw):
     assert states["cuda"].keys() == states["cpu"].keys()
     for key, a in states["cpu"].items():
         np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
+
+
+def test_plan_layout_agrees_with_the_kernel():
+    """The Python plan sizes shared memory with the kernel's own formula,
+    and the launcher refuses a plan that gives it less."""
+    _need_card()
+    lib = merge._load()
+    for h, hc, w, _, _ in chip_smoke.SWEEP + chip_smoke.TIMING:
+        assert lib.shadow_merge_row_smem_bytes(hc, w) == \
+            merge.row_smem_bytes(hc, w)
+    rng = np.random.default_rng(7)
+    args = [torch.from_numpy(a).cuda()
+            for a in chip_smoke.merge_inputs(rng, 64, 64, 24, 1, "cleared")]
+    plan = merge.launch_plan(64, 64, 24)
+    short = dataclasses.replace(plan, smem_bytes=plan.smem_bytes - 16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        merge.launch(args, short)
+
+
+@pytest.mark.parametrize("warps", chip_smoke.WARPS_PER_BLOCK_SWEEP)
+@pytest.mark.parametrize("h,hc,w,nw,regime", chip_smoke.RAGGED)
+def test_kernel_matches_plain_on_every_grid(h, hc, w, nw, regime, warps):
+    """Every grid chip_smoke times gives the plain version's output,
+    ragged last blocks included."""
+    _need_card()
+    rng = np.random.default_rng(h + hc + w + nw + 1)
+    args = [torch.from_numpy(a).cuda()
+            for a in chip_smoke.merge_inputs(rng, h, hc, w, nw, regime)]
+    plan = merge.launch_plan(h, hc, w, warps_per_block=warps)
+    got = merge.launch(args, plan)
+    want = merge.merge_body(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
