@@ -20,7 +20,17 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    JAX/CPU reference, and the merge kernel must have launched at least
    once per sweep;
 5. PHOLD at 16384 hosts, count pinned the same way;
-6. the exponential over all 2^24 uniforms, pinned to JAX's bytes.
+6. the exponential over all 2^24 uniforms, pinned to JAX's bytes;
+7. the chained drain, `phold.build`'s default: the merge kernel held to
+   its plain version on the first merge inputs of a chained run and
+   timed on the last of them (a flush of the staging buffer); then
+   PHOLD 4096 on the chained drain for the full 20 sim-seconds, held to
+   PIN_4096's event count, to phase 4's state less the scheduler
+   counters, to the JAX/CPU inner-step and sweep pins, and to at least
+   one merge launch per sweep;
+8. PHOLD 4096 on the chained drain with the CPU model, and over a
+   jittered, lossy four-PoI graph (GraphNetwork), each for 2 sim-s and
+   pinned to its JAX/CPU event count and state digest.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -30,13 +40,15 @@ block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
-`python -m pytest -m slow tests/test_torch_phold.py` runs both shapes in
-both packages on the CPU and asserts the pins against the JAX leaves.
-The merge-input generator below is shared with tests/test_torch_merge.py.
+`python -m pytest -m slow tests/test_torch_phold.py` runs every pinned
+configuration in both packages on the CPU and asserts the pins against
+the JAX leaves. The merge-input generator below is shared with
+tests/test_torch_merge.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import subprocess
@@ -60,6 +72,59 @@ PIN_4096 = (10_934_800,
             "ed198810b5740862351fb640ce1f068dc95b85980b27eaae1cc7c2770d707659")
 PIN_16384 = (43_740_010,
              "10c97d9e30b341bf6c12f4ab10fe61d122cd6160e2da7d64c7c4f669e79bc5cb")
+# The chained drain (phold.build's default) at the bench shape, 20 sim-s,
+# on JAX/CPU: (inner steps, sweeps). Its events equal PIN_4096's, and its
+# leaves less the scheduler counters SCHEDULER hash as the batched run's.
+PIN_CHAINED_4096 = (7143, 400)
+SCHEDULER = ("stats.n_sweeps", "stats.n_inner_steps", "stats.n_xchg_rounds")
+# PHOLD 4096 on the chained drain with the CPU model, and over a jittered,
+# lossy graph, for VARIANT_STOP_NS: (events, digest of every leaf) each,
+# from JAX/CPU
+VARIANT_STOP_NS = 2 * SECOND
+PIN_CPU_MODEL = (
+    1_103_038,
+    "cf8e1cd4936ccafab6d279497d7146d02118f069265803a5f4c19d79141365af")
+PIN_JITTER = (
+    591_783,
+    "6785189dc073ced7841100b84097499d3d4bc9d4397b4491d47b223284c0541d")
+# four PoIs at the bench's latency scale: (vid, packet loss) per vertex,
+# (u, v, latency ms, packet loss, jitter ms) per edge; not complete, so
+# paths go through Dijkstra; hosts attach round-robin
+JITTER_VERTICES = (("poi-a", 0.001), ("poi-b", 0.0), ("poi-c", 0.004),
+                   ("poi-d", 0.002))
+JITTER_EDGES = ((0, 1, 55.0, 0.01, 4.0), (1, 2, 60.0, 0.005, 3.0),
+                (2, 3, 52.0, 0.02, 5.0), (3, 0, 70.0, 0.0, 6.0),
+                (1, 1, 50.0, 0.001, 2.0))
+
+
+def cpu_cost_table(n_hosts: int) -> np.ndarray:
+    """Per-host virtual-CPU cost per event: 0 to 6 x 150 us."""
+    return (np.arange(n_hosts) % 7 * 150_000).astype(np.int64)
+
+
+def phold_variant(phold, engine, topology, which: str, dev,
+                  n_hosts: int = 4096):
+    """(engine, init) of PHOLD at the bench configuration on the chained
+    drain, with the CPU model ("cpu") or over the JITTER_* graph
+    ("jitter"). `phold`, `engine` and `topology` are a package's
+    models.phold, core.engine and net.topology modules; `dev` is None
+    for a package without devices, else the device."""
+    on = {} if dev is None else {"device": dev}
+    eng, init = phold.build(n_hosts, **on, **BENCH)
+    if which == "cpu":
+        return engine.Engine(eng.cfg, eng.handlers, eng.network,
+                             cpu_cost=cpu_cost_table(n_hosts), **on), init
+    top = topology.Topology(
+        [topology.Vertex(vid=vid, index=i, packetloss=loss)
+         for i, (vid, loss) in enumerate(JITTER_VERTICES)],
+        JITTER_EDGES)
+    net = top.build_network([i % len(JITTER_VERTICES)
+                             for i in range(n_hosts)], **on)
+    cfg = dataclasses.replace(eng.cfg,
+                              lookahead=int(top.min_latency_ms * MS))
+    return engine.Engine(cfg, eng.handlers, net, **on), init
+
+
 # sha256 of JAX's -log1p(-u) f32 bytes over u = (0 .. 2^24-1) / 2^24
 EXP_SHA256 = "bf7c3c6d0fc775831d7614f9101d864c08051c1ee138c8aa3f6a3ef9c4a9b205"
 
@@ -205,17 +270,17 @@ def device_ms(fn, reps: int, attempts: int = 3) -> float:
     raise PhaseError("torch.profiler recorded no device events")
 
 
-def profile_phold(phold, dev, n_hosts=4096, stop_ns=250 * MS):
-    """Where the time goes on the main path: a torch.profiler trace of
-    the first windows of PHOLD. Returns the device's busy share, kernel
-    launches per sweep, the top kernels by device time and the merge
-    kernel's share of it."""
+def profile_phold(phold, dev, batched, n_hosts=4096, stop_ns=250 * MS):
+    """Where the time goes on a path: a torch.profiler trace of the
+    first windows of PHOLD on one drain. Returns the device's busy share,
+    device events per sweep and per inner step, the top kernels by device
+    time and the merge kernel's share of it."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    eng, init = phold.build(n_hosts, device=dev, **BENCH)
+    eng, init = phold.build(n_hosts, device=dev, batched=batched, **BENCH)
     st = init()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -231,12 +296,15 @@ def profile_phold(phold, dev, n_hosts=4096, stop_ns=250 * MS):
     busy_us = sum(us for _, us in kernels)
     merge_us = sum(us for name, us in kernels if "merge_rows" in name)
     sweeps = int(st.stats.n_sweeps)
+    inner = int(st.stats.n_inner_steps)
     return {
         "wall_s": wall,
         "device_busy_share": busy_us / 1e6 / wall if kernels else None,
         "device_events": len(kernels),
         "device_events_per_sweep": len(kernels) / max(sweeps, 1),
+        "device_events_per_inner_step": len(kernels) / max(inner, 1),
         "sweeps": sweeps,
+        "inner_steps": inner,
         "top_device_us": by_name.most_common(6),
         "merge_kernel_us": merge_us,
         "merge_share_of_device": merge_us / busy_us if kernels else None,
@@ -297,11 +365,19 @@ def phase_kernels_sweep(merge, dev):
         print(f"  merge == plain: h={h} hc={hc} w={w} nw={nw} {regime}")
 
 
-def run_phold(phold, n_hosts, dev, stop_ns=BENCH_STOP_NS):
+def run_phold(phold, n_hosts, dev, stop_ns=BENCH_STOP_NS, batched=True):
     """Build and run PHOLD; returns (engine, final state, wall seconds)."""
     import torch
 
-    eng, init = phold.build(n_hosts, device=dev, **BENCH)
+    eng, init = phold.build(n_hosts, device=dev, batched=batched, **BENCH)
+    return run_engine(eng, init, stop_ns)
+
+
+def run_engine(eng, init, stop_ns):
+    """Run an engine from init() to stop_ns on the card; returns (engine,
+    final state, wall seconds)."""
+    import torch
+
     st = init()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -310,9 +386,10 @@ def run_phold(phold, n_hosts, dev, stop_ns=BENCH_STOP_NS):
     return eng, st, time.perf_counter() - t0
 
 
-def capture_merge_inputs(merge, events, phold, dev, n_calls=6):
-    """Inputs of the first merge calls of the live PHOLD run (init push
-    and first sweeps), cloned as they went into the kernel."""
+def capture_merge_inputs(merge, events, phold, dev, n_calls=6,
+                         batched=True):
+    """Inputs of the first merge calls of the live PHOLD run on one drain
+    (init push and first sweeps), cloned as they went into the kernel."""
     seen = []
     kernel = merge.fused_merge
 
@@ -323,7 +400,7 @@ def capture_merge_inputs(merge, events, phold, dev, n_calls=6):
 
     events.merge.fused_merge = record
     try:
-        run_phold(phold, 4096, dev, stop_ns=150 * MS)
+        run_phold(phold, 4096, dev, stop_ns=150 * MS, batched=batched)
     finally:
         events.merge.fused_merge = kernel
     return seen
@@ -396,20 +473,17 @@ def plan_sweep(merge, args, reps=50) -> dict:
     return out
 
 
-def phase_merge_timing(merge, dev, captured, smi_line,
-                       sweep_plans=False) -> dict:
-    """The merge kernel's time at the main path's sweep shape, on the
-    last captured sweep (the first one finds every queue empty, later
-    ones hold residents as the rest of the run does), with its plain
-    version and a yardstick; then at the TIMING shapes. `sweep_plans`
-    also times each shape at 1, 2, 4 and 8 rows (warps) per block."""
+def time_captured(merge, dev, args, smi_line, label,
+                  sweep_plans=False) -> dict:
+    """The merge kernel's time on one input captured from a live run,
+    beside its bound, its plain version and a yardstick. `sweep_plans`
+    also times it at 1, 2, 4 and 8 rows (warps) per block."""
     import torch
 
-    args = captured[-1]
-    main = time_merge_shape(merge, args)
+    row = time_merge_shape(merge, args)
     if sweep_plans:
-        main["us_by_plan"] = plan_sweep(merge, args)
-    p_ms = device_ms(lambda: merge.merge_body(*args), 20)
+        row["us_by_plan"] = plan_sweep(merge, args)
+    row["plain_ms"] = device_ms(lambda: merge.merge_body(*args), 20)
     # no PyTorch call computes this merge; the nearest yardstick is a
     # two-key stable sort of the concatenated [H, hc + w] rows
     qt, qss, _, st_, sss, bpay, starts, cnt = args
@@ -422,17 +496,33 @@ def phase_merge_timing(merge, dev, captured, smi_line,
         o = torch.sort(kss, dim=1, stable=True).indices
         return torch.sort(torch.gather(kt, 1, o), dim=1, stable=True)
 
-    sort_ms = device_ms(two_sorts, 200)
-    print(f"  merge kernel {main['us']:.2f} us/launch (torch.profiler "
-          f"device time), bound {main['bound_us']:.2f} us "
-          f"({main['bytes']} B, {int(cnt.sum())} events admitted, "
-          f"m={st_.shape[0]}), {100 * main['share']:.1f}% of it; plain "
-          f"{p_ms * 1e3:.2f} us, two stable torch.sort passes "
-          f"(yardstick) {sort_ms * 1e3:.2f} us, at h={qt.shape[0]} "
-          f"hc={qt.shape[1]} w={bpay.shape[1]} ({smi_line}) "
-          f"{main.get('us_by_plan', '')}")
-    del kt, kss
-    shapes = [dict(main, regime="captured third sweep")]
+    row["yardstick_ms"] = device_ms(two_sorts, 200)
+    row["m"] = st_.shape[0]
+    row["regime"] = label
+    print(f"  merge kernel {row['us']:.2f} us/launch (torch.profiler "
+          f"device time), bound {row['bound_us']:.2f} us "
+          f"({row['bytes']} B, {int(cnt.sum())} events admitted, "
+          f"m={st_.shape[0]}), {100 * row['share']:.1f}% of it; plain "
+          f"{row['plain_ms'] * 1e3:.2f} us, two stable torch.sort passes "
+          f"(yardstick) {row['yardstick_ms'] * 1e3:.2f} us, at "
+          f"h={qt.shape[0]} hc={qt.shape[1]} w={bpay.shape[1]}, {label} "
+          f"({smi_line}) {row.get('us_by_plan', '')}")
+    return row
+
+
+def phase_merge_timing(merge, dev, captured, smi_line,
+                       sweep_plans=False) -> dict:
+    """The merge kernel's time at the main path's sweep shape, on the
+    last captured sweep (the first one finds every queue empty, later
+    ones hold residents as the rest of the run does), with its plain
+    version and a yardstick; then at the TIMING shapes. `sweep_plans`
+    also times each shape at 1, 2, 4 and 8 rows (warps) per block."""
+    import torch
+
+    main = time_captured(merge, dev, captured[-1], smi_line,
+                         "captured third sweep", sweep_plans)
+    p_ms, sort_ms = main["plain_ms"], main["yardstick_ms"]
+    shapes = [main]
     rng = np.random.default_rng(20261017)
     for h, hc, w, nw, regime in TIMING:
         args = _on(dev, merge_inputs(rng, h, hc, w, nw, regime))
@@ -454,6 +544,79 @@ def phase_merge_timing(merge, dev, captured, smi_line,
             "shapes": shapes}
 
 
+def phase_live_inputs(merge, events, phold, dev, batched) -> list:
+    """The first merge inputs of a live PHOLD 4096 run on one drain,
+    each held against the plain version."""
+    captured = capture_merge_inputs(merge, events, phold, dev,
+                                    batched=batched)
+    drain = "batched" if batched else "chained"
+    check(len(captured) >= 2, f"no merge inputs captured from {drain} PHOLD")
+    for i, args in enumerate(captured):
+        bad = compare_merge(merge, args)
+        check(bad == 0, f"merge kernel != plain on live {drain} input {i}: "
+                        f"{bad} elements differ")
+        print(f"  merge == plain on live {drain} input {i}: "
+              f"h={args[0].shape[0]} hc={args[0].shape[1]} "
+              f"w={args[5].shape[1]} m={args[3].shape[0]}")
+    return captured
+
+
+def phase_chained(phold, merge, convert, dev, smi_line,
+                  batched_stripped) -> dict:
+    """PHOLD 4096 on the chained drain (phold.build's default) to
+    BENCH_STOP_NS, held to the events of PIN_4096, to the batched run's
+    state less the scheduler counters, and to PIN_CHAINED_4096."""
+    merge.launches = 0
+    eng, st, wall = run_phold(phold, 4096, dev, batched=False)
+    launches = merge.launches
+    leaves = convert.engine_state_to_numpy(st)
+    ev = int(leaves["stats.n_executed"].sum())
+    inner = int(leaves["stats.n_inner_steps"])
+    sweeps = int(leaves["stats.n_sweeps"])
+    run = {"events": ev, "wall_s": wall, "events_per_s": ev / wall,
+           "inner_steps": inner, "sweeps": sweeps,
+           "windows": int(leaves["stats.n_windows"]),
+           "host_syncs": eng.host_syncs, "launches": launches}
+    print(f"  chained: events {ev} wall {wall:.3f}s events/s "
+          f"{ev / wall:.1f} inner steps {inner} sweeps {sweeps} host syncs "
+          f"{eng.host_syncs} merge launches {launches} ({smi_line})")
+    print(json.dumps({"phold_4096_chained": run, "card": smi_line}))
+    check(ev == PIN_4096[0], f"chained events {ev} != JAX/CPU {PIN_4096[0]}")
+    stripped = convert.leaves_digest(leaves, SCHEDULER)
+    check(stripped == batched_stripped,
+          f"chained state {stripped} != the batched run's {batched_stripped}")
+    check((inner, sweeps) == PIN_CHAINED_4096,
+          f"chained (inner steps, sweeps) {(inner, sweeps)} != JAX/CPU "
+          f"{PIN_CHAINED_4096}")
+    check(launches >= sweeps > 0,
+          f"merge launches {launches} < sweeps {sweeps}")
+    return run
+
+
+def phase_variant(phold, engine, topology, merge, convert, which, pin, dev,
+                  smi_line) -> dict:
+    """PHOLD 4096 on the chained drain with the CPU model or over the
+    jittered graph, to VARIANT_STOP_NS, held to its JAX/CPU pin."""
+    eng, init = phold_variant(phold, engine, topology, which, dev)
+    merge.launches = 0
+    eng, st, wall = run_engine(eng, init, VARIANT_STOP_NS)
+    launches = merge.launches
+    leaves = convert.engine_state_to_numpy(st)
+    ev = int(leaves["stats.n_executed"].sum())
+    digest = convert.leaves_digest(leaves)
+    run = {"events": ev, "wall_s": wall, "events_per_s": ev / wall,
+           "inner_steps": int(leaves["stats.n_inner_steps"]),
+           "sweeps": int(leaves["stats.n_sweeps"]),
+           "net_dropped": int(leaves["stats.n_net_dropped"].sum()),
+           "host_syncs": eng.host_syncs, "launches": launches}
+    print(f"  {which}: {json.dumps(run)} ({smi_line})")
+    check((ev, digest) == pin, f"{which}: (events, digest) {(ev, digest)} "
+                               f"!= JAX/CPU {pin}")
+    check(launches >= run["sweeps"] > 0,
+          f"{which}: merge launches {launches} < sweeps {run['sweeps']}")
+    return run
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -469,9 +632,10 @@ def main(argv=None) -> int:
         return 1
     try:
         from shadow_tpu_torch import convert
-        from shadow_tpu_torch.core import events, merge, rng
+        from shadow_tpu_torch.core import engine, events, merge, rng
         from shadow_tpu_torch.core.engine import state_summary
         from shadow_tpu_torch.models import phold
+        from shadow_tpu_torch.net import topology
     except ImportError as e:
         print(f"chip_smoke: shadow_tpu_torch not importable here: {e}",
               file=sys.stderr)
@@ -486,15 +650,7 @@ def main(argv=None) -> int:
 
     print("== 3. kernels against their plain versions")
     phase_kernels_sweep(merge, dev)
-    captured = capture_merge_inputs(merge, events, phold, dev)
-    check(len(captured) >= 2, "no merge inputs captured from PHOLD")
-    for i, args in enumerate(captured):
-        bad = compare_merge(merge, args)
-        check(bad == 0, f"merge kernel != plain on live input {i}: "
-                        f"{bad} elements differ")
-        print(f"  merge == plain on live input {i}: "
-              f"h={args[0].shape[0]} hc={args[0].shape[1]} "
-              f"w={args[5].shape[1]} m={args[3].shape[0]}")
+    captured = phase_live_inputs(merge, events, phold, dev, batched=True)
     timing = phase_merge_timing(merge, dev, captured, smi_line,
                                 sweep_plans=opts.kernels_only)
     if opts.kernels_only:
@@ -509,7 +665,8 @@ def main(argv=None) -> int:
         eng, st, wall = run_phold(phold, 4096, dev)
         launches = merge.launches
         summ = state_summary(st)
-        digest = convert.leaves_digest(convert.engine_state_to_numpy(st))
+        leaves = convert.engine_state_to_numpy(st)
+        digest = convert.leaves_digest(leaves)
         digests.append(digest)
         ev = summ["executed"]
         print(f"  run {rep}: events {ev} windows {summ['windows']} sweeps "
@@ -524,10 +681,11 @@ def main(argv=None) -> int:
         if main_run is None:
             main_run = dict(summ, wall_s=wall, launches=launches,
                             host_syncs=eng.host_syncs)
+            batched_stripped = convert.leaves_digest(leaves, SCHEDULER)
     check(digests[0] == digests[1], "two runs gave different states")
 
     print(json.dumps({"phold_4096": main_run, "card": smi_line}))
-    prof = profile_phold(phold, dev)
+    prof = profile_phold(phold, dev, batched=True)
     print(f"  profile of PHOLD 4096, first 250 sim-ms: {json.dumps(prof)}")
 
     print("== 5. PHOLD 16384 hosts, 20 sim-s")
@@ -549,12 +707,31 @@ def main(argv=None) -> int:
     check(sha == EXP_SHA256, f"exponential sha256 {sha} != {EXP_SHA256}")
     print(f"  sha256 {sha} == JAX/CPU")
 
+    print("== 7. the chained drain: PHOLD 4096 hosts, 20 sim-s")
+    captured_c = phase_live_inputs(merge, events, phold, dev, batched=False)
+    chained_merge = time_captured(
+        merge, dev, captured_c[-1], smi_line,
+        f"captured chained flush (m={captured_c[-1][3].shape[0]})")
+    chained_run = phase_chained(phold, merge, convert, dev, smi_line,
+                                batched_stripped)
+    prof = profile_phold(phold, dev, batched=False)
+    print(f"  profile of chained PHOLD 4096, first 250 sim-ms: "
+          f"{json.dumps(prof)}")
+
+    print("== 8. the CPU model and a jittered, lossy graph on the card")
+    variants = {}
+    for which, pin in (("cpu", PIN_CPU_MODEL), ("jitter", PIN_JITTER)):
+        variants[which] = phase_variant(phold, engine, topology, merge,
+                                        convert, which, pin, dev, smi_line)
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
         "source": "shadow_tpu_torch/csrc/merge.cu",
         "replaces": "shadow_tpu/core/merge_pallas.py:125",
-        "launches": main_run["launches"],
+        "launches": main_run["launches"] + chained_run["launches"],
+        "launches_batched": main_run["launches"],
+        "launches_chained": chained_run["launches"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -566,9 +743,12 @@ def main(argv=None) -> int:
         "yardstick_ms": timing["yardstick_ms"],
         "us": timing["main"]["us"],
         "bound_us": timing["main"]["bound_us"],
+        "chained_us": chained_merge["us"],
+        "chained_bound_us": chained_merge["bound_us"],
+        "chained_plain_ms": chained_merge["plain_ms"],
         "shapes": [{key: row[key] for key in
                     ("hc", "w", "nw", "regime", "us", "bound_us", "share")}
-                   for row in timing["shapes"]],
+                   for row in timing["shapes"] + [chained_merge]],
         "build_s": build_s,
     }]
     print(json.dumps({"kernels": kernels}))

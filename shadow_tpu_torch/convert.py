@@ -5,7 +5,8 @@ Leaves are keyed by field path ("now", "queues.time",
 reference's EngineState pytree has with its optional subtrees (trace,
 exchange, stats plane, spill ring) off. So a state can move between the
 reference and this package leaf for leaf, and `leaves_digest` gives both
-the same fingerprint.
+the same fingerprint. A reference GraphNetwork's routing tables come over
+as numpy arrays through `GraphNetwork.from_numpy`.
 """
 
 from __future__ import annotations
@@ -64,10 +65,16 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray],
     return state
 
 
-def leaves_digest(leaves: dict[str, np.ndarray]) -> str:
-    """sha256 over every leaf in path order: name, dtype, shape, bytes."""
+def leaves_digest(leaves: dict[str, np.ndarray],
+                  exclude: tuple[str, ...] = ()) -> str:
+    """sha256 over every leaf in path order: name, dtype, shape, bytes.
+    Leaves whose path is in `exclude` are left out (for instance the
+    scheduler counters, which differ between the two drains)."""
+    unknown = set(exclude) - set(leaves)
+    if unknown:
+        raise KeyError(f"no such leaves to exclude: {sorted(unknown)}")
     h = hashlib.sha256()
-    for key in sorted(leaves):
+    for key in sorted(set(leaves) - set(exclude)):
         a = np.ascontiguousarray(leaves[key])
         h.update(f"{key}|{a.dtype.str}|{a.shape}|".encode())
         h.update(a.tobytes())

@@ -1,22 +1,35 @@
-"""The conservative-window simulation engine, batched (commutative) drain.
+"""The conservative-window simulation engine: chained and batched drains.
 
-The counterpart of `shadow_tpu.core.engine` for engines built with a
-`batch_handler`: every host executes its whole below-barrier frontier
-in one [H, B]-shaped handler call per sweep, the sweep's routed emits
-are pushed into the queues, and sweeps repeat until no host has an
-event below the window barrier. Windows open at the global earliest
-event time and are `lookahead` wide.
+The counterpart of `shadow_tpu.core.engine`. Windows open at the global
+earliest executable time and are `lookahead` wide; a window drains in
+sweeps until no host has an event below its barrier.
+
+- The chained drain (`_drain_window`, every engine without a
+  `batch_handler`): each sweep dumps every host's earliest `drain_batch`
+  below-barrier events into an [H, SW] staging buffer; an inner loop
+  then runs, per step, each host's minimum-key staged event through the
+  handler table (`_execute_step`) and appends the routed emits back into
+  staging (`_stage_min`, `_stage_append`), so local follow-up chains run
+  inside one sweep in exact (time, src, seq) order. Leftovers flush to
+  the queues in one push per sweep. With `EngineConfig.burst` set,
+  contiguous same-flow packet arrivals fold into one event at the dump
+  (`_burst_fold`).
+- The batched drain (`_drain_window_batched`, engines built with a
+  `batch_handler`): each sweep executes every host's whole below-barrier
+  frontier in one [H, B]-shaped handler call.
+
+Both drains carry the CPU model (`cpu_cost`): a host's next executable
+instant is its earliest event or, if later, when its virtual CPU frees.
 
 JAX's `lax.while_loop`/`lax.cond` become Python loops and branches on a
-flag read from the device; `Engine.host_syncs` counts those reads. The
-per-window reads are the loop test in `run`/`step_window` and the drain's
-first flag; each sweep adds its drain flag and the push's fallback-round
-decision.
+0-d flag read from the device; `Engine.host_syncs` counts those reads.
+Per window: the loop test in `run`/`step_window` and the drain's first
+flag; per sweep: the sweep's drain flag and the push's fallback-round
+decision, plus, on the chained drain, one read per inner step, the
+inner loop's last test and the flush's narrow-or-full decision.
 
-Not ported (each raises NotImplementedError): the chained and frontier
-drains (an engine without `batch_handler`), tracing, the stats plane,
-the spill ring, burst folding, sharding, faults and the CPU model.
-`ConstantNetwork` has no jitter yet.
+Not ported (each raises NotImplementedError): the frontier drain,
+tracing, the stats plane, the spill ring, sharding and faults.
 """
 
 from __future__ import annotations
@@ -27,26 +40,26 @@ from typing import Any, Callable, Sequence
 import torch
 
 from shadow_tpu_torch.core import rng as srng
+from shadow_tpu_torch.core.device import resolve_device
 from shadow_tpu_torch.core.events import (
     N_ARGS,
     EventQueue,
     Events,
+    pack_srcseq,
     queue_push,
 )
 from shadow_tpu_torch.core.timebase import TIME_INVALID
 
+_I64MAX = (1 << 63) - 1
 
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: `None` means "cuda", and a CUDA
-    device must exist. There is no fallback to the CPU; pass "cpu" to
-    run there."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "shadow_tpu_torch runs on CUDA by default and no CUDA device "
-            "is available; pass device='cpu' to run on the CPU"
-        )
-    return dev
+# Burst-fold length-word layout (the values of `shadow_tpu.core.engine`):
+# low bits the payload total, high bits the folded run's segment count.
+BURST_NSEG_SHIFT = 24
+BURST_LEN_MASK = (1 << BURST_NSEG_SHIFT) - 1
+BURST_NSEG_MAX = 127  # bits 24..30; bit 31 is the i32 sign
+
+# Staging columns the chained flush pushes when no host holds more.
+FLUSH_W = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,7 +69,7 @@ class Emit:
     dst is a global host id, dt a non-negative delay relative to the
     executing event's time. local=True is a same-host task (no routing);
     local=False a network send that the engine routes: path latency,
-    reliability roll, barrier clamp.
+    jitter, reliability roll, barrier clamp.
     """
 
     dst: torch.Tensor  # i32[..., K]
@@ -65,6 +78,54 @@ class Emit:
     args: torch.Tensor  # i32[..., K, N_ARGS]
     mask: torch.Tensor  # bool[..., K]
     local: torch.Tensor  # bool[..., K]
+
+    @staticmethod
+    def none(h: int, k: int, n_args: int = N_ARGS, *, device) -> "Emit":
+        """No events from any of h rows: [h, k] fields, all masked."""
+        z = lambda *s, dtype: torch.zeros(s, dtype=dtype, device=device)
+        return Emit(
+            dst=z(h, k, dtype=torch.int32), dt=z(h, k, dtype=torch.int64),
+            kind=z(h, k, dtype=torch.int32),
+            args=z(h, k, n_args, dtype=torch.int32),
+            mask=z(h, k, dtype=torch.bool), local=z(h, k, dtype=torch.bool),
+        )
+
+    @staticmethod
+    def single(dst, dt, kind, args=None, mask=True, local=False,
+               n_args: int = N_ARGS) -> "Emit":
+        """One event per row: `dst` is an [H] tensor; `dt`, `kind`,
+        `mask` and `local` are [H] tensors or scalars; `args` is None or
+        [H, n] with n <= n_args (the rest are zero). Fields are [H, 1]."""
+        dst = torch.as_tensor(dst)
+        h, dev = dst.shape[0], dst.device
+        col = lambda v, dtype: torch.as_tensor(
+            v, dtype=dtype, device=dev).expand(h).reshape(h, 1)
+        a = torch.zeros((h, 1, n_args), dtype=torch.int32, device=dev)
+        if args is not None:
+            args = torch.as_tensor(args, dtype=torch.int32, device=dev)
+            a[:, 0, :args.shape[1]] = args
+        return Emit(
+            dst=col(dst, torch.int32), dt=col(dt, torch.int64),
+            kind=col(kind, torch.int32), args=a,
+            mask=col(mask, torch.bool), local=col(local, torch.bool),
+        )
+
+    def pad_to(self, k: int) -> "Emit":
+        """Pad the K axis with masked zeros to width k."""
+        ax = self.mask.dim() - 1
+        cur = self.mask.shape[ax]
+        if cur == k:
+            return self
+        if cur > k:
+            raise ValueError(f"handler emitted {cur} > max_emit {k}")
+
+        def pad(a):
+            shape = list(a.shape)
+            shape[ax] = k - cur
+            return torch.cat([a, a.new_zeros(shape)], dim=ax)
+
+        return Emit(**{f.name: pad(getattr(self, f.name))
+                       for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +138,7 @@ class Stats:
     n_windows: torch.Tensor  # i64[]
     n_by_kind: torch.Tensor  # i64[H, NK] executed events per handler kind
     n_sweeps: torch.Tensor  # i64[] drain sweeps (queue merges)
-    n_inner_steps: torch.Tensor  # i64[] (chained drain only; stays 0)
+    n_inner_steps: torch.Tensor  # i64[] chained-drain inner steps
     n_xchg_rounds: torch.Tensor  # i64[] (sharded only; stays 0)
     n_cross_shard: torch.Tensor  # i64[] (sharded only; stays 0)
     n_fault_dropped: torch.Tensor  # i64[H] (faults only; stays 0)
@@ -106,7 +167,7 @@ class EngineState:
     src_seq: torch.Tensor  # i32[H] per-source sequence counters
     exec_cnt: torch.Tensor  # i32[H] per-host executed-event counters (RNG)
     stats: Stats
-    cpu_free: torch.Tensor  # i64[H] (CPU model only; stays 0)
+    cpu_free: torch.Tensor  # i64[H] virtual-CPU available-from time
     fault_epoch: torch.Tensor  # i32[] (faults only; stays 0)
 
 
@@ -130,13 +191,19 @@ class EngineConfig:
     max_emit: int = 2  # K: max events emitted per handler invocation
     n_args: int = N_ARGS
     seed: int = 0
-    drain_batch: int = 32  # B: frontier events executed per host per sweep
+    drain_batch: int = 32  # B: frontier events extracted per host per sweep
+    stage_width: int = 0  # chained-drain staging slots per host (0: B + 4K)
+    # Burst folding (chained drain): contiguous same-flow packet arrivals
+    # staged in one sweep fold into one multi-segment event. None
+    # disables; else the reference's static descriptor
+    #   (kind, seq_arg, len_arg, sport_arg, dport_arg, meta_arg,
+    #    proto, flags_excl_mask, mss, ctl_cols)
+    burst: tuple | None = None
     # knobs of paths this package does not port; any other value raises
     axis_name: str | None = None
     n_shards: int = 1
     trace: int = 0
     spill: int = 0
-    burst: tuple | None = None
     frontier: int = 0
     stats: int = 0
 
@@ -149,29 +216,71 @@ class EngineConfig:
             "n_shards": self.n_shards != 1,
             "trace": self.trace != 0,
             "spill": self.spill != 0,
-            "burst": self.burst is not None,
             "frontier": self.frontier != 0,
             "stats": self.stats != 0,
         }
         for name, set_ in unported.items():
             if set_:
                 raise NotImplementedError(f"EngineConfig.{name} is not ported")
+        if self.burst is not None and self.eff_stage_width > BURST_NSEG_MAX:
+            # the fold packs its run count into bits 24..30 of the length
+            # word; a wider staging buffer could overflow into the sign bit
+            raise ValueError(
+                f"burst folding requires stage_width <= {BURST_NSEG_MAX} "
+                f"(got {self.eff_stage_width})")
+        if (self.stage_width
+                and self.stage_width < self.eff_drain_batch + self.max_emit):
+            # staging must hold a full dump plus one handler's emits
+            raise ValueError(
+                f"stage_width {self.stage_width} < drain_batch "
+                f"{self.eff_drain_batch} + max_emit {self.max_emit}")
 
     @property
     def eff_drain_batch(self) -> int:
         return max(1, min(self.drain_batch, self.capacity))
 
+    @property
+    def eff_stage_width(self) -> int:
+        return self.stage_width or (self.eff_drain_batch + 4 * self.max_emit)
+
 
 class ConstantNetwork:
-    """Uniform complete-graph network: fixed latency and reliability."""
+    """Uniform complete-graph network: fixed latency, reliability and
+    jitter amplitude."""
 
-    def __init__(self, latency_ns: int, reliability: float = 1.0):
+    def __init__(self, latency_ns: int, reliability: float = 1.0,
+                 jitter_ns: int = 0):
         self.latency_ns = latency_ns
         self.reliability = reliability
+        self.jitter_ns = jitter_ns
+        self.has_jitter = jitter_ns > 0
+
+    def route(self, src: torch.Tensor, dst: torch.Tensor):
+        """(latency i64, reliability f32, jitter i64), each shaped like
+        the broadcast of src and dst."""
+        shape = torch.broadcast_shapes(src.shape, dst.shape)
+        full = lambda v, dtype: torch.full(shape, v, dtype=dtype,
+                                           device=src.device)
+        return (full(self.latency_ns, torch.int64),
+                full(self.reliability, torch.float32),
+                full(self.jitter_ns, torch.int64))
+
+
+def _kind_cost(cpu_cost: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
+    """Per-event cost from an [H, NK] table by event kind ([H] or
+    [H, ...] kinds), as a one-hot select."""
+    nk = cpu_cost.shape[-1]
+    kidx = torch.clamp(kind, 0, nk - 1)
+    onehot = kidx[..., None] == torch.arange(nk, dtype=kind.dtype,
+                                             device=kind.device)
+    extra = kidx.dim() - (cpu_cost.dim() - 1)
+    table = cpu_cost.reshape(
+        cpu_cost.shape[:1] + (1,) * extra + cpu_cost.shape[1:])
+    return torch.sum(torch.where(onehot, table, 0), dim=-1)
 
 
 def _select_rows(mask: torch.Tensor, new: Any, old: Any) -> Any:
-    """Per-host select across two model dataclasses of [H, ...] tensors."""
+    """Per-row select across two dataclasses of [H, ...] tensors."""
     def sel(n, o):
         return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)),
                            n, o)
@@ -182,36 +291,103 @@ def _select_rows(mask: torch.Tensor, new: Any, old: Any) -> Any:
     })
 
 
-class Engine:
-    """Window-step / run functions over a batched handler.
+def _take_slots(ev: Events, idx: torch.Tensor) -> Events:
+    """Reorder each row of [H, S] events by the [H, S] index `idx`."""
+    def take(a):
+        if a.dim() == 2:
+            return torch.gather(a, 1, idx)
+        return torch.gather(a, 1, idx[:, :, None].expand(a.shape))
 
-    `batch_handler(hosts, evs, keys) -> (hosts', Emit)` takes the model's
-    host dataclass, Events with [H, B] fields and handler keys
-    [H, B, 2], and returns Emit with [H, B, K] fields. It must fold state
+    return Events(**{f.name: take(getattr(ev, f.name))
+                     for f in dataclasses.fields(ev)})
+
+
+def _pad_slots(a: torch.Tensor, n: int, fill) -> torch.Tensor:
+    """Append n columns of `fill` to the slot axis (dim 1)."""
+    return torch.cat([a, a.new_full((a.shape[0], n) + a.shape[2:], fill)],
+                     dim=1)
+
+
+def _precedes(t, ss, qh_t, qh_ss) -> torch.Tensor:
+    """Whether the key (t, ss) orders strictly before (qh_t, qh_ss)."""
+    return (t < qh_t) | ((t == qh_t) & (ss < qh_ss))
+
+
+def jitter_offset(u: torch.Tensor, jit: torch.Tensor) -> torch.Tensor:
+    """Symmetric latency noise in ns from an f32 uniform u and an i64
+    jitter amplitude: (2u - 1) * jit in f32, truncated toward zero as
+    the reference casts. 2u is exact, so no fused multiply-add can
+    change the f32 product."""
+    return ((u * 2.0 - 1.0) * jit.to(torch.float32)).to(torch.int64)
+
+
+def _one_hot_kind(kind: torch.Tensor, n_kinds: int) -> torch.Tensor:
+    """i64 one-hot of clip(kind) over n_kinds, by compare (torch's
+    one_hot validates its input with a device-to-host read)."""
+    return (torch.clamp(kind, 0, n_kinds - 1)[..., None]
+            == torch.arange(n_kinds, dtype=kind.dtype, device=kind.device)
+            ).to(torch.int64)
+
+
+class Engine:
+    """Window-step / run functions over a handler table.
+
+    `handlers[i](hosts, ev, keys) -> (hosts', Emit)` runs event kind i
+    for every host at once: `hosts` is the model's host dataclass of
+    [H, ...] tensors, `ev` an Events with [H] fields (one event per
+    host; rows with nothing to run carry time = TIME_INVALID and are
+    discarded), `keys` the handler keys [H, 2], and the Emit has [H, K_i]
+    fields with K_i <= max_emit. Each handler runs over all rows and each
+    row keeps the result of its own kind, clipped to the table: the
+    batched form of the reference's vmapped `lax.switch`, which also
+    evaluates every branch. Rows must be independent.
+
+    `batch_handler(hosts, evs, keys) -> (hosts', Emit)`, when given,
+    selects the batched drain: `evs` has [H, B] fields, keys are
+    [H, B, 2] and the Emit has [H, B, K] fields. It must fold state
     commutatively across a frontier and never emit local events below
-    the barrier (the reference's batch_handler contract). `handlers`
-    only sets the number of event kinds (the width of `n_by_kind`).
+    the barrier (the reference's batch_handler contract); `handlers`
+    then only sets the number of event kinds.
+
+    `network.route(src_gid, dst_gid) -> (latency i64, reliability f32,
+    jitter i64)` is the topology; a truthy `network.has_jitter` enables
+    the per-packet jitter roll.
+
+    `cpu_cost`: per-event virtual-CPU nanoseconds by global host id,
+    i64[H] (one cost per event) or i64[H, n_kinds] (per kind); None or
+    all zeros disables the CPU model.
     """
 
     def __init__(self, cfg: EngineConfig, handlers: Sequence[Callable],
-                 network: ConstantNetwork, cpu_cost=None,
+                 network, cpu_cost=None,
                  batch_handler: Callable | None = None, faults=None,
-                 device=None):
-        if batch_handler is None:
-            raise NotImplementedError(
-                "the chained drain is not ported: pass batch_handler")
-        if cpu_cost is not None:
-            raise NotImplementedError("the CPU model is not ported")
+                 frontier_kinds=None, device=None):
         if faults is not None:
             raise NotImplementedError("fault schedules are not ported")
+        if frontier_kinds is not None:
+            raise NotImplementedError("the frontier drain is not ported")
         self.cfg = cfg
-        self.n_kinds = len(handlers)
+        self.handlers = tuple(handlers)
+        self.n_kinds = len(self.handlers)
         self.network = network
         self.batch_handler = batch_handler
         self.device = resolve_device(device)
         self._base_key = srng.root_key(cfg.seed, self.device)
-        self._rel = torch.tensor(network.reliability, dtype=torch.float32,
-                                 device=self.device)
+        hg, nk = cfg.n_hosts * cfg.n_shards, self.n_kinds
+        if cpu_cost is None:
+            cpu_cost = torch.zeros((hg, nk), dtype=torch.int64)
+        cpu_cost = torch.as_tensor(cpu_cost).to(device=self.device,
+                                                dtype=torch.int64)
+        if tuple(cpu_cost.shape) not in ((hg,), (hg, nk)):
+            raise ValueError(
+                f"cpu_cost must be [H_global]={hg} or [H_global, "
+                f"n_kinds]=({hg}, {nk}), got shape {tuple(cpu_cost.shape)}")
+        if cpu_cost.dim() == 1:
+            cpu_cost = cpu_cost[:, None].expand(hg, nk)
+        self.cpu_cost = cpu_cost
+        # build-time flags, as in the reference: one host read each
+        self._cpu_enabled = bool(torch.any(cpu_cost != 0))
+        self._use_jitter = bool(getattr(network, "has_jitter", False))
         self.host_syncs = 0
 
     def _read(self, flag: torch.Tensor) -> bool:
@@ -251,17 +427,22 @@ class Engine:
     def _route(self, emit: Emit, base_time, gids, window_end, rkeys, emask,
                seq):
         """Route an [N, K] emit batch: local tasks keep their time; network
-        sends add path latency, roll reliability and clamp to the window
-        barrier. Returns (Events[N, K], final_mask, dropped)."""
+        sends add path latency (+ jitter, rolled on lane offset K), roll
+        reliability (lane offset 0) and clamp to the window barrier.
+        Returns (Events[N, K], final_mask, dropped)."""
         n, k = emit.dst.shape
         self_gid = gids[:, None]
         is_local = emit.local
         dst = torch.where(is_local, self_gid, emit.dst)
         dt = torch.clamp(emit.dt, min=0)
+        lat, rel, jit = self.network.route(self_gid.expand(n, k), dst)
         t = base_time[:, None] + dt
-        t_remote = torch.clamp(t + self.network.latency_ns, min=window_end)
+        if self._use_jitter:
+            uj = srng.uniform_lanes(rkeys, k, k)
+            lat = torch.clamp(lat + jitter_offset(uj, jit), min=0)
+        t_remote = torch.maximum(t + lat, window_end)
         u = srng.uniform_lanes(rkeys, k, 0)
-        dropped = ~is_local & (u >= self._rel) & emask
+        dropped = ~is_local & (u >= rel) & emask
         t = torch.where(is_local, t, t_remote)
         final_mask = emask & ~dropped
         out = Events(
@@ -274,22 +455,343 @@ class Engine:
         )
         return out, final_mask, dropped
 
-    # -- the batched drain ---------------------------------------------------
-    def _drain_flag(self, q: EventQueue, window_end) -> torch.Tensor:
-        """True while any host still has an event below the barrier."""
-        return torch.any(q.min_time() < window_end)
+    def _drain_flag(self, q: EventQueue, cpu_free, window_end
+                    ) -> torch.Tensor:
+        """True while any host still has an executable event below the
+        barrier (CPU permitting)."""
+        nxt = q.min_time()
+        if self._cpu_enabled:
+            nxt = torch.maximum(nxt, cpu_free)
+        return torch.any(nxt < window_end)
 
+    # -- the chained drain: one event per host per inner step ----------------
+    def _execute_step(self, hosts, src_seq, exec_cnt, stats, ev: Events,
+                      active: torch.Tensor, window_end, gids):
+        """Run the handler table for one event per host (rows masked by
+        `active`) and route the emits. Returns (hosts', src_seq',
+        exec_cnt', stats', routed Events[H, K], final_mask[H, K])."""
+        k = self.cfg.max_emit
+        hkeys, rkeys = srng.event_keys(self._base_key, gids, exec_cnt)
+        idx = torch.clamp(ev.kind, 0, self.n_kinds - 1)
+        hosts2 = emit = None
+        for i, fn in enumerate(self.handlers):
+            hs_i, em_i = fn(hosts, ev, hkeys)
+            em_i = em_i.pad_to(k)
+            if hosts2 is None:
+                hosts2, emit = hs_i, em_i
+            else:
+                sel = idx == i
+                hosts2 = _select_rows(sel, hs_i, hosts2)
+                emit = _select_rows(sel, em_i, emit)
+        hosts = _select_rows(active, hosts2, hosts)
+        emask = emit.mask & active[:, None]
+
+        # per-source sequence numbers, dense over the masked emits
+        inc = emask.to(torch.int32)
+        within = torch.cumsum(inc, dim=1, dtype=torch.int32) - inc
+        seq = src_seq[:, None] + within
+        src_seq = src_seq + torch.sum(inc, dim=1, dtype=torch.int32)
+
+        out, final_mask, dropped = self._route(
+            emit, ev.time, gids, window_end, rkeys, emask, seq)
+        exec_cnt = exec_cnt + active.to(torch.int32)
+        stats = dataclasses.replace(
+            stats,
+            n_executed=stats.n_executed + active,
+            n_emitted=stats.n_emitted + torch.sum(inc, dim=1,
+                                                  dtype=torch.int64),
+            n_net_dropped=stats.n_net_dropped + torch.sum(
+                dropped, dim=1, dtype=torch.int64),
+            n_by_kind=stats.n_by_kind + _one_hot_kind(
+                ev.kind, self.n_kinds) * active[:, None],
+        )
+        return hosts, src_seq, exec_cnt, stats, out, final_mask
+
+    def _burst_fold(self, stage: Events) -> Events:
+        """Collapse contiguous same-flow arrival runs in [H, SW] staging.
+
+        Each host's staged events are sorted by (flow key, tcp seq); a
+        run of eligible events whose seqs chain by +1 (every segment
+        before the last full-MSS) folds into its head: length word =
+        total | (count << 24), time = run min, control words from the
+        run's last member. Absorbed slots clear. Slot order afterwards is
+        arbitrary, which staging permits.
+        """
+        (kind, seq_a, len_a, sport_a, dport_a, meta_a, proto, flags_x,
+         mss, ctl_cols) = self.cfg.burst
+        t = stage.time
+        h, sw = t.shape
+        dev = t.device
+        meta = stage.args[:, :, meta_a]
+        ln = stage.args[:, :, len_a]
+        elig = (
+            (t != TIME_INVALID)
+            & (stage.kind == kind)
+            & ((meta & 0x3) == proto)
+            & ((meta & flags_x) == 0)
+            & (ln > 0) & (ln <= mss)
+        )
+        slot = torch.arange(sw, dtype=torch.int64, device=dev)[None, :]
+        flow = (
+            (stage.src.to(torch.int64) << 32)
+            | (stage.args[:, :, sport_a].to(torch.int64) << 16)
+            | stage.args[:, :, dport_a].to(torch.int64)
+        )
+        tail = _I64MAX - sw  # ineligible slots key past every flow, stably
+        k1 = torch.where(elig, flow, tail + slot)
+        k2 = torch.where(elig, stage.args[:, :, seq_a].to(torch.int64), 0)
+        # lax.sort(num_keys=2) as two stable sorts, minor key first
+        o = torch.sort(k2, dim=1, stable=True).indices
+        o = torch.gather(o, 1, torch.sort(torch.gather(k1, 1, o), dim=1,
+                                          stable=True).indices)
+        k1, k2 = torch.gather(k1, 1, o), torch.gather(k2, 1, o)
+        srt = _take_slots(stage, o)
+        t2 = srt.time
+        acols = [srt.args[:, :, i] for i in range(srt.args.shape[2])]
+        ln2 = acols[len_a]
+        elig2 = k1 < tail  # eligibility survives the sort via k1
+
+        def prev(a, fill):
+            return torch.cat([torch.full_like(a[:, :1], fill), a[:, :-1]], 1)
+
+        # column 0 never continues a run (prev(elig2) is False there), so
+        # the k2 fill only has to keep `+ 1` from overflowing
+        contig = (
+            elig2
+            & prev(elig2, False)
+            & (k1 == prev(k1, -1))
+            & (k2 == prev(k2, 0) + 1)
+            & (prev(ln2, 0) == mss)  # only a run's LAST segment may be short
+        )
+        start = elig2 & ~contig
+        run = torch.cumsum(start.to(torch.int32), dim=1, dtype=torch.int32)
+        same = (
+            (run[:, :, None] == run[:, None, :])
+            & elig2[:, :, None] & elig2[:, None, :]
+        )  # [H, SW, SW]
+        count = torch.sum(same, dim=2, dtype=torch.int32)
+        total = torch.sum(torch.where(same, ln2[:, None, :], 0), dim=2,
+                          dtype=ln2.dtype)
+        tmin = torch.min(torch.where(same, t2[:, None, :], _I64MAX),
+                         dim=2).values
+        folded_head = start & (count > 1)
+        absorbed = elig2 & contig & (count > 1)
+        acols[len_a] = torch.where(
+            folded_head, total | (count << BURST_NSEG_SHIFT), ln2)
+        # the head takes the run's last member's control words as one
+        # consistent snapshot
+        idx2 = torch.arange(sw, dtype=torch.int32, device=dev)[None, None, :]
+        endpos = torch.max(torch.where(same, idx2, -1), dim=2).values
+        at_end = (idx2 == endpos[:, :, None]) & same
+        for col in ctl_cols:
+            v = acols[col]
+            vend = torch.sum(torch.where(at_end, v[:, None, :], 0), dim=2,
+                             dtype=v.dtype)
+            acols[col] = torch.where(folded_head, vend, v)
+        return dataclasses.replace(
+            srt,
+            time=torch.where(absorbed, TIME_INVALID,
+                             torch.where(folded_head, tmin, t2)),
+            args=torch.stack(acols, dim=-1),
+        )
+
+    @staticmethod
+    def _stage_min(stage: Events):
+        """Per host, the minimum-(time, src, seq) staged event.
+
+        Returns (ev: Events with [H] fields, mss i64[H] the packed
+        (src, seq) key of that event, onehot bool[H, S] selecting its
+        slot, valid_cnt i32[H]). Empty rows yield time = TIME_INVALID.
+        """
+        t = stage.time
+        s = t.shape[1]
+        mt = torch.min(t, dim=1).values
+        cand = t == mt[:, None]
+        ss = pack_srcseq(stage.src, stage.seq)
+        ssm = torch.where(cand, ss, _I64MAX)
+        mss = torch.min(ssm, dim=1).values
+        sel = cand & (ssm == mss[:, None])
+        # first selected slot; (time, src, seq) is unique among events
+        first = torch.argmax(sel.to(torch.int32), dim=1)
+        onehot = (torch.arange(s, device=t.device)[None, :]
+                  == first[:, None])
+
+        def pick(a):
+            m = onehot.reshape(onehot.shape + (1,) * (a.dim() - 2))
+            return torch.sum(torch.where(m, a, 0), dim=1, dtype=a.dtype)
+
+        ev = Events(time=mt, dst=pick(stage.dst), src=pick(stage.src),
+                    seq=pick(stage.seq), kind=pick(stage.kind),
+                    args=pick(stage.args))
+        valid_cnt = torch.sum(t != TIME_INVALID, dim=1, dtype=torch.int32)
+        return ev, mss, onehot, valid_cnt
+
+    @staticmethod
+    def _stage_append(stage: Events, out: Events) -> Events:
+        """Append a routed [H, K] emit batch into each host's free staging
+        slots by rank matching: the j-th valid emit lands in the j-th
+        free slot (two cumsum rank scans + one [H, S, K] compare). The
+        caller's high-water gate guarantees K free slots per row."""
+        i32 = torch.int32
+        free = stage.time == TIME_INVALID  # [H, S]
+        fr = torch.cumsum(free.to(i32), dim=1, dtype=i32) - free.to(i32)
+        valid = out.time != TIME_INVALID  # [H, K]
+        er = torch.cumsum(valid.to(i32), dim=1, dtype=i32) - valid.to(i32)
+        match = (
+            (fr[:, :, None] == er[:, None, :])
+            & free[:, :, None]
+            & valid[:, None, :]
+        )  # [H, S, K]; at most one True per (row, slot) and per emit
+        hit = torch.any(match, dim=2)
+
+        def put(cur, new):  # [H, S](, A) <- [H, K](, A)
+            if cur.dim() == 2:
+                sel = torch.sum(torch.where(match, new[:, None, :], 0),
+                                dim=2, dtype=new.dtype)
+                return torch.where(hit, sel, cur)
+            sel = torch.sum(
+                torch.where(match[..., None], new[:, None, :, :], 0),
+                dim=2, dtype=new.dtype)
+            return torch.where(hit[..., None], sel, cur)
+
+        return Events(**{f.name: put(getattr(stage, f.name),
+                                     getattr(out, f.name))
+                         for f in dataclasses.fields(stage)})
+
+    def _drain_window(self, st: EngineState, window_end, host0: int
+                      ) -> EngineState:
+        """Drain every event below `window_end`: the chained drain, or
+        the batched one for engines with a batch_handler."""
+        if self.batch_handler is not None:
+            return self._drain_window_batched(st, window_end, host0)
+        cfg, dev = self.cfg, self.device
+        h, k, c = cfg.n_hosts, cfg.max_emit, cfg.capacity
+        b = cfg.eff_drain_batch
+        sw = max(cfg.eff_stage_width, b + k)
+        gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
+        cpu_cost = self.cpu_cost[gids.long()]  # [H, NK]
+        cols = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+        q, hosts, stats = st.queues, st.hosts, st.stats
+        src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
+
+        while self._read(self._drain_flag(q, cpu_free, window_end)):
+            # 1. dump each host's earliest-b below-barrier prefix into
+            # staging and clear it from the queue
+            bvalid = q.time[:, :b] < window_end
+            ndump = torch.sum(bvalid, dim=1, dtype=torch.int32)
+            pad = sw - b
+            stage = Events(
+                time=_pad_slots(torch.where(bvalid, q.time[:, :b],
+                                            TIME_INVALID), pad, TIME_INVALID),
+                dst=_pad_slots(gids[:, None].expand(h, b), pad, 0),
+                src=_pad_slots(q.src[:, :b], pad, 0),
+                seq=_pad_slots(q.seq[:, :b], pad, 0),
+                kind=_pad_slots(q.kind[:, :b], pad, 0),
+                args=_pad_slots(q.args[:, :b], pad, 0),
+            )
+            q = dataclasses.replace(q, time=torch.where(
+                cols < ndump[:, None], TIME_INVALID, q.time))
+            if cfg.burst is not None:
+                # the dump precedes the queue head, so folding inside it
+                # cannot violate the head guard
+                stage = self._burst_fold(stage)
+
+            # queue-head guard: the first un-dumped event's key per host;
+            # a staged event runs only while it orders before it
+            headsel = cols == ndump[:, None]
+            qh_t = torch.min(torch.where(headsel, q.time, _I64MAX),
+                             dim=1).values
+            qh_ss = torch.min(torch.where(
+                headsel & (q.time != TIME_INVALID),
+                pack_srcseq(q.src, q.seq), _I64MAX), dim=1).values
+
+            def runnable(sm, cpu_free):
+                """Rows whose minimum staged event runs this step: below
+                the barrier (CPU permitting), before the queue head, and
+                with append headroom (the high-water gate)."""
+                ev, mss, _oh, cnt = sm
+                eff_t = (torch.maximum(ev.time, cpu_free)
+                         if self._cpu_enabled else ev.time)
+                active = ((ev.time != TIME_INVALID) & (eff_t < window_end)
+                          & _precedes(ev.time, mss, qh_t, qh_ss)
+                          & (cnt + k <= sw))
+                return active, eff_t
+
+            # 2. chained execution, one staged event per host per step
+            sm = self._stage_min(stage)
+            active, eff_t = runnable(sm, cpu_free)
+            while self._read(torch.any(active)):
+                ev, _mss, onehot, _cnt = sm
+                stage = dataclasses.replace(stage, time=torch.where(
+                    onehot & active[:, None], TIME_INVALID, stage.time))
+                ev = dataclasses.replace(
+                    ev, time=torch.where(active, eff_t, TIME_INVALID),
+                    dst=gids)
+                hosts, src_seq, exec_cnt, stats, out, _ = \
+                    self._execute_step(hosts, src_seq, exec_cnt, stats, ev,
+                                       active, window_end, gids)
+                if self._cpu_enabled:
+                    ev_cost = _kind_cost(cpu_cost, ev.kind)
+                    if cfg.burst is not None:
+                        # a folded arrival pays per segment; zero-payload
+                        # count carriers are one packet
+                        bkind, _sq, blen = cfg.burst[:3]
+                        lw = ev.args[:, blen]
+                        nseg = torch.where(
+                            (lw & BURST_LEN_MASK) > 0,
+                            torch.clamp(lw >> BURST_NSEG_SHIFT, min=1), 1)
+                        ev_cost = ev_cost * torch.where(
+                            ev.kind == bkind, nseg.to(ev_cost.dtype), 1)
+                    cpu_free = torch.where(active & (ev_cost > 0),
+                                           eff_t + ev_cost, cpu_free)
+                stage = self._stage_append(stage, out)
+                stats = dataclasses.replace(
+                    stats, n_inner_steps=stats.n_inner_steps + 1)
+                sm = self._stage_min(stage)
+                active, eff_t = runnable(sm, cpu_free)
+
+            # 3. flush the leftovers: a (time, src, seq) row sort compacts
+            # them to a prefix; push FLUSH_W columns unless a row holds more
+            skey = pack_srcseq(stage.src, stage.seq)
+            o = torch.sort(skey, dim=1, stable=True).indices
+            o = torch.gather(o, 1, torch.sort(
+                torch.gather(stage.time, 1, o), dim=1, stable=True).indices)
+            stage = _take_slots(stage, o)
+            w1 = min(sw, FLUSH_W)
+            if w1 < sw and not self._read(torch.max(torch.sum(
+                    stage.time != TIME_INVALID, dim=1, dtype=torch.int32))
+                    > w1):
+                stage = Events(**{f.name: getattr(stage, f.name)[:, :w1]
+                                  for f in dataclasses.fields(stage)})
+            flat = stage.flatten()
+            q = queue_push(q, flat, flat.time != TIME_INVALID, host0,
+                           self._read)
+            stats = dataclasses.replace(stats,
+                                        n_sweeps=stats.n_sweeps + 1)
+
+        return dataclasses.replace(
+            st, queues=q, hosts=hosts, src_seq=src_seq, exec_cnt=exec_cnt,
+            stats=dataclasses.replace(stats,
+                                      n_windows=stats.n_windows + 1),
+            cpu_free=cpu_free,
+        )
+
+    # -- the batched drain ---------------------------------------------------
     def _sweep(self, st: EngineState, window_end, host0: int) -> EngineState:
         """One sweep: execute every host's below-barrier frontier in one
         handler call, route the emits, clear the frontier, push."""
         cfg, dev = self.cfg, self.device
         h, k, c = cfg.n_hosts, cfg.max_emit, cfg.capacity
         b = cfg.eff_drain_batch
-        q = st.queues
+        q, cpu_free = st.queues, st.cpu_free
         gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
         gids_hb = gids[:, None].expand(h, b)
         bt = q.time[:, :b]
         run = bt < window_end  # a prefix: rows are key-sorted
+        if self._cpu_enabled:
+            # a host whose virtual CPU is busy past the barrier runs
+            # nothing this window
+            run = run & (cpu_free[:, None] < window_end)
         evs = Events(
             time=torch.where(run, bt, TIME_INVALID),
             dst=gids_hb,
@@ -326,12 +828,6 @@ class Engine:
             flat(seq),
         )
         s = st.stats
-        # one-hot by compare (torch's one_hot validates its input with a
-        # device-to-host read)
-        kind_hot = (
-            torch.clamp(evs.kind, 0, self.n_kinds - 1)[:, :, None]
-            == torch.arange(self.n_kinds, dtype=torch.int32, device=dev)
-        ).to(torch.int64)
         stats = dataclasses.replace(
             s,
             n_executed=s.n_executed + n_run,
@@ -339,9 +835,20 @@ class Engine:
             n_net_dropped=s.n_net_dropped + torch.sum(
                 dropped.reshape(h, b * k), dim=1, dtype=torch.int64),
             n_by_kind=s.n_by_kind + torch.sum(
-                kind_hot * run[:, :, None], dim=1),
+                _one_hot_kind(evs.kind, self.n_kinds) * run[:, :, None],
+                dim=1),
             n_sweeps=s.n_sweeps + 1,
         )
+        if self._cpu_enabled:
+            # the frontier's summed per-kind costs advance cpu_free past
+            # its last executed event
+            cpu_cost = self.cpu_cost[gids.long()]
+            total = torch.sum(
+                torch.where(run, _kind_cost(cpu_cost, evs.kind), 0), dim=1)
+            t_last = torch.max(torch.where(run, bt, 0), dim=1).values
+            cpu_free = torch.where(total > 0,
+                                   torch.maximum(cpu_free, t_last) + total,
+                                   cpu_free)
         cleared = (torch.arange(c, dtype=torch.int32, device=dev)[None, :]
                    < n_run[:, None])
         q = dataclasses.replace(
@@ -350,27 +857,34 @@ class Engine:
                        self._read)
         return dataclasses.replace(
             st, queues=q, hosts=hosts, src_seq=src_seq,
-            exec_cnt=st.exec_cnt + n_run, stats=stats,
+            exec_cnt=st.exec_cnt + n_run, stats=stats, cpu_free=cpu_free,
         )
 
     def _drain_window_batched(self, st: EngineState, window_end,
                               host0: int) -> EngineState:
-        """Sweep until no host has an event below `window_end`."""
-        while self._read(self._drain_flag(st.queues, window_end)):
+        """Sweep until no host has an executable event below
+        `window_end`."""
+        while self._read(self._drain_flag(st.queues, st.cpu_free,
+                                          window_end)):
             st = self._sweep(st, window_end, host0)
         return dataclasses.replace(st, stats=dataclasses.replace(
             st.stats, n_windows=st.stats.n_windows + 1))
 
     # -- windows -------------------------------------------------------------
     def _next_time(self, st: EngineState) -> torch.Tensor:
-        """Global earliest pending event time (TIME_INVALID when empty)."""
-        return torch.min(st.queues.min_time())
+        """Global earliest executable time: per host the earliest pending
+        event, deferred to when its virtual CPU frees (TIME_INVALID when
+        every queue is empty)."""
+        nxt = st.queues.min_time()
+        if self._cpu_enabled:
+            nxt = torch.maximum(nxt, st.cpu_free)
+        return torch.min(nxt)
 
     def _advance(self, st: EngineState, nxt, stop, host0: int
                  ) -> EngineState:
         """Open the window [nxt, min(nxt + lookahead, stop)) and drain it."""
         window_end = torch.clamp(nxt + self.cfg.lookahead, max=stop)
-        st = self._drain_window_batched(st, window_end, host0)
+        st = self._drain_window(st, window_end, host0)
         return dataclasses.replace(st, now=window_end)
 
     def _stop(self, stop) -> torch.Tensor:

@@ -68,14 +68,23 @@ def root_key(seed: int, device) -> torch.Tensor:
     return torch.tensor([x0, x1], dtype=torch.int64, device=device)
 
 
+def _children(k0, k1, c0, c1) -> tuple[torch.Tensor, ...]:
+    """Keys threefry(k, (c0[i], c1[i])) for the n counter pairs of the
+    1-d tensors c0, c1, elementwise over k's batch shape: the n sibling
+    derivations run as one cipher pass over a trailing axis of n."""
+    x0, x1 = threefry2x32(k0[..., None], k1[..., None], c0, c1)
+    return tuple(_key(x0[..., i], x1[..., i]) for i in range(c0.shape[0]))
+
+
 def event_keys(base: torch.Tensor, host_gids: torch.Tensor,
                exec_cnt: torch.Tensor):
     """Per-event (handler_key, route_key), each int64[..., 2]."""
     g = host_gids.to(torch.int64) & _M32
     c = exec_cnt.to(torch.int64) & _M32
     a, b = threefry2x32(base[..., 0], base[..., 1], g, c ^ _DOM_EVENT)
-    hk = _key(*threefry2x32(a, b, 0, _DOM_HANDLER))
-    rk = _key(*threefry2x32(a, b, 0, _DOM_ROUTE))
+    two = torch.arange(2, dtype=torch.int64, device=g.device)
+    hk, rk = _children(a, b, two * 0,
+                       _DOM_HANDLER + two * (_DOM_ROUTE - _DOM_HANDLER))
     return hk, rk
 
 
@@ -87,10 +96,8 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
 
 def split(key: torch.Tensor, n: int):
     """n child keys (tuple), elementwise over any leading batch shape."""
-    return tuple(
-        _key(*threefry2x32(key[..., 0], key[..., 1], i, _DOM_SPLIT))
-        for i in range(n)
-    )
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    return _children(key[..., 0], key[..., 1], i, i * 0 + _DOM_SPLIT)
 
 
 def _bits(key: torch.Tensor, c0=0, c1=0) -> torch.Tensor:

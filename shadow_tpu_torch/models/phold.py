@@ -1,10 +1,12 @@
-"""PHOLD: the classic parallel-DES benchmark, on the batched drain.
+"""PHOLD: the classic parallel-DES benchmark.
 
-The counterpart of `shadow_tpu.models.phold` with `batched=True`. On
-receiving a message a host picks a random peer (uniform, or skewed to
-the first `hot_hosts` with probability `hot_weight`) and sends it a new
-message after an exponential service delay. Every draw comes from the
-event's threefry key, so the run is bit-identical to the reference.
+The counterpart of `shadow_tpu.models.phold`, on either drain: the
+chained one (`make_handler`, the default) or the batched one
+(`make_batch_handler`, `batched=True`). On receiving a message a host
+picks a random peer (uniform, or skewed to the first `hot_hosts` with
+probability `hot_weight`) and sends it a new message after an
+exponential service delay. Every draw comes from the event's threefry
+key, so the run is bit-identical to the reference.
 """
 
 from __future__ import annotations
@@ -14,12 +16,12 @@ import dataclasses
 import torch
 
 from shadow_tpu_torch.core import rng as srng
+from shadow_tpu_torch.core.device import resolve_device
 from shadow_tpu_torch.core.engine import (
     ConstantNetwork,
     Emit,
     Engine,
     EngineConfig,
-    resolve_device,
 )
 from shadow_tpu_torch.core.events import Events
 from shadow_tpu_torch.core.timebase import MILLISECOND, TIME_INVALID
@@ -58,6 +60,26 @@ def _make_draw(n_hosts_global, mean_delay_ns, hot_hosts, hot_weight):
         return peer, delay
 
     return draw
+
+
+def make_handler(
+    n_hosts_global: int,
+    mean_delay_ns: int,
+    hot_hosts: int = 0,
+    hot_weight: float = 0.0,
+):
+    """PHOLD message handler for the chained drain: one event per host,
+    on [H] tensors; the engine keeps the rows it ran."""
+
+    draw = _make_draw(n_hosts_global, mean_delay_ns, hot_hosts, hot_weight)
+
+    def on_msg(hs: PholdHost, ev: Events, keys: torch.Tensor):
+        peer, delay = draw(keys)
+        hs = PholdHost(n_received=hs.n_received + 1)
+        return hs, Emit.single(dst=peer, dt=delay, kind=KIND_MSG,
+                               n_args=N_PHOLD_ARGS)
+
+    return on_msg
 
 
 def make_batch_handler(
@@ -103,18 +125,17 @@ def build(
     msgs_per_host: int = 1,
     seed: int = 0,
     drain_batch: int = 24,
-    batched: bool = True,
+    batched: bool = False,
     device=None,
 ):
-    """Build (engine, init) for an n_hosts PHOLD network on the batched
-    drain; `init(host0=0)` returns the initial EngineState.
+    """Build (engine, init) for an n_hosts PHOLD network; `init(host0=0)`
+    returns the initial EngineState.
 
     The 50 ms single-PoI topology matches the reference's stock config.
-    `device=None` runs on CUDA; `batched=False` (the chained drain) is
-    not ported and raises.
+    `batched` selects the batched drain (whole frontiers per handler
+    call); the state is bit-identical either way, apart from the
+    scheduler counters. `device=None` runs on CUDA.
     """
-    if not batched:
-        raise NotImplementedError("the chained drain is not ported")
     dev = resolve_device(device)
     cfg = EngineConfig(
         n_hosts=n_hosts,
@@ -127,10 +148,11 @@ def build(
     )
     eng = Engine(
         cfg,
-        [None],  # one event kind: KIND_MSG
+        [make_handler(n_hosts, mean_delay_ns, hot_hosts, hot_weight)],
         ConstantNetwork(latency_ns),
-        batch_handler=make_batch_handler(
-            n_hosts, mean_delay_ns, hot_hosts, hot_weight),
+        batch_handler=(make_batch_handler(
+            n_hosts, mean_delay_ns, hot_hosts, hot_weight)
+            if batched else None),
         device=dev,
     )
 

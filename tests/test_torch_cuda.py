@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_toy
 from shadow_tpu_torch import convert
 from shadow_tpu_torch.core import merge
 from shadow_tpu_torch.models import phold
@@ -54,7 +55,7 @@ def test_phold_on_cuda_matches_cpu(kw):
     _need_card()
     states = {}
     for dev in ("cuda", "cpu"):
-        eng, init = phold.build(32, device=dev, **kw)
+        eng, init = phold.build(32, device=dev, batched=True, **kw)
         before = merge.launches
         st = eng.run(init(), 2 * chip_smoke.SECOND)
         states[dev] = convert.engine_state_to_numpy(st)
@@ -63,6 +64,36 @@ def test_phold_on_cuda_matches_cpu(kw):
     assert states["cuda"].keys() == states["cpu"].keys()
     for key, a in states["cpu"].items():
         np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
+
+
+def test_chained_phold_on_cuda_matches_cpu():
+    """PHOLD on the chained drain (the default build) on the card equals
+    the CPU run, through the kernel."""
+    _need_card()
+    states = {}
+    for dev in ("cuda", "cpu"):
+        eng, init = phold.build(32, device=dev, msgs_per_host=4, seed=3)
+        before = merge.launches
+        states[dev] = convert.engine_state_to_numpy(
+            eng.run(init(), 2 * chip_smoke.SECOND))
+        if dev == "cuda":
+            assert merge.launches - before >= int(
+                states[dev]["stats.n_sweeps"]) > 0
+    for key, a in states["cpu"].items():
+        np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
+
+
+def test_chained_toy_on_cuda_matches_cpu():
+    """The two-kind toy (local chains, queue-head guard, high-water gate,
+    full-width flush) on the card equals the CPU run, which
+    tests/test_torch_chained.py holds against the JAX reference."""
+    _need_card()
+    _, on_card = torch_toy.run_torch_toy("hot-peers", device="cuda")
+    _, on_cpu = torch_toy.run_torch_toy("hot-peers", device="cpu")
+    assert on_card.keys() == on_cpu.keys()
+    for key, a in on_cpu.items():
+        np.testing.assert_array_equal(on_card[key], a, err_msg=key)
+    assert on_cpu["stats.n_inner_steps"] > on_cpu["stats.n_windows"]
 
 
 def test_plan_layout_agrees_with_the_kernel():

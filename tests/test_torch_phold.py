@@ -1,11 +1,11 @@
-"""Batched PHOLD in shadow_tpu_torch against shadow_tpu, leaf for leaf.
+"""PHOLD in shadow_tpu_torch against shadow_tpu, leaf for leaf.
 
-Both packages build the same PHOLD network (the reference with
-`batched=True`), run it on the CPU, and every final EngineState leaf
-must be equal, dtype included, through `shadow_tpu_torch.convert`.
-The slow test runs the bench shape (4096 hosts x 8 messages, 20
-sim-seconds) and recomputes the JAX/CPU pins that chip_smoke.py holds
-the card to.
+Both packages build the same PHOLD network (here on the batched drain;
+tests/test_torch_chained.py holds the chained one), run it on the CPU,
+and every final EngineState leaf must be equal, dtype included, through
+`shadow_tpu_torch.convert`. The slow tests run the bench shape (4096
+hosts x 8 messages) on both drains and recompute the JAX/CPU pins that
+chip_smoke.py holds the card to.
 """
 
 import functools
@@ -42,17 +42,17 @@ def assert_leaves_equal(lj: dict, lt: dict):
 
 
 @functools.lru_cache(maxsize=None)
-def jax_phold(n_hosts, **kw):
+def jax_phold(n_hosts, batched=True, **kw):
     """(jitted run, initial state) of the reference, one compile per
     configuration for the whole file."""
-    eng, init = jphold.build(n_hosts, batched=True, **kw)
+    eng, init = jphold.build(n_hosts, batched=batched, **kw)
     return jax.jit(eng.run), init()
 
 
-def run_both(n_hosts, stop_ns, **kw):
-    run, init = jax_phold(n_hosts, **kw)
+def run_both(n_hosts, stop_ns, batched=True, **kw):
+    run, init = jax_phold(n_hosts, batched, **kw)
     lj = jax_leaves(run(init, jnp.int64(stop_ns)))
-    et, it = tphold.build(n_hosts, device="cpu", **kw)
+    et, it = tphold.build(n_hosts, batched=batched, device="cpu", **kw)
     lt = convert.engine_state_to_numpy(et.run(it(), stop_ns))
     return lj, lt
 
@@ -124,7 +124,7 @@ def test_unreliable_network_matches_reference():
 def test_step_window_matches_run_and_reference():
     stop = 1 * SECOND
     run, init = jax_phold(64, **BASE)
-    et, it = tphold.build(64, device="cpu", **BASE)
+    et, it = tphold.build(64, batched=True, device="cpu", **BASE)
     st = it()
     steps = 0
     while int(st.now) < stop:
@@ -143,7 +143,7 @@ def test_step_window_matches_run_and_reference():
 def test_state_carries_across_packages():
     """A reference state converted mid-run continues bit-identically."""
     run, init = jax_phold(64, **BASE)
-    et, _ = tphold.build(64, device="cpu", **BASE)
+    et, _ = tphold.build(64, batched=True, device="cpu", **BASE)
     mid = run(init, jnp.int64(SECOND))
     st = convert.engine_state_from_numpy(jax_leaves(mid), "cpu")
     assert_leaves_equal(jax_leaves(mid), convert.engine_state_to_numpy(st))
@@ -153,26 +153,34 @@ def test_state_carries_across_packages():
 
 def test_state_summary_matches_reference():
     run, init = jax_phold(64, **BASE)
-    et, it = tphold.build(64, device="cpu", **BASE)
+    et, it = tphold.build(64, batched=True, device="cpu", **BASE)
     want = jengine.state_summary(run(init, jnp.int64(SECOND)))
     assert tengine.state_summary(et.run(it(), SECOND)) == want
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError):
-        tphold.build(8, batched=False, device="cpu")
     for knob in (dict(trace=4), dict(spill=8), dict(frontier=2),
-                 dict(stats=1), dict(n_shards=2), dict(axis_name="x"),
-                 dict(burst=(0,))):
+                 dict(stats=1), dict(n_shards=2), dict(axis_name="x")):
         with pytest.raises(NotImplementedError):
             tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, **knob)
     cfg = tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1)
     net = tengine.ConstantNetwork(1)
     with pytest.raises(NotImplementedError):
-        tengine.Engine(cfg, [None], net, device="cpu")
+        tengine.Engine(cfg, [None], net, faults=object(), device="cpu")
     with pytest.raises(NotImplementedError):
-        tengine.Engine(cfg, [None], net, cpu_cost=[1, 1, 1, 1],
-                       batch_handler=lambda *a: a, device="cpu")
+        tengine.Engine(cfg, [None], net, frontier_kinds=(0,), device="cpu")
+    # the chained drain, the CPU model and burst folding are ported
+    tengine.Engine(cfg, [None], net, cpu_cost=[1, 1, 1, 1], device="cpu")
+    tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, burst=(0,))
+    tphold.build(8, batched=False, device="cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def bench_run(n_hosts, batched):
+    """The bench shape for 20 sim-s in both packages (cached for the
+    slow tests, which share the batched 4096 run)."""
+    return run_both(n_hosts, chip_smoke.BENCH_STOP_NS, batched,
+                    **chip_smoke.BENCH)
 
 
 @pytest.mark.slow
@@ -185,11 +193,47 @@ def test_bench_shape_parity_and_pins(n_hosts, pin):
     20 sim-s) in both packages, at the `tpu_rate` shape (4096 hosts) and
     the `phold_big_worker` shape (16384): equal leaves, and the JAX/CPU
     pins chip_smoke.py holds the card to."""
-    lj, lt = run_both(n_hosts, chip_smoke.BENCH_STOP_NS, **chip_smoke.BENCH)
+    lj, lt = bench_run(n_hosts, True)
     assert_leaves_equal(lj, lt)
     events, digest = pin
     assert int(lj["stats.n_executed"].sum()) == events
     assert convert.leaves_digest(lj) == digest
+
+
+@pytest.mark.slow
+def test_chained_bench_shape_parity_and_pins():
+    """The same 4096-host run on the chained drain (phold.build's
+    default) in both packages: equal leaves, the events of PIN_4096, the
+    batched run's state less the scheduler counters, and the inner-step
+    and sweep pins chip_smoke.py holds the card to."""
+    lj, lt = bench_run(4096, False)
+    assert_leaves_equal(lj, lt)
+    assert int(lj["stats.n_executed"].sum()) == chip_smoke.PIN_4096[0]
+    assert (int(lj["stats.n_inner_steps"]), int(lj["stats.n_sweeps"])) \
+        == chip_smoke.PIN_CHAINED_4096
+    batched, _ = bench_run(4096, True)
+    assert convert.leaves_digest(lj, chip_smoke.SCHEDULER) == \
+        convert.leaves_digest(batched, chip_smoke.SCHEDULER)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("which", ["cpu", "jitter"])
+def test_variant_parity_and_pins(which):
+    """chip_smoke's CPU-model and jittered-graph runs of PHOLD 4096 in
+    both packages: equal leaves and the (events, digest) pins."""
+    from shadow_tpu.net import topology as jtop
+    from shadow_tpu_torch.net import topology as ttop
+
+    stop = chip_smoke.VARIANT_STOP_NS
+    ej, ij = chip_smoke.phold_variant(jphold, jengine, jtop, which, None)
+    lj = jax_leaves(jax.jit(ej.run)(ij(), jnp.int64(stop)))
+    et, it = chip_smoke.phold_variant(tphold, tengine, ttop, which, "cpu")
+    lt = convert.engine_state_to_numpy(et.run(it(), stop))
+    assert_leaves_equal(lj, lt)
+    pin = {"cpu": chip_smoke.PIN_CPU_MODEL,
+           "jitter": chip_smoke.PIN_JITTER}[which]
+    assert (int(lj["stats.n_executed"].sum()),
+            convert.leaves_digest(lj)) == pin
 
 
 def test_leaves_digest_covers_names_and_dtypes():
