@@ -30,7 +30,18 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    one merge launch per sweep;
 8. PHOLD 4096 on the chained drain with the CPU model, and over a
    jittered, lossy four-PoI graph (GraphNetwork), each for 2 sim-s and
-   pinned to its JAX/CPU event count and state digest.
+   pinned to its JAX/CPU event count and state digest;
+9. PHOLD over the UDP stack (socket, tx NIC, route, CoDel, rx NIC,
+   demux), built from a Shadow config by `sim.build_simulation` with
+   its defaults: `phold_example(4096, 8)` run to NET_STOP_S = 3 sim-s
+   (the peers start at 1 s), held to its JAX/CPU events, state digest,
+   messages sent and received, and to a merge launch per sweep; the
+   merge kernel held to its plain version on the run's first merge
+   inputs (the packet width, nw = 6) and timed on the last of them;
+   then, to NET_VARIANT_STOP_S = 2 sim-s, the CoDel variant (hot peers
+   behind thin downlinks, drops past count 19, a virtual CPU on a
+   quarter of the peers) and the unfused pipeline (rx_queue "single",
+   a bootstrap phase, a process stoptime), each pinned the same way.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -40,9 +51,9 @@ block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
-`python -m pytest -m slow tests/test_torch_phold.py` runs every pinned
-configuration in both packages on the CPU and asserts the pins against
-the JAX leaves. The merge-input generator below is shared with
+`python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
+runs every pinned configuration in both packages on the CPU and asserts
+the pins against the JAX leaves. The merge-input generator below is shared with
 tests/test_torch_merge.py.
 """
 
@@ -53,6 +64,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -123,6 +135,81 @@ def phold_variant(phold, engine, topology, which: str, dev,
     cfg = dataclasses.replace(eng.cfg,
                               lookahead=int(top.min_latency_ms * MS))
     return engine.Engine(cfg, eng.handlers, net, **on), init
+
+
+# PHOLD over the UDP stack (phase 9), built from a Shadow config by
+# shadow_tpu_torch.sim.build_simulation with its defaults (fused rx,
+# CoDel, capacity 256, 8 sockets): phold_example(4096, 8), whose peers
+# start at 1 sim-s, run to NET_STOP_S (40 windows of traffic); the two
+# variants run to NET_VARIANT_STOP_S. Pins from JAX/CPU, each (events,
+# digest of every leaf, sum of n_sent, sum of n_recv).
+NET_HOSTS, NET_MSGS, NET_SEED = 4096, 8, 1234
+NET_STOP_S = 3
+NET_VARIANT_STOP_S = 2
+PIN_NET = (
+    1_310_720,
+    "54e66878def9d2dd5fc8646c004eadd03bb033ab0fa7aabd270efb012e78789c",
+    1_310_720, 1_277_952)
+PIN_NET_CODEL = (
+    19_453,
+    "426739e4c42877e10694921c40c6abb04c75e5ae97fcd5fc13b0d181457d044f",
+    18_629, 14_533)
+PIN_NET_UNFUSED = (
+    1_077_624,
+    "18ed6cbcc3c664c6c32bf82cfd31f1e8cfedd0ecf1ea253ac28690fe1cc9958b",
+    533_680, 500_912)
+# variant "codel": 16 hot peers drawn with weight 400 (the other peers 1)
+# behind a 16 KiB/s downlink, and 1024 peers with a 2 GHz virtual CPU;
+# every peer starts with one message
+NET_HOT, NET_HOT_WEIGHT, NET_HOT_KIB, NET_CPU_HOSTS = 16, 400.0, 16, 1024
+# variant "unfused": fuse_rx=False, rx_queue="single", a 1.5 s bootstrap,
+# 64 peers behind a 2 KiB/s downlink (tail drops at the one-packet
+# queue) and 512 peers whose process stops at 1.6 s
+NET_THIN, NET_QUIT, NET_QUIT_AT = 64, 512, 1.6
+
+
+def phold_net_config(which: str, workdir) -> tuple[str, dict]:
+    """(Shadow config text, build_simulation keywords) of PHOLD over the
+    UDP stack: "main", "codel" or "unfused". The "codel" variant's
+    weights file (one weight per peer, in host order) is written into
+    `workdir`."""
+    import os
+
+    from shadow_tpu_torch.examples import EXAMPLE_TOPOLOGY, phold_example
+
+    if which == "main":
+        return phold_example(NET_HOSTS, NET_MSGS, NET_STOP_S), {}
+
+    def host(name, quantity, args, attrs="", proc=""):
+        return (f'<host id="{name}" quantity="{quantity}"{attrs}>'
+                f'<process plugin="phold" starttime="1"{proc} '
+                f'arguments="{args}"/></host>')
+
+    def config(hosts, attrs=""):
+        return (f'<shadow stoptime="{NET_VARIANT_STOP_S}"{attrs}>'
+                f"<topology><![CDATA[{EXAMPLE_TOPOLOGY}]]></topology>"
+                '<plugin id="phold" path="shadow-plugin-test-phold"/>'
+                + "".join(hosts) + "</shadow>")
+
+    if which == "codel":
+        weights = os.path.join(os.fspath(workdir), "phold_weights.txt")
+        w = [NET_HOT_WEIGHT] * NET_HOT + [1.0] * (NET_HOSTS - NET_HOT)
+        with open(weights, "w") as f:
+            f.write("\n".join(repr(x) for x in w) + "\n")
+        args = f"load=1 weightsfilepath={weights}"
+        return config([
+            host("hot", NET_HOT, args, f' bandwidthdown="{NET_HOT_KIB}"'),
+            host("cpu", NET_CPU_HOSTS, args, ' cpufrequency="2000000"'),
+            host("peer", NET_HOSTS - NET_HOT - NET_CPU_HOSTS, args),
+        ]), {}
+    if which == "unfused":
+        args = f"load={NET_MSGS}"
+        return config([
+            host("peer", NET_HOSTS - NET_THIN - NET_QUIT, args),
+            host("thin", NET_THIN, args, ' bandwidthdown="2"'),
+            host("quit", NET_QUIT, args, proc=f' stoptime="{NET_QUIT_AT}"'),
+        ], ' bootstraptime="1.5"'), dict(fuse_rx=False, rx_queue="single")
+    raise ValueError(f"unknown PHOLD-net run {which!r}")
 
 
 # sha256 of JAX's -log1p(-u) f32 bytes over u = (0 .. 2^24-1) / 2^24
@@ -275,18 +362,24 @@ def profile_phold(phold, dev, batched, n_hosts=4096, stop_ns=250 * MS):
     first windows of PHOLD on one drain. Returns the device's busy share,
     device events per sweep and per inner step, the top kernels by device
     time and the merge kernel's share of it."""
+    eng, init = phold.build(n_hosts, device=dev, batched=batched, **BENCH)
+    return profile_run(eng.run, init(), stop_ns)
+
+
+def profile_run(run, st, stop_ns):
+    """A torch.profiler trace of `run(st, stop_ns)` on the card: the
+    device's busy share, device events per sweep and per inner step, the
+    top kernels by device time and the merge kernel's share of it."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    eng, init = phold.build(n_hosts, device=dev, batched=batched, **BENCH)
-    st = init()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = eng.run(st, stop_ns)
+        st = run(st, stop_ns)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
@@ -617,6 +710,115 @@ def phase_variant(phold, engine, topology, merge, convert, which, pin, dev,
     return run
 
 
+def run_phold_net(sim_mod, config_mod, merge, which, dev, workdir):
+    """Build a PHOLD-net run from its config with the port's
+    build_simulation and run it to the config's stoptime on the card;
+    returns (simulation, final state, wall seconds, merge launches)."""
+    import torch
+
+    text, kw = phold_net_config(which, workdir)
+    sim = sim_mod.build_simulation(config_mod.parse_config(text),
+                                   seed=NET_SEED, device=dev, **kw)
+    torch.cuda.synchronize()
+    merge.launches = 0
+    t0 = time.perf_counter()
+    st = sim.run()
+    torch.cuda.synchronize()
+    return sim, st, time.perf_counter() - t0, merge.launches
+
+
+def check_phold_net(which, sim, st, wall, launches, convert, pin,
+                    smi_line) -> dict:
+    """Hold a PHOLD-net run to its JAX/CPU pin and to at least one merge
+    launch per sweep; returns its record."""
+    leaves = convert.engine_state_to_numpy(st)
+    got = (int(leaves["stats.n_executed"].sum()),
+           convert.leaves_digest(leaves),
+           int(leaves["hosts.app.n_sent"].sum()),
+           int(leaves["hosts.app.n_recv"].sum()))
+    sweeps = int(leaves["stats.n_sweeps"])
+    run = {"events": got[0], "wall_s": wall, "events_per_s": got[0] / wall,
+           "inner_steps": int(leaves["stats.n_inner_steps"]),
+           "sweeps": sweeps, "windows": int(leaves["stats.n_windows"]),
+           "host_syncs": sim.engine.host_syncs, "launches": launches,
+           "sent": got[2], "received": got[3],
+           "codel_count_max": int(leaves["hosts.net.codel.count"].max()),
+           "tail_drops": int(leaves["hosts.net.nic_rx.drops"].sum())}
+    print(f"  phold-net {which}: {json.dumps(run)} ({smi_line})")
+    check(got == pin, f"phold-net {which}: (events, digest, sent, "
+                      f"received) {got} != JAX/CPU {pin}")
+    check(launches >= sweeps > 0,
+          f"phold-net {which}: merge launches {launches} < sweeps {sweeps}")
+    return run, leaves
+
+
+def phase_phold_net(sim_mod, config_mod, merge, events, convert, dev,
+                    smi_line, workdir) -> dict:
+    """PHOLD over the UDP stack at 4096 x 8 through build_simulation, held
+    to PIN_NET; the merge kernel held to its plain version on the inputs
+    of the run's first merges (nw = 6) and timed on the last of them;
+    a profile of its first 150 ms of traffic; then the two variants."""
+    seen = []
+    kernel = merge.fused_merge
+
+    def record(*args):
+        if len(seen) < 6:
+            seen.append(tuple(a.clone() for a in args))
+        return kernel(*args)
+
+    events.merge.fused_merge = record
+    try:
+        sim, st, wall, launches = run_phold_net(sim_mod, config_mod, merge,
+                                                "main", dev, workdir)
+    finally:
+        events.merge.fused_merge = kernel
+    main, _ = check_phold_net("main", sim, st, wall, launches, convert,
+                              PIN_NET, smi_line)
+    check(len(seen) >= 2, "no merge inputs captured from PHOLD-net")
+    for i, args in enumerate(seen):
+        nw = args[2].shape[-1]
+        check(nw == 6, f"PHOLD-net merge input {i} has nw={nw}, not 6")
+        bad = compare_merge(merge, args)
+        check(bad == 0, f"merge kernel != plain on PHOLD-net input {i}: "
+                        f"{bad} elements differ")
+        print(f"  merge == plain on PHOLD-net input {i}: "
+              f"h={args[0].shape[0]} hc={args[0].shape[1]} "
+              f"w={args[5].shape[1]} nw={nw} m={args[3].shape[0]}")
+    timing = time_captured(merge, dev, seen[-1], smi_line,
+                           f"captured PHOLD-net flush (nw=6, "
+                           f"m={seen[-1][3].shape[0]})")
+    prof = profile_run(sim.engine.run, sim.state0, SECOND + 150 * MS)
+    print(f"  profile of PHOLD-net 4096, first 150 ms of traffic: "
+          f"{json.dumps(prof)}")
+    out = {"main": main, "timing": timing, "profile": prof}
+
+    sim, st, wall, launches = run_phold_net(sim_mod, config_mod, merge,
+                                            "codel", dev, workdir)
+    out["codel"], leaves = check_phold_net("codel", sim, st, wall, launches,
+                                           convert, PIN_NET_CODEL, smi_line)
+    recv = leaves["hosts.app.n_recv"]
+    check(recv[:NET_HOT].sum() > recv.sum() / 2,
+          "phold-net codel: the hot peers did not receive most messages")
+    check(out["codel"]["codel_count_max"] >= 6,
+          "phold-net codel: CoDel never reached count 6")
+    check(tuple(sim.engine.cpu_cost.shape) == (NET_HOSTS, 3)
+          and sim.engine._cpu_enabled,
+          "phold-net codel: the fused CPU-cost table was not used")
+
+    sim, st, wall, launches = run_phold_net(sim_mod, config_mod, merge,
+                                            "unfused", dev, workdir)
+    out["unfused"], leaves = check_phold_net(
+        "unfused", sim, st, wall, launches, convert, PIN_NET_UNFUSED,
+        smi_line)
+    check(leaves["stats.n_by_kind"][:, 1].sum() > 0,
+          "phold-net unfused: no KIND_PKT_RX event ran")
+    print(json.dumps({"phold_net_4096": out["main"],
+                      "phold_net_codel": out["codel"],
+                      "phold_net_unfused": out["unfused"],
+                      "card": smi_line}))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -631,7 +833,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     try:
-        from shadow_tpu_torch import convert
+        from shadow_tpu_torch import config, convert, sim
         from shadow_tpu_torch.core import engine, events, merge, rng
         from shadow_tpu_torch.core.engine import state_summary
         from shadow_tpu_torch.models import phold
@@ -724,14 +926,22 @@ def main(argv=None) -> int:
         variants[which] = phase_variant(phold, engine, topology, merge,
                                         convert, which, pin, dev, smi_line)
 
+    print("== 9. PHOLD over the UDP stack: 4096 hosts from a Shadow config")
+    with tempfile.TemporaryDirectory() as workdir:
+        net = phase_phold_net(sim, config, merge, events, convert, dev,
+                              smi_line, workdir)
+    net_merge = net["timing"]
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
         "source": "shadow_tpu_torch/csrc/merge.cu",
         "replaces": "shadow_tpu/core/merge_pallas.py:125",
-        "launches": main_run["launches"] + chained_run["launches"],
+        "launches": (main_run["launches"] + chained_run["launches"]
+                     + net["main"]["launches"]),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
+        "launches_net": net["main"]["launches"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -746,9 +956,13 @@ def main(argv=None) -> int:
         "chained_us": chained_merge["us"],
         "chained_bound_us": chained_merge["bound_us"],
         "chained_plain_ms": chained_merge["plain_ms"],
+        "net_us": net_merge["us"],
+        "net_bound_us": net_merge["bound_us"],
+        "net_plain_ms": net_merge["plain_ms"],
+        "net_yardstick_ms": net_merge["yardstick_ms"],
         "shapes": [{key: row[key] for key in
                     ("hc", "w", "nw", "regime", "us", "bound_us", "share")}
-                   for row in timing["shapes"] + [chained_merge]],
+                   for row in timing["shapes"] + [chained_merge, net_merge]],
         "build_s": build_s,
     }]
     print(json.dumps({"kernels": kernels}))

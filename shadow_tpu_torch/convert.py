@@ -26,6 +26,8 @@ def _leaves(obj, prefix: str, out: dict) -> dict:
     for f in dataclasses.fields(obj):
         v = getattr(obj, f.name)
         key = f"{prefix}{f.name}"
+        if v is None:
+            continue  # an absent subtree (HostNet.tcb), as in a pytree
         if dataclasses.is_dataclass(v):
             _leaves(v, key + ".", out)
         else:
@@ -38,26 +40,42 @@ def engine_state_to_numpy(state: EngineState) -> dict[str, np.ndarray]:
     return _leaves(state, "", {})
 
 
-def engine_state_from_numpy(leaves: dict[str, np.ndarray],
-                            device) -> EngineState:
-    """Build an EngineState on `device` from leaves keyed by field path
-    (hosts are PHOLD's, the one model ported)."""
-    nested = {"queues": EventQueue, "hosts": PholdHost, "stats": Stats}
+def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,
+                            hosts=PholdHost) -> EngineState:
+    """Build an EngineState on `device` from leaves keyed by field path.
+
+    `hosts` gives the shape of the host state: a dataclass whose fields
+    are all tensors (PHOLD's `PholdHost`, the default), or a template
+    instance, whose nested dataclasses are followed and whose None
+    fields stay None (a `SimHost`, for instance).
+    """
     used = set()
 
     def tensor(key):
         used.add(key)
         return torch.from_numpy(np.array(leaves[key], order="C")).to(device)
 
-    def build(cls, prefix):
-        return cls(**{
-            f.name: (build(nested[f.name], f"{f.name}.")
-                     if cls is EngineState and f.name in nested
-                     else tensor(prefix + f.name))
-            for f in dataclasses.fields(cls)
-        })
+    def build(template, prefix):
+        if isinstance(template, type):  # a flat dataclass of tensors
+            return template(**{f.name: tensor(prefix + f.name)
+                               for f in dataclasses.fields(template)})
+        kw = {}
+        for f in dataclasses.fields(template):
+            sub = getattr(template, f.name)
+            if sub is None:
+                kw[f.name] = None
+            elif dataclasses.is_dataclass(sub):
+                kw[f.name] = build(sub, f"{prefix}{f.name}.")
+            else:
+                kw[f.name] = tensor(prefix + f.name)
+        return type(template)(**kw)
 
-    state = build(EngineState, "")
+    nested = {"queues": EventQueue, "hosts": hosts, "stats": Stats}
+    state = EngineState(**{
+        f.name: (build(nested[f.name], f"{f.name}.") if f.name in nested
+                 else tensor(f.name))
+        for f in dataclasses.fields(EngineState)
+    })
     extra = set(leaves) - used
     if extra:
         raise ValueError(f"leaves this package has no field for: "

@@ -280,8 +280,14 @@ def _kind_cost(cpu_cost: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
 
 
 def _select_rows(mask: torch.Tensor, new: Any, old: Any) -> Any:
-    """Per-row select across two dataclasses of [H, ...] tensors."""
+    """Per-row select across two dataclasses of [H, ...] tensors: `new`
+    where the [H] mask is set, else `old`. Nested dataclasses recurse
+    and None fields stay None, as a pytree map over both would."""
     def sel(n, o):
+        if o is None:
+            return None
+        if dataclasses.is_dataclass(o):
+            return _select_rows(mask, n, o)
         return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)),
                            n, o)
 

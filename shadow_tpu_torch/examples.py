@@ -1,0 +1,41 @@
+"""Built-in example configurations: copies of the two pieces of
+`shadow_tpu.examples` that the ported models run, kept here because
+importing the reference package would import JAX."""
+
+EXAMPLE_TOPOLOGY = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d6" />
+  <key attr.name="latency" attr.type="double" for="edge" id="d5" />
+  <key attr.name="packetloss" attr.type="double" for="node" id="d4" />
+  <key attr.name="countrycode" attr.type="string" for="node" id="d3" />
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d2" />
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d1" />
+  <key attr.name="ip" attr.type="string" for="node" id="d0" />
+  <graph edgedefault="undirected">
+    <node id="poi-1">
+      <data key="d0">0.0.0.0</data>
+      <data key="d1">10240</data>
+      <data key="d2">10240</data>
+      <data key="d3">US</data>
+      <data key="d4">0.0</data>
+    </node>
+    <edge source="poi-1" target="poi-1">
+      <data key="d5">50.0</data>
+      <data key="d6">0.0</data>
+    </edge>
+  </graph>
+</graphml>"""
+
+
+def phold_example(n_hosts: int = 64, msgs_per_host: int = 4,
+                  stoptime: int = 60) -> str:
+    """A PHOLD config: n_hosts peers over a single 50 ms PoI, each
+    starting at 1 s with `msgs_per_host` messages in flight."""
+    return (
+        f'<shadow stoptime="{stoptime}">'
+        f"<topology><![CDATA[{EXAMPLE_TOPOLOGY}]]></topology>"
+        '<plugin id="phold" path="shadow-plugin-test-phold"/>'
+        f'<host id="peer" quantity="{n_hosts}">'
+        f'<process plugin="phold" starttime="1" '
+        f'arguments="load={msgs_per_host}"/>'
+        "</host></shadow>"
+    )

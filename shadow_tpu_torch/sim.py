@@ -1,0 +1,508 @@
+"""Simulation assembly: parsed config -> engine + device state + run loop.
+
+The counterpart of `shadow_tpu.sim` on the UDP path. `build_simulation`
+loads the topology, expands and attaches the hosts, registers their DNS
+names, sizes their NICs, lets the app model bind its sockets and
+schedule its process starts, and compiles everything into one chained-
+drain Engine whose handler table is [stack pipeline | app kinds].
+
+Ported: the one-model UDP path with the `phold` model, shape bucketing,
+per-host bandwidth, `cpufrequency`, `interfacebuffer`, `bootstraptime`,
+process `stoptime`, the three rx queue managers and both `fuse_rx`
+modes. Not ported, each raising NotImplementedError: TCP models, fused
+multi-model tables, sharding (`mesh`, `locality`, `host_order`), the
+frontier drain, tracing, the stats plane, a profiler, lossless overflow
+(`spill`, `grow`), packet capture and fault schedules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Any, Callable, Protocol
+
+import numpy as np
+import torch
+
+from shadow_tpu_torch.config import HostInstance, ShadowConfig, expand_hosts
+from shadow_tpu_torch.core.device import resolve_device
+from shadow_tpu_torch.core.engine import (
+    Emit,
+    Engine,
+    EngineConfig,
+    _select_rows,
+    state_summary,
+)
+from shadow_tpu_torch.core.events import Events
+from shadow_tpu_torch.core.timebase import MILLISECOND, SECOND, TIME_INVALID
+from shadow_tpu_torch.net.dns import DNS
+from shadow_tpu_torch.net.topology import Topology, jax_index
+from shadow_tpu_torch.transport.stack import (
+    KIND_PKT_ARRIVE,
+    N_PKT_ARGS,
+    HostNet,
+    SimHost,
+    Stack,
+)
+
+DEFAULT_BANDWIDTH_KIB = 10240  # when neither host attr nor vertex attr set
+
+# Virtual-CPU model: every executed event costs this many cycles on the
+# host's configured CPU.
+CPU_CYCLES_PER_EVENT = 10_000
+
+OVERFLOW_MODES = ("drop", "strict", "spill", "grow")
+
+
+class QueuePressureError(RuntimeError):
+    """Raised under overflow="strict" at the first would-be drop."""
+
+    def __init__(self, drops: int, capacity: int, summary: dict):
+        self.drops = int(drops)
+        self.capacity = int(capacity)
+        self.summary = dict(summary)
+        super().__init__(
+            f"queue pressure: {drops} events would overflow the per-host "
+            f"event queues (capacity {capacity}); rerun with a larger "
+            "--capacity, or a lossless mode (--overflow spill/grow)"
+        )
+
+
+@dataclasses.dataclass
+class SimBuild:
+    """Mutable build context handed to the app model.
+
+    The app reads per-host process specs and arguments, binds sockets
+    into `sockets`, and appends process start events. Per-host arrays
+    are sized `n_hosts` (the bucketed host count) and indexed by
+    `HostInstance.gid`.
+    """
+
+    cfg: ShadowConfig
+    hosts: list[HostInstance]
+    n_hosts: int
+    sockets: Any  # SocketTable [H, S]
+    device: torch.device
+    start_events: list[tuple[int, int, int, list[int]]] = dataclasses.field(
+        default_factory=list
+    )  # (time_ns, gid, kind_rel, args words)
+
+    def add_start_event(self, gid: int, time_s: float, kind_rel: int,
+                        args: list[int] | None = None) -> None:
+        self.start_events.append(
+            (int(time_s * SECOND), gid, kind_rel, list(args or [])))
+
+
+class AppModel(Protocol):
+    """An application as a handler table plus per-host state."""
+
+    name: str
+    needs_tcp: bool
+    n_kinds: int
+
+    def app_rows(self) -> int:
+        """Emit rows the on_recv callback returns (for max_emit sizing)."""
+        ...
+
+    def handler_rows(self) -> int:
+        """Max Emit rows any of the app's own kind handlers returns."""
+        ...
+
+    def build(self, b: SimBuild) -> tuple[Any, Callable, Callable | None]:
+        """-> (app_state [H, ...], make_handlers(stack, kind_base) ->
+        [handlers], on_recv or None)."""
+        ...
+
+
+@dataclasses.dataclass
+class Simulation:
+    """A built, runnable simulation on one device."""
+
+    engine: Engine
+    state0: Any  # EngineState
+    stop_ns: int
+    dns: DNS
+    topo: Topology
+    names: list[str]
+    app: Any  # the AppModel instance
+    stack: Stack
+    kind_names: tuple = ()  # handler-kind names
+    overflow: str = "drop"
+    # queue overflow is loud by default: the reference's event heaps are
+    # unbounded, so a counted drop would silently change the run
+    strict_overflow: bool = True
+
+    def run(self, stop_ns: int | None = None, state=None):
+        """Run to the stop time (the config's by default) from `state`
+        (state0 by default); returns the final EngineState. The input
+        state is not modified. Raises on queue overflow unless
+        strict_overflow is False and overflow is "drop"."""
+        st = self.state0 if state is None else state
+        out = self.engine.run(
+            st, self.stop_ns if stop_ns is None else stop_ns)
+        if self.overflow == "strict" or self.strict_overflow:
+            drops = int(out.queues.drops.sum())
+            if drops > 0:
+                self.check_drops(drops, self.summary(out))
+        return out
+
+    def check_drops(self, drops: int, summary: dict | None = None):
+        """Apply the loud-overflow contract to a fetched drop count."""
+        if int(drops) <= 0:
+            return
+        if self.overflow == "strict":
+            raise QueuePressureError(
+                int(drops), self.engine.cfg.capacity, summary or {})
+        if self.strict_overflow:
+            raise RuntimeError(
+                f"event queue overflow: {int(drops)} events dropped "
+                f"(per-host capacity {self.engine.cfg.capacity}); rerun "
+                "with a larger --capacity, or set strict_overflow=False "
+                "to accept counted drops"
+            )
+
+    def step_window(self, state, stop_ns: int | None = None,
+                    window_ns: int | None = None):
+        """Advance one window from `state`."""
+        if window_ns is not None:
+            raise NotImplementedError("traced window widths are not ported")
+        st = self.state0 if state is None else state
+        return self.engine.step_window(
+            st, self.stop_ns if stop_ns is None else stop_ns)
+
+    def summary(self, state) -> dict:
+        """Host-side progress snapshot (frontier time, window count,
+        executed events, sweeps, queue drops)."""
+        return state_summary(state)
+
+
+def _plugin_tokens(cfg: ShadowConfig, plugin_id: str) -> set[str]:
+    """Registry-matchable name tokens for a plugin: its id plus its path
+    basename, split on separators, so 'shadow-plugin-test-phold' matches
+    'phold' and 'tor' does not match inside 'monitor'."""
+    spec = cfg.plugin_by_id(plugin_id)
+    names = [plugin_id] + ([spec.path.rsplit("/", 1)[-1]] if spec else [])
+    toks: set[str] = set()
+    for n in names:
+        toks.update(t for t in re.split(r"[^a-z0-9]+", n.lower()) if t)
+    return toks
+
+
+def resolve_app_models(
+    cfg: ShadowConfig, registry: dict[str, Callable], hosts: list[HostInstance]
+):
+    """Map every host's processes to registered app models.
+
+    Returns [(name, model_instance, owned_host_list)] in first-appearance
+    order. A host whose processes span two models is rejected.
+    """
+    owner: dict[int, str] = {}
+    order: list[str] = []
+    for h in hosts:
+        for p in h.spec.processes:
+            toks = _plugin_tokens(cfg, p.plugin)
+            for regname in registry:
+                if regname in toks:
+                    break
+            else:
+                raise ValueError(
+                    f"no app model registered for plugin {p.plugin!r} "
+                    f"(known: {sorted(registry)})"
+                )
+            if owner.setdefault(h.gid, regname) != regname:
+                raise ValueError(
+                    f"host {h.name!r} mixes app models "
+                    f"{owner[h.gid]!r} and {regname!r}"
+                )
+            if regname not in order:
+                order.append(regname)
+    return [
+        (name, registry[name](),
+         [h for h in hosts if owner.get(h.gid) == name])
+        for name in order
+    ]
+
+
+def _not_ported(name: str) -> Callable:
+    def make():
+        raise NotImplementedError(f"the {name!r} app model is not ported")
+
+    return make
+
+
+def default_registry() -> dict[str, Callable]:
+    """The app models by plugin name; only `phold` is ported."""
+    from shadow_tpu_torch.models.phold_net import PholdNetModel
+
+    return {
+        "tgen": _not_ported("tgen"),
+        "phold": PholdNetModel,
+        "tor": _not_ported("tor"),
+        "bitcoin": _not_ported("bitcoin"),
+    }
+
+
+def _refuse_unported(*, mesh, locality, host_order, frontier, trace, stats,
+                     profiler, overflow):
+    if overflow not in OVERFLOW_MODES:
+        raise ValueError(
+            f"overflow must be one of {OVERFLOW_MODES}, got {overflow!r}")
+    unported = {
+        "mesh (sharding)": mesh is not None,
+        "locality": bool(locality),
+        "host_order": host_order is not None,
+        "frontier": bool(frontier),
+        "trace": bool(trace),
+        "stats": bool(stats),
+        "profiler": profiler is not None,
+        f"overflow={overflow!r}": overflow in ("spill", "grow"),
+    }
+    for name, set_ in unported.items():
+        if set_:
+            raise NotImplementedError(f"build_simulation: {name} is not "
+                                      "ported")
+
+
+def _bucket(n_hosts: int) -> int:
+    """Pad the host count up the ladder 16, 32, ..., 1024, 2048, 3072,
+    ...: nearby sizes share one shape, padded rows stay inert."""
+    b = 16
+    while b < n_hosts:
+        b = b * 2 if b < 1024 else b + 1024
+    return max(b, n_hosts)
+
+
+def build_simulation(
+    cfg: ShadowConfig,
+    registry: dict[str, Callable] | None = None,
+    *,
+    seed: int = 0,
+    n_sockets: int = 8,
+    capacity: int | None = None,
+    mesh: Any = None,
+    rx_queue: str = "codel",
+    interface_buffer: int = 1_024_000,
+    locality: bool = False,
+    runahead_ns: int | None = None,
+    frontier: int = 0,
+    fuse_rx: bool = True,
+    shape_bucket: bool = True,
+    trace: int = 0,
+    stats: int = 0,
+    profiler: Any = None,
+    overflow: str = "drop",
+    host_order: Any = None,
+    device=None,
+) -> Simulation:
+    """Config -> Simulation on `device` (None: CUDA, which must exist;
+    pass "cpu" to run on the CPU).
+
+    The keywords are the reference's, less those that act only on TCP
+    stacks, spill rings or meshes, which come with the code that reads
+    them.
+    """
+    _refuse_unported(mesh=mesh, locality=locality, host_order=host_order,
+                     frontier=frontier, trace=trace, stats=stats,
+                     profiler=profiler, overflow=overflow)
+    dev = resolve_device(device)
+    if cfg.faults:
+        raise NotImplementedError("fault schedules are not ported")
+    if registry is None:
+        registry = default_registry()
+    topo = Topology.from_graphml(cfg.topology_source())
+    hosts = expand_hosts(cfg)
+    n_hosts = _bucket(len(hosts)) if shape_bucket else len(hosts)
+
+    # -- attachment + DNS
+    dns = DNS()
+    host_vertex = []
+    for h in hosts:
+        s = h.spec
+        v = topo.attach(
+            ip_hint=s.iphint, citycode_hint=s.citycodehint,
+            countrycode_hint=s.countrycodehint, geocode_hint=s.geocodehint,
+            type_hint=s.typehint,
+        )
+        host_vertex.append(v)
+        dns.register(h.gid, h.name, s.iphint or None)
+    # bucket-padded rows attach to vertex 0; they originate no traffic
+    host_vertex += [0] * (n_hosts - len(hosts))
+
+    # -- NIC sizing: a host attr overrides the vertex attr; defaults also
+    # give bucket-padded rows NICs that never run
+    bw_up = np.full((n_hosts,), float(DEFAULT_BANDWIDTH_KIB), np.float64)
+    bw_down = np.full((n_hosts,), float(DEFAULT_BANDWIDTH_KIB), np.float64)
+    cpu_cost = np.zeros((n_hosts,), np.int64)
+    # NIC receive buffer bound (interfacebuffer; the reference's default
+    # is 1024000 bytes)
+    rx_buf = np.full((n_hosts,), interface_buffer, np.int64)
+    proc_stop = np.full((n_hosts,), np.iinfo(np.int64).max, np.int64)
+    for h, v in zip(hosts, host_vertex):
+        vx = topo.vertices[v]
+        s = h.spec
+        bw_up[h.gid] = (s.bandwidthup or vx.bandwidth_up_kib
+                        or DEFAULT_BANDWIDTH_KIB)
+        bw_down[h.gid] = (s.bandwidthdown or vx.bandwidth_down_kib
+                          or DEFAULT_BANDWIDTH_KIB)
+        if s.cpufrequency:
+            cpu_cost[h.gid] = CPU_CYCLES_PER_EVENT * 1_000_000 // s.cpufrequency
+        if s.socketsendbuffer:
+            # as the reference: without a TCP stack there is no send
+            # buffer for the cap to bound (socketrecvbuffer sizes TCP's
+            # receive window and is ignored without one)
+            raise ValueError(
+                "socketsendbuffer is set but the app model runs no TCP "
+                "stack; remove the attribute")
+        if s.interfacebuffer:
+            rx_buf[h.gid] = s.interfacebuffer
+        if s.logpcap or s.pcapdir:
+            raise NotImplementedError("packet capture is not ported")
+        stops = {p.stoptime for p in s.processes if p.stoptime}
+        if stops:
+            if len(s.processes) > 1 and (
+                len(stops) > 1 or len(stops) < len(s.processes)
+            ):
+                # one state row per host: a partial stop would silently
+                # stop the host's other processes too
+                raise ValueError(
+                    f"host {h.name!r}: all processes on a host must share "
+                    "one stoptime (per-process stop needs the real-binary "
+                    "tier, whose processes are individual green threads)"
+                )
+            proc_stop[h.gid] = int(stops.pop() * SECOND)
+
+    parts = resolve_app_models(cfg, registry, hosts)
+    if len(parts) > 1:
+        raise NotImplementedError(
+            "several app models in one simulation (FusedModel) are not "
+            "ported")
+    model = parts[0][1]
+    if model.needs_tcp:
+        raise NotImplementedError(
+            f"app model {model.name!r} runs on TCP, which is not ported")
+    if capacity is None:
+        capacity = 256
+    net = HostNet.create(n_hosts, n_sockets, bw_up, bw_down,
+                         rx_buf_bytes=rx_buf, device=dev)
+
+    b = SimBuild(cfg=cfg, hosts=hosts, n_hosts=n_hosts,
+                 sockets=net.sockets, device=dev)
+    app_state, make_handlers, on_recv = model.build(b)
+    net = dataclasses.replace(net, sockets=b.sockets)
+
+    # fuse_rx folds each packet's ARRIVE -> RX event pair into one
+    stack = Stack(bootstrap_end=int(cfg.bootstraptime * SECOND),
+                  rx_queue=rx_queue, fuse_rx=fuse_rx)
+
+    if on_recv is None:
+        def on_recv(hs, slot, pkt, now, key):  # noqa: F811
+            return hs, Emit.none(now.shape[0], 1, N_PKT_ARGS,
+                                 device=now.device)
+
+    # <process stoptime>: a stopped process's callbacks never run again;
+    # the stack's handlers go on
+    if (proc_stop < np.iinfo(np.int64).max).any():
+        make_handlers, on_recv = _mute_stopped(
+            model, app_state, make_handlers, on_recv,
+            torch.from_numpy(proc_stop).to(dev))
+
+    base_handlers = stack.make_handlers(on_recv)
+    kind_base = len(base_handlers)
+    handlers = base_handlers + make_handlers(stack, kind_base)
+    kind_names = ["pkt_arrive", "pkt_rx"] + [
+        f"{model.name}.{i}" for i in range(model.n_kinds)]
+    if len(kind_names) != len(handlers):
+        raise AssertionError(
+            f"kind label table ({len(kind_names)}) out of sync with the "
+            f"handler table ({len(handlers)})"
+        )
+    max_emit = max(model.app_rows() + 1, model.handler_rows())
+
+    # conservative window width: the topology's minimum path latency,
+    # unless the user widens it (cross-host arrivals clamp up to the
+    # window barrier, so any width is causally safe)
+    if runahead_ns is not None:
+        if runahead_ns < 1:
+            raise ValueError(f"runahead must be >= 1 ns, got {runahead_ns}")
+        lookahead = runahead_ns
+    else:
+        lookahead = max(int(topo.min_latency_ms * MILLISECOND), 1)
+    ecfg = EngineConfig(
+        n_hosts=n_hosts, capacity=capacity, lookahead=lookahead,
+        max_emit=max_emit, n_args=N_PKT_ARGS, seed=seed,
+    )
+    network = topo.build_network(host_vertex, device=dev)
+    cost_arg = cpu_cost
+    if fuse_rx and cpu_cost.any():
+        # the fused KIND_PKT_ARRIVE event runs the delivery too, so it
+        # pays both halves of the per-event charge, as the unfused
+        # two-event pipeline would
+        cost_arg = np.broadcast_to(
+            cpu_cost[:, None], (n_hosts, len(handlers))
+        ).copy()
+        cost_arg[:, KIND_PKT_ARRIVE] += cpu_cost
+    eng = Engine(
+        ecfg, handlers, network,
+        cpu_cost=torch.from_numpy(cost_arg) if cost_arg.any() else None,
+        device=dev,
+    )
+
+    # -- initial events: process starts at their starttime, with a
+    # per-source sequence number
+    evs = b.start_events
+    m = max(len(evs), 1)
+    times = np.full((m,), TIME_INVALID, np.int64)
+    dsts = np.zeros((m,), np.int32)
+    seqs = np.zeros((m,), np.int32)
+    kinds = np.zeros((m,), np.int32)
+    argw = np.zeros((m, N_PKT_ARGS), np.int32)
+    per_src_seq: dict[int, int] = {}
+    for i, (t_ns, gid, kind_rel, args) in enumerate(evs):
+        times[i] = t_ns
+        dsts[i] = gid
+        seqs[i] = per_src_seq.get(gid, 0)
+        per_src_seq[gid] = seqs[i] + 1
+        kinds[i] = kind_base + kind_rel
+        argw[i, :len(args)] = args
+    on = lambda a: torch.from_numpy(a).to(dev)
+    init = Events(time=on(times), dst=on(dsts), src=on(dsts), seq=on(seqs),
+                  kind=on(kinds), args=on(argw))
+    st0 = eng.init_state(SimHost(net=net, app=app_state), init)
+    return Simulation(
+        engine=eng, state0=st0, stop_ns=int(cfg.stoptime * SECOND),
+        dns=dns, topo=topo, names=[h.name for h in hosts], app=model,
+        stack=stack, kind_names=tuple(kind_names), overflow=overflow,
+    )
+
+
+def _mute_stopped(model, app_state, make_handlers, on_recv,
+                  stop_at: torch.Tensor):
+    """Wrap the app's handlers and receive callback so that a host whose
+    process stoptime has passed keeps its state and emits nothing."""
+    if not hasattr(app_state, "gid"):
+        raise ValueError(
+            "process stoptime needs the app state to carry a gid field "
+            f"(model {model.name!r} has none)")
+    n = stop_at.shape[0]
+
+    def dead_select(hs, hs2, em, dead):
+        return (_select_rows(dead, hs, hs2),
+                dataclasses.replace(em, mask=em.mask & ~dead[:, None]))
+
+    def mute_handler(fn):
+        def wrapped(hs, ev, key):
+            hs2, em = fn(hs, ev, key)
+            dead = ev.time >= stop_at[jax_index(ev.dst, n)]
+            return dead_select(hs, hs2, em, dead)
+
+        return wrapped
+
+    def mute_recv(hs, slot, pkt, now, key):
+        hs2, em = on_recv(hs, slot, pkt, now, key)
+        dead = now >= stop_at[jax_index(hs.app.gid, n)]
+        return dead_select(hs, hs2, em, dead)
+
+    def make_muted(stack, kind_base):
+        return [mute_handler(fn) for fn in make_handlers(stack, kind_base)]
+
+    return make_muted, mute_recv

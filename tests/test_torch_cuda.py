@@ -96,6 +96,28 @@ def test_chained_toy_on_cuda_matches_cpu():
     assert on_cpu["stats.n_inner_steps"] > on_cpu["stats.n_windows"]
 
 
+def test_phold_net_on_cuda_matches_cpu():
+    """PHOLD over the UDP stack, built from a config by build_simulation
+    (64 hosts, CoDel, fused rx), on the card equals the CPU run, which
+    tests/test_torch_sim.py holds against the JAX reference."""
+    _need_card()
+    from shadow_tpu_torch import config, examples, sim
+
+    cfg = config.parse_config(examples.phold_example(64, 4, stoptime=3))
+    states = {}
+    for dev in ("cuda", "cpu"):
+        s = sim.build_simulation(cfg, seed=7, device=dev)
+        before = merge.launches
+        states[dev] = convert.engine_state_to_numpy(s.run())
+        if dev == "cuda":
+            assert merge.launches - before >= int(
+                states[dev]["stats.n_sweeps"]) > 0
+    assert states["cuda"].keys() == states["cpu"].keys()
+    for key, a in states["cpu"].items():
+        np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
+    assert states["cpu"]["hosts.app.n_recv"].sum() > 0
+
+
 def test_plan_layout_agrees_with_the_kernel():
     """The Python plan sizes shared memory with the kernel's own formula,
     and the launcher refuses a plan that gives it less."""

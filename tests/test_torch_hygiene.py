@@ -16,6 +16,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from shadow_tpu_torch import config as tconfig
+from shadow_tpu_torch import examples as texamples
+from shadow_tpu_torch import sim as tsim
 from shadow_tpu_torch.core import engine as tengine
 from shadow_tpu_torch.models import phold as tphold
 
@@ -29,6 +32,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, importlib.util\n"
         "import shadow_tpu_torch.convert, shadow_tpu_torch.models.phold\n"
+        "import shadow_tpu_torch.sim, shadow_tpu_torch.transport.stack\n"
+        "import shadow_tpu_torch.models.phold_net\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -63,7 +68,11 @@ def test_default_device_is_cuda_without_fallback():
         tphold.build(8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tengine.resolve_device(None)
+    cfg = tconfig.parse_config(texamples.phold_example(8, 1, 2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tsim.build_simulation(cfg)
     assert tengine.resolve_device("cpu") == torch.device("cpu")
+    tsim.build_simulation(cfg, device="cpu")
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
