@@ -41,7 +41,17 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    then, to NET_VARIANT_STOP_S = 2 sim-s, the CoDel variant (hot peers
    behind thin downlinks, drops past count 19, a virtual CPU on a
    quarter of the peers) and the unfused pipeline (rx_queue "single",
-   a bootstrap phase, a process stoptime), each pinned the same way.
+   a bootstrap phase, a process stoptime), each pinned the same way;
+10. TGen over TCP (NewReno, burst folding on the chained drain), built
+   from `tgen_example(2048 pairs)` by `sim.build_simulation` with
+   bench.py's TCP knobs: run twice to 10 sim-s, each held to its
+   JAX/CPU events, windows, sweeps, inner steps, streams done and state
+   digest, and to a merge launch per sweep; merge launches counted by
+   queue width (hc 128, the hot region, or the full capacity 768); the
+   merge kernel held to its plain version on the run's captured inputs
+   (at hc = 768 too where the run reaches it) and timed on the last
+   captured input of each width; a profile of the first 2 sim-s of
+   client traffic.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -53,7 +63,8 @@ without the result lines.
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
 runs every pinned configuration in both packages on the CPU and asserts
-the pins against the JAX leaves. The merge-input generator below is shared with
+the pins against the JAX leaves (`tests/test_torch_tgen.py -m slow -k
+4096` for phase 10's). The merge-input generator below is shared with
 tests/test_torch_merge.py.
 """
 
@@ -212,6 +223,45 @@ def phold_net_config(which: str, workdir) -> tuple[str, dict]:
     raise ValueError(f"unknown PHOLD-net run {which!r}")
 
 
+# TGen over TCP (phase 10): bench.py's TCP measurement (`tgen_worker`,
+# bench.py:505-560: seed 1, 8 sockets, capacity 768, the chained drain)
+# at 2048 client/server pairs, 4096 hosts, the width of every other
+# phase; TGEN_BENCH_PAIRS is the bench's own shape, pinned on the CPU.
+# Pins from JAX/CPU: (events, windows, sweeps, inner steps, streams
+# done, digest of every leaf).
+TGEN_PAIRS, TGEN_BENCH_PAIRS = 2048, 256
+TGEN_SEED, TGEN_SOCKETS, TGEN_CAPACITY, TGEN_STOP_S = 1, 8, 768, 10
+PIN_TGEN = (
+    203_616, 121, 121, 403, 5_326,
+    "f4ead5b88063299bb5d7a6dfdf419815973b42da1811fdd902fd00b2b1c328fd")
+PIN_TGEN_BENCH = (
+    25_462, 121, 121, 403, 666,
+    "6e69cf8dc3908aa4d8db168709ae80f2747e51b9de9216686481cfd9121b66dd")
+# clients start at 3-7 s: the profile covers their first 2 sim-s
+TGEN_PROFILE_STOP_S = 5
+# the merge call whose input phase 10 times: mid-run, in steady traffic
+TGEN_TIMED_CALL = 61
+
+
+def tgen_config(n_pairs: int) -> str:
+    """Shadow config text of TGen at n_pairs pairs: 16 KiB up, 64 KiB
+    down, 4 streams per client, TGEN_STOP_S sim-seconds."""
+    from shadow_tpu_torch.examples import tgen_example
+
+    return tgen_example(n_pairs, "16KiB", "64KiB", 4, TGEN_STOP_S)
+
+
+def tgen_pin(leaves) -> tuple:
+    """A TGen run's pin from its numpy leaves (either package's)."""
+    from shadow_tpu_torch.convert import leaves_digest
+
+    return (int(leaves["stats.n_executed"].sum()),
+            int(leaves["stats.n_windows"]), int(leaves["stats.n_sweeps"]),
+            int(leaves["stats.n_inner_steps"]),
+            int(leaves["hosts.app.streams_done"].sum()),
+            leaves_digest(leaves))
+
+
 # sha256 of JAX's -log1p(-u) f32 bytes over u = (0 .. 2^24-1) / 2^24
 EXP_SHA256 = "bf7c3c6d0fc775831d7614f9101d864c08051c1ee138c8aa3f6a3ef9c4a9b205"
 
@@ -298,11 +348,13 @@ SWEEP = [
 # (h, hc, w, nw, regime): where the merge is timed besides the main path's
 # captured sweep input, all at 4096 rows so that the card is full: PHOLD's
 # fallback round (MERGE_W exceeded), the packet stack's hot region
-# (HOT_C = 128), and its full-width fallback rounds without TCP
-# (capacity 256) and with it (capacity 576)
+# (HOT_C = 128, also TGen's common width), its full-width fallback rounds
+# without TCP (capacity 256) and with it (capacity 576), and TGen's full
+# queue width (capacity 768) at the common block width
 TIMING = [
     (4096, 64, 64, 1, "overflow"), (4096, 128, 24, 6, "cleared"),
     (4096, 256, 256, 6, "overflow"), (4096, 576, 576, 6, "cleared"),
+    (4096, 768, 24, 6, "cleared"),
 ]
 # grids whose last block is part empty (h not a multiple of the rows per
 # block), and an unsorted row at the widest shape; held in the card tests
@@ -376,8 +428,9 @@ def profile_run(run, st, stop_ns):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the host-side op events would multiply the
+    # trace that has to be read back, and nothing here uses them
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         st = run(st, stop_ns)
         torch.cuda.synchronize()
@@ -819,6 +872,113 @@ def phase_phold_net(sim_mod, config_mod, merge, events, convert, dev,
     return out
 
 
+def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
+               smi_line) -> dict:
+    """TGen at TGEN_PAIRS through build_simulation, run twice, each held
+    to PIN_TGEN and to a merge launch per sweep; merge launches counted
+    by queue width hc; the kernel held to its plain version on captured
+    inputs of the first run (at each width the first three, the one at
+    call TGEN_TIMED_CALL, mid-run, and the last) and timed on the
+    latest of them before the last, which flushes an empty run; a
+    profile of the first 2 sim-s of client traffic."""
+    import collections
+
+    import torch
+
+    t0 = time.perf_counter()
+    sim = sim_mod.build_simulation(
+        config_mod.parse_config(tgen_config(TGEN_PAIRS)), seed=TGEN_SEED,
+        n_sockets=TGEN_SOCKETS, capacity=TGEN_CAPACITY, device=dev)
+    sim.strict_overflow = False
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"  built TGen {TGEN_PAIRS} pairs in {build_s:.1f} s")
+    by_hc = collections.Counter()
+    kept, last = collections.defaultdict(list), {}
+    kernel = merge.fused_merge
+
+    def record(*args):
+        hc = args[0].shape[1]
+        by_hc[hc] += 1
+        copy = tuple(a.clone() for a in args)
+        if len(kept[hc]) < 3 or by_hc[hc] == TGEN_TIMED_CALL:
+            kept[hc].append(copy)
+        else:
+            last[hc] = copy
+        return kernel(*args)
+
+    runs, digests = [], []
+    for rep in range(2):
+        if rep == 0:
+            events.merge.fused_merge = record
+        syncs0 = sim.engine.host_syncs
+        torch.cuda.synchronize()
+        merge.launches = 0
+        t0 = time.perf_counter()
+        try:
+            st = sim.run()
+            torch.cuda.synchronize()
+        finally:
+            events.merge.fused_merge = kernel
+        wall = time.perf_counter() - t0
+        launches = merge.launches
+        leaves = convert.engine_state_to_numpy(st)
+        got = tgen_pin(leaves)
+        digests.append(got[-1])
+        run = {"events": got[0], "windows": got[1], "sweeps": got[2],
+               "inner_steps": got[3], "streams_done": got[4],
+               "wall_s": wall, "events_per_s": got[0] / wall,
+               "host_syncs": sim.engine.host_syncs - syncs0,
+               "launches": launches,
+               "queue_drops": int(leaves["queues.drops"].sum()),
+               "retransmits": int(leaves["hosts.net.tcb.n_retx"].sum())}
+        if rep == 0:
+            run["launches_by_hc"] = dict(sorted(by_hc.items()))
+            check(sum(by_hc.values()) == launches,
+                  f"tgen: {sum(by_hc.values())} merge calls by hc != "
+                  f"{launches} launches")
+        print(f"  tgen run {rep}: {json.dumps(run)} ({smi_line})")
+        check(got == PIN_TGEN, f"tgen: (events, windows, sweeps, inner "
+                               f"steps, streams, digest) {got} != JAX/CPU "
+                               f"{PIN_TGEN}")
+        check(launches >= got[2] > 0,
+              f"tgen: merge launches {launches} < sweeps {got[2]}")
+        runs.append(run)
+    check(digests[0] == digests[1], "tgen: two runs gave different states")
+
+    captured = [(hc, a) for hc in sorted(kept)
+                for a in kept[hc] + ([last[hc]] if hc in last else [])]
+    check(len(captured) >= 4, f"tgen: only {len(captured)} merge inputs "
+                              "captured")
+    for i, (hc, args) in enumerate(captured):
+        bad = compare_merge(merge, args)
+        check(bad == 0, f"merge kernel != plain on TGen input {i} (hc={hc})"
+                        f": {bad} elements differ")
+        print(f"  merge == plain on TGen input {i}: h={args[0].shape[0]} "
+              f"hc={hc} w={args[5].shape[1]} nw={args[2].shape[-1]} "
+              f"m={args[3].shape[0]} admitted={int(args[7].sum())}")
+    timing = {}
+    for hc in sorted(kept):
+        args = kept[hc][-1]
+        call = TGEN_TIMED_CALL if len(kept[hc]) > 3 else len(kept[hc])
+        timing[hc] = time_captured(
+            merge, dev, args, smi_line,
+            f"captured TGen flush (hc={hc}, merge call {call}, "
+            f"m={args[3].shape[0]})")
+    del kept, last, captured
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    prof = profile_run(sim.engine.run, sim.state0,
+                       TGEN_PROFILE_STOP_S * SECOND)
+    print(f"  profile of TGen 4096, first 2 sim-s of client traffic "
+          f"({time.perf_counter() - t0:.1f} s with the trace's reading): "
+          f"{json.dumps(prof)}")
+    print(json.dumps({"tgen_4096": runs[0], "tgen_4096_rerun": runs[1],
+                      "card": smi_line}))
+    return {"runs": runs, "timing": timing, "profile": prof,
+            "by_hc": dict(sorted(by_hc.items())), "build_s": build_s}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -843,14 +1003,19 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
 
-    print("== 1. device")
+    def phase(title):
+        print(f"== {title} (at {time.perf_counter() - t_start:.1f} s)",
+              flush=True)
+
+    phase("1. device")
     smi_line = phase_device()
 
-    print("== 2. build")
+    phase("2. build")
     build_s = phase_build(merge)
 
-    print("== 3. kernels against their plain versions")
+    phase("3. kernels against their plain versions")
     phase_kernels_sweep(merge, dev)
     captured = phase_live_inputs(merge, events, phold, dev, batched=True)
     timing = phase_merge_timing(merge, dev, captured, smi_line,
@@ -859,7 +1024,7 @@ def main(argv=None) -> int:
         print(json.dumps({"merge_timing": timing, "card": smi_line}))
         return 0
 
-    print("== 4. main path: PHOLD 4096 hosts, 20 sim-s, batched drain")
+    phase("4. main path: PHOLD 4096 hosts, 20 sim-s, batched drain")
     digests = []
     main_run = None
     for rep in range(2):
@@ -890,7 +1055,7 @@ def main(argv=None) -> int:
     prof = profile_phold(phold, dev, batched=True)
     print(f"  profile of PHOLD 4096, first 250 sim-ms: {json.dumps(prof)}")
 
-    print("== 5. PHOLD 16384 hosts, 20 sim-s")
+    phase("5. PHOLD 16384 hosts, 20 sim-s")
     eng, st, wall = run_phold(phold, 16384, dev)
     summ = state_summary(st)
     ev = summ["executed"]
@@ -902,14 +1067,14 @@ def main(argv=None) -> int:
     check(digest == PIN_16384[1], f"16384 state digest {digest} != "
                                   f"JAX/CPU {PIN_16384[1]}")
 
-    print("== 6. exponential over all 2^24 uniforms")
+    phase("6. exponential over all 2^24 uniforms")
     u = torch.arange(1 << 24, device=dev).to(torch.float32) * (1.0 / (1 << 24))
     e = (-rng.xla_log1p_f32(-u)).cpu().numpy()
     sha = hashlib.sha256(e.tobytes()).hexdigest()
     check(sha == EXP_SHA256, f"exponential sha256 {sha} != {EXP_SHA256}")
     print(f"  sha256 {sha} == JAX/CPU")
 
-    print("== 7. the chained drain: PHOLD 4096 hosts, 20 sim-s")
+    phase("7. the chained drain: PHOLD 4096 hosts, 20 sim-s")
     captured_c = phase_live_inputs(merge, events, phold, dev, batched=False)
     chained_merge = time_captured(
         merge, dev, captured_c[-1], smi_line,
@@ -920,17 +1085,23 @@ def main(argv=None) -> int:
     print(f"  profile of chained PHOLD 4096, first 250 sim-ms: "
           f"{json.dumps(prof)}")
 
-    print("== 8. the CPU model and a jittered, lossy graph on the card")
+    phase("8. the CPU model and a jittered, lossy graph on the card")
     variants = {}
     for which, pin in (("cpu", PIN_CPU_MODEL), ("jitter", PIN_JITTER)):
         variants[which] = phase_variant(phold, engine, topology, merge,
                                         convert, which, pin, dev, smi_line)
 
-    print("== 9. PHOLD over the UDP stack: 4096 hosts from a Shadow config")
+    phase("9. PHOLD over the UDP stack: 4096 hosts from a Shadow config")
     with tempfile.TemporaryDirectory() as workdir:
         net = phase_phold_net(sim, config, merge, events, convert, dev,
                               smi_line, workdir)
     net_merge = net["timing"]
+
+    phase("10. TGen over TCP: 4096 hosts from a Shadow config")
+    tgen = phase_tgen(sim, config, merge, events, convert, dev, smi_line)
+    # the width TGen's flushes mostly run at, timed on its last input
+    tgen_hc = max(tgen["by_hc"], key=tgen["by_hc"].get)
+    tgen_merge = tgen["timing"][tgen_hc]
 
     kernels = [{
         "name": "merge",
@@ -938,10 +1109,13 @@ def main(argv=None) -> int:
         "source": "shadow_tpu_torch/csrc/merge.cu",
         "replaces": "shadow_tpu/core/merge_pallas.py:125",
         "launches": (main_run["launches"] + chained_run["launches"]
-                     + net["main"]["launches"]),
+                     + net["main"]["launches"]
+                     + tgen["runs"][0]["launches"]),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
+        "launches_tgen": tgen["runs"][0]["launches"],
+        "launches_tgen_by_hc": tgen["by_hc"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -960,9 +1134,15 @@ def main(argv=None) -> int:
         "net_bound_us": net_merge["bound_us"],
         "net_plain_ms": net_merge["plain_ms"],
         "net_yardstick_ms": net_merge["yardstick_ms"],
+        "tgen_hc": tgen_hc,
+        "tgen_us": tgen_merge["us"],
+        "tgen_bound_us": tgen_merge["bound_us"],
+        "tgen_plain_ms": tgen_merge["plain_ms"],
+        "tgen_yardstick_ms": tgen_merge["yardstick_ms"],
         "shapes": [{key: row[key] for key in
                     ("hc", "w", "nw", "regime", "us", "bound_us", "share")}
-                   for row in timing["shapes"] + [chained_merge, net_merge]],
+                   for row in timing["shapes"] + [chained_merge, net_merge]
+                   + [tgen["timing"][hc] for hc in sorted(tgen["timing"])]],
         "build_s": build_s,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -31,7 +31,8 @@ def _leaves(obj, prefix: str, out: dict) -> dict:
         if dataclasses.is_dataclass(v):
             _leaves(v, key + ".", out)
         else:
-            out[key] = v.detach().cpu().numpy()
+            a = v.detach().cpu().numpy()
+            out[key] = a.view(np.uint64) if f.metadata.get("u64") else a
     return out
 
 
@@ -53,7 +54,10 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,
 
     def tensor(key):
         used.add(key)
-        return torch.from_numpy(np.array(leaves[key], order="C")).to(device)
+        a = np.array(leaves[key], order="C")
+        if a.dtype == np.uint64:
+            a = a.view(np.int64)
+        return torch.from_numpy(a).to(device)
 
     def build(template, prefix):
         if isinstance(template, type):  # a flat dataclass of tensors

@@ -98,8 +98,12 @@ class Emit:
         [H, n] with n <= n_args (the rest are zero). Fields are [H, 1]."""
         dst = torch.as_tensor(dst)
         h, dev = dst.shape[0], dst.device
-        col = lambda v, dtype: torch.as_tensor(
-            v, dtype=dtype, device=dev).expand(h).reshape(h, 1)
+
+        def col(v, dtype):
+            # a scalar is filled on the device, not copied from the host
+            if isinstance(v, torch.Tensor):
+                return v.to(dtype).expand(h).reshape(h, 1)
+            return torch.full((h, 1), v, dtype=dtype, device=dev)
         a = torch.zeros((h, 1, n_args), dtype=torch.int32, device=dev)
         if args is not None:
             args = torch.as_tensor(args, dtype=torch.int32, device=dev)
@@ -282,10 +286,11 @@ def _kind_cost(cpu_cost: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
 def _select_rows(mask: torch.Tensor, new: Any, old: Any) -> Any:
     """Per-row select across two dataclasses of [H, ...] tensors: `new`
     where the [H] mask is set, else `old`. Nested dataclasses recurse
-    and None fields stay None, as a pytree map over both would."""
+    and None fields stay None, as a pytree map over both would; a leaf
+    that is the same tensor on both sides is kept without a select."""
     def sel(n, o):
-        if o is None:
-            return None
+        if o is None or n is o:
+            return o
         if dataclasses.is_dataclass(o):
             return _select_rows(mask, n, o)
         return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)),
@@ -479,16 +484,15 @@ class Engine:
         k = self.cfg.max_emit
         hkeys, rkeys = srng.event_keys(self._base_key, gids, exec_cnt)
         idx = torch.clamp(ev.kind, 0, self.n_kinds - 1)
-        hosts2 = emit = None
+        # each row keeps its own kind's result; a leaf that a handler
+        # returns untouched needs no select for that handler's rows
+        hosts2, emit = hosts, None
         for i, fn in enumerate(self.handlers):
             hs_i, em_i = fn(hosts, ev, hkeys)
             em_i = em_i.pad_to(k)
-            if hosts2 is None:
-                hosts2, emit = hs_i, em_i
-            else:
-                sel = idx == i
-                hosts2 = _select_rows(sel, hs_i, hosts2)
-                emit = _select_rows(sel, em_i, emit)
+            sel = idx == i
+            hosts2 = _select_rows(sel, hs_i, hosts2)
+            emit = em_i if emit is None else _select_rows(sel, em_i, emit)
         hosts = _select_rows(active, hosts2, hosts)
         emask = emit.mask & active[:, None]
 

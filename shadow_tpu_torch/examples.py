@@ -1,4 +1,4 @@
-"""Built-in example configurations: copies of the two pieces of
+"""Built-in example configurations: copies of the pieces of
 `shadow_tpu.examples` that the ported models run, kept here because
 importing the reference package would import JAX."""
 
@@ -38,4 +38,54 @@ def phold_example(n_hosts: int = 64, msgs_per_host: int = 4,
         f'<process plugin="phold" starttime="1" '
         f'arguments="load={msgs_per_host}"/>'
         "</host></shadow>"
+    )
+
+
+def example_config() -> str:
+    """A 2-host TGen exchange over a 50 ms single-PoI topology: the
+    client opens 3 streams of 64 KiB up and 1 MiB down, pausing 1-3 s
+    between them (the reference's --test content)."""
+    return f"""<shadow stoptime="120">
+  <topology><![CDATA[{EXAMPLE_TOPOLOGY}]]></topology>
+  <plugin id="tgen" path="tgen"/>
+  <host id="server">
+    <process plugin="tgen" starttime="1" arguments="server port=8888"/>
+  </host>
+  <host id="client">
+    <process plugin="tgen" starttime="2"
+      arguments="peers=server:8888 sendsize=64KiB recvsize=1MiB count=3 pause=1,2,3"/>
+  </host>
+</shadow>"""
+
+
+def tgen_example(n_pairs: int = 64, sendsize: str = "16KiB",
+                 recvsize: str = "64KiB", count: int = 4,
+                 stoptime: int = 60) -> str:
+    """n_pairs TGen client/server pairs, each client running `count`
+    request/response streams against its own server with a 1-3 s
+    cycling pause; client starts stagger over 5 s (3 s to 7 s)."""
+    hosts = []
+    for i in range(n_pairs):
+        hosts.append(
+            f'<host id="srv{i}" bandwidthup="102400" '
+            'bandwidthdown="102400">'
+            '<process plugin="tgen" starttime="1" '
+            'arguments="server port=8888"/>'
+            "</host>"
+        )
+    for i in range(n_pairs):
+        hosts.append(
+            f'<host id="cli{i}" bandwidthup="102400" '
+            'bandwidthdown="102400">'
+            f'<process plugin="tgen" starttime="{3 + (i % 5)}" '
+            f'arguments="peers=srv{i}:8888 sendsize={sendsize} '
+            f'recvsize={recvsize} count={count} pause=1,2,3"/>'
+            "</host>"
+        )
+    return (
+        f'<shadow stoptime="{stoptime}">'
+        f"<topology><![CDATA[{EXAMPLE_TOPOLOGY}]]></topology>"
+        '<plugin id="tgen" path="tgen"/>'
+        + "".join(hosts)
+        + "</shadow>"
     )

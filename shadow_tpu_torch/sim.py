@@ -1,15 +1,19 @@
 """Simulation assembly: parsed config -> engine + device state + run loop.
 
-The counterpart of `shadow_tpu.sim` on the UDP path. `build_simulation`
-loads the topology, expands and attaches the hosts, registers their DNS
-names, sizes their NICs, lets the app model bind its sockets and
-schedule its process starts, and compiles everything into one chained-
-drain Engine whose handler table is [stack pipeline | app kinds].
+The counterpart of `shadow_tpu.sim`. `build_simulation` loads the
+topology, expands and attaches the hosts, registers their DNS names,
+sizes their NICs, lets the app model bind its sockets and schedule its
+process starts, and compiles everything into one chained-drain Engine
+whose handler table is [stack pipeline | TCP timer and tx | app kinds].
 
-Ported: the one-model UDP path with the `phold` model, shape bucketing,
-per-host bandwidth, `cpufrequency`, `interfacebuffer`, `bootstraptime`,
-process `stoptime`, the three rx queue managers and both `fuse_rx`
-modes. Not ported, each raising NotImplementedError: TCP models, fused
+Ported: one app model per simulation, `phold` over UDP or `tgen` over
+TCP (NewReno or AIMD, `tcp_cc`), shape bucketing, per-host bandwidth,
+`cpufrequency`, `interfacebuffer`, `socketsendbuffer`,
+`socketrecvbuffer`, `bootstraptime`, process `stoptime`, the three rx
+queue managers, both `fuse_rx` modes, both qdiscs, the TCP knobs
+(`tcp_in_order`, `tcp_wnd_words`, `tcp_child_slot_limit`) and burst
+folding of TCP arrivals (`burst_rx`). Not ported, each raising
+NotImplementedError: CUBIC (F2), the `tor` and `bitcoin` models, fused
 multi-model tables, sharding (`mesh`, `locality`, `host_order`), the
 frontier drain, tracing, the stats plane, a profiler, lossless overflow
 (`spill`, `grow`), packet capture and fault schedules.
@@ -37,7 +41,22 @@ from shadow_tpu_torch.core.events import Events
 from shadow_tpu_torch.core.timebase import MILLISECOND, SECOND, TIME_INVALID
 from shadow_tpu_torch.net.dns import DNS
 from shadow_tpu_torch.net.topology import Topology, jax_index
+from shadow_tpu_torch.host.sockets import PROTO_TCP
+from shadow_tpu_torch.transport import tcp as tcpm
 from shadow_tpu_torch.transport.stack import (
+    A_ACK,
+    A_AUX,
+    A_DPORT,
+    A_LEN,
+    A_META,
+    A_SACK0,
+    A_SACK1,
+    A_SEQ,
+    A_SPORT,
+    A_WND,
+    F_FIN,
+    F_RST,
+    F_SYN,
     KIND_PKT_ARRIVE,
     N_PKT_ARGS,
     HostNet,
@@ -72,10 +91,10 @@ class QueuePressureError(RuntimeError):
 class SimBuild:
     """Mutable build context handed to the app model.
 
-    The app reads per-host process specs and arguments, binds sockets
-    into `sockets`, and appends process start events. Per-host arrays
-    are sized `n_hosts` (the bucketed host count) and indexed by
-    `HostInstance.gid`.
+    The app reads per-host process specs and arguments, resolves peer
+    names through `dns`, binds sockets into `sockets` (and listeners into
+    `tcb`), and appends process start events. Per-host arrays are sized
+    `n_hosts` (the bucketed host count) and indexed by `HostInstance.gid`.
     """
 
     cfg: ShadowConfig
@@ -83,9 +102,18 @@ class SimBuild:
     n_hosts: int
     sockets: Any  # SocketTable [H, S]
     device: torch.device
+    dns: DNS
+    n_sockets: int
+    tcb: Any = None  # transport.tcp.TCB [H, S], with a TCP stack
     start_events: list[tuple[int, int, int, list[int]]] = dataclasses.field(
         default_factory=list
     )  # (time_ns, gid, kind_rel, args words)
+
+    def resolve_gid(self, name: str) -> int:
+        addr = self.dns.resolve_name(name)
+        if addr is None:
+            raise ValueError(f"unknown hostname in config: {name!r}")
+        return addr.host_id
 
     def add_start_event(self, gid: int, time_s: float, kind_rel: int,
                         args: list[int] | None = None) -> None:
@@ -231,11 +259,12 @@ def _not_ported(name: str) -> Callable:
 
 
 def default_registry() -> dict[str, Callable]:
-    """The app models by plugin name; only `phold` is ported."""
+    """The app models by plugin name; `tgen` and `phold` are ported."""
     from shadow_tpu_torch.models.phold_net import PholdNetModel
+    from shadow_tpu_torch.models.tgen import TGenModel
 
     return {
-        "tgen": _not_ported("tgen"),
+        "tgen": TGenModel,
         "phold": PholdNetModel,
         "tor": _not_ported("tor"),
         "bitcoin": _not_ported("bitcoin"),
@@ -280,12 +309,18 @@ def build_simulation(
     n_sockets: int = 8,
     capacity: int | None = None,
     mesh: Any = None,
+    tcp_cc: str = "reno",
+    tcp_in_order: bool = True,
+    tcp_wnd_words: int | None = None,
     rx_queue: str = "codel",
+    qdisc: str = "fifo",
     interface_buffer: int = 1_024_000,
+    tcp_child_slot_limit: int | None = None,
     locality: bool = False,
     runahead_ns: int | None = None,
     frontier: int = 0,
     fuse_rx: bool = True,
+    burst_rx: bool = True,
     shape_bucket: bool = True,
     trace: int = 0,
     stats: int = 0,
@@ -297,13 +332,17 @@ def build_simulation(
     """Config -> Simulation on `device` (None: CUDA, which must exist;
     pass "cpu" to run on the CPU).
 
-    The keywords are the reference's, less those that act only on TCP
-    stacks, spill rings or meshes, which come with the code that reads
-    them.
+    The keywords are the reference's, less those that act only on spill
+    rings, meshes or an app model passed in whole, which come with the
+    code that reads them. `tcp_cc="cubic"` raises (F2).
     """
     _refuse_unported(mesh=mesh, locality=locality, host_order=host_order,
                      frontier=frontier, trace=trace, stats=stats,
                      profiler=profiler, overflow=overflow)
+    if tcp_cc == "cubic":
+        raise NotImplementedError(tcpm.F2_MESSAGE)
+    if qdisc not in ("fifo", "rr"):
+        raise ValueError(f"unknown qdisc {qdisc!r}")
     dev = resolve_device(device)
     if cfg.faults:
         raise NotImplementedError("fault schedules are not ported")
@@ -333,6 +372,8 @@ def build_simulation(
     bw_up = np.full((n_hosts,), float(DEFAULT_BANDWIDTH_KIB), np.float64)
     bw_down = np.full((n_hosts,), float(DEFAULT_BANDWIDTH_KIB), np.float64)
     cpu_cost = np.zeros((n_hosts,), np.int64)
+    rcv_wnd_bytes = np.zeros((n_hosts,), np.int64)
+    snd_buf_bytes = np.zeros((n_hosts,), np.int64)  # 0 = unlimited
     # NIC receive buffer bound (interfacebuffer; the reference's default
     # is 1024000 bytes)
     rx_buf = np.full((n_hosts,), interface_buffer, np.int64)
@@ -346,13 +387,12 @@ def build_simulation(
                           or DEFAULT_BANDWIDTH_KIB)
         if s.cpufrequency:
             cpu_cost[h.gid] = CPU_CYCLES_PER_EVENT * 1_000_000 // s.cpufrequency
+        if s.socketrecvbuffer:
+            rcv_wnd_bytes[h.gid] = s.socketrecvbuffer
         if s.socketsendbuffer:
-            # as the reference: without a TCP stack there is no send
-            # buffer for the cap to bound (socketrecvbuffer sizes TCP's
-            # receive window and is ignored without one)
-            raise ValueError(
-                "socketsendbuffer is set but the app model runs no TCP "
-                "stack; remove the attribute")
+            # bytes beyond the cap wait in the TCB's app_pending and
+            # drain on ACK progress
+            snd_buf_bytes[h.gid] = s.socketsendbuffer
         if s.interfacebuffer:
             rx_buf[h.gid] = s.interfacebuffer
         if s.logpcap or s.pcapdir:
@@ -377,21 +417,39 @@ def build_simulation(
             "several app models in one simulation (FusedModel) are not "
             "ported")
     model = parts[0][1]
-    if model.needs_tcp:
-        raise NotImplementedError(
-            f"app model {model.name!r} runs on TCP, which is not ported")
+    if snd_buf_bytes.any() and not model.needs_tcp:
+        # without a TCP stack there is no send buffer for the cap to bound
+        # (socketrecvbuffer sizes TCP's receive window; ignored without)
+        raise ValueError(
+            "socketsendbuffer is set but the app model "
+            f"{model.name!r} runs no TCP stack; remove the attribute")
     if capacity is None:
-        capacity = 256
-    net = HostNet.create(n_hosts, n_sockets, bw_up, bw_down,
-                         rx_buf_bytes=rx_buf, device=dev)
+        # a TCP host must queue a full receive window (64 * WND_WORDS
+        # segments) twice over, plus timers and app events
+        capacity = 64 * tcpm.WND_WORDS * 2 + 64 if model.needs_tcp else 256
+    net = HostNet.create(
+        n_hosts, n_sockets, bw_up, bw_down, with_tcp=model.needs_tcp,
+        rcv_wnd_bytes=rcv_wnd_bytes if rcv_wnd_bytes.any() else None,
+        wnd_words=tcp_wnd_words, rx_buf_bytes=rx_buf,
+        snd_buf_bytes=snd_buf_bytes if snd_buf_bytes.any() else None,
+        device=dev)
 
     b = SimBuild(cfg=cfg, hosts=hosts, n_hosts=n_hosts,
-                 sockets=net.sockets, device=dev)
+                 sockets=net.sockets, device=dev, dns=dns,
+                 n_sockets=n_sockets, tcb=net.tcb)
     app_state, make_handlers, on_recv = model.build(b)
-    net = dataclasses.replace(net, sockets=b.sockets)
+    net = dataclasses.replace(net, sockets=b.sockets, tcb=b.tcb)
 
+    # config-driven runs get strict byte-stream delivery order; qdisc
+    # "rr" sends one segment per tx kick, so contending connections
+    # alternate through the NIC's virtual clock
+    tcp = None
+    if model.needs_tcp:
+        tcp_kw = dict(tx_burst=1, inline_budget=1) if qdisc == "rr" else {}
+        tcp = tcpm.TCP(auto_close=False, cc=tcp_cc, in_order=tcp_in_order,
+                       child_slot_limit=tcp_child_slot_limit, **tcp_kw)
     # fuse_rx folds each packet's ARRIVE -> RX event pair into one
-    stack = Stack(bootstrap_end=int(cfg.bootstraptime * SECOND),
+    stack = Stack(bootstrap_end=int(cfg.bootstraptime * SECOND), tcp=tcp,
                   rx_queue=rx_queue, fuse_rx=fuse_rx)
 
     if on_recv is None:
@@ -409,14 +467,18 @@ def build_simulation(
     base_handlers = stack.make_handlers(on_recv)
     kind_base = len(base_handlers)
     handlers = base_handlers + make_handlers(stack, kind_base)
-    kind_names = ["pkt_arrive", "pkt_rx"] + [
-        f"{model.name}.{i}" for i in range(model.n_kinds)]
+    kind_names = ["pkt_arrive", "pkt_rx"]
+    if tcp is not None:
+        kind_names += ["tcp_timer", "tcp_tx"]
+    kind_names += [f"{model.name}.{i}" for i in range(model.n_kinds)]
     if len(kind_names) != len(handlers):
         raise AssertionError(
             f"kind label table ({len(kind_names)}) out of sync with the "
             f"handler table ({len(handlers)})"
         )
-    max_emit = max(model.app_rows() + 1, model.handler_rows())
+    need = (tcp.min_max_emit(model.app_rows()) if tcp is not None
+            else model.app_rows() + 1)
+    max_emit = max(need, model.handler_rows())
 
     # conservative window width: the topology's minimum path latency,
     # unless the user widens it (cross-host arrivals clamp up to the
@@ -427,9 +489,17 @@ def build_simulation(
         lookahead = runahead_ns
     else:
         lookahead = max(int(topo.min_latency_ms * MILLISECOND), 1)
+    # burst delivery: contiguous same-flow TCP arrivals staged in one
+    # sweep fold into multi-segment events (the delivery runs inside the
+    # fused arrival)
+    burst = None
+    if burst_rx and fuse_rx and tcp is not None:
+        burst = (KIND_PKT_ARRIVE, A_SEQ, A_LEN, A_SPORT, A_DPORT, A_META,
+                 PROTO_TCP, F_SYN | F_FIN | F_RST, tcpm.MSS,
+                 (A_ACK, A_WND, A_AUX, A_SACK0, A_SACK1))
     ecfg = EngineConfig(
         n_hosts=n_hosts, capacity=capacity, lookahead=lookahead,
-        max_emit=max_emit, n_args=N_PKT_ARGS, seed=seed,
+        max_emit=max_emit, n_args=N_PKT_ARGS, seed=seed, burst=burst,
     )
     network = topo.build_network(host_vertex, device=dev)
     cost_arg = cpu_cost

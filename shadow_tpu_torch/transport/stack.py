@@ -1,14 +1,16 @@
-"""The host network stack, UDP: packet events, delivery pipeline, send path.
+"""The host network stack: packet events, delivery pipeline, send path.
 
-The counterpart of `shadow_tpu.transport.stack` without TCP. A datagram
-takes two event hops:
+The counterpart of `shadow_tpu.transport.stack`. A packet takes two
+event hops:
 
   sender handler:  tx-NIC virtual clock -> Emit(dst, dt = serialization)
   [the engine routes it: + path latency, reliability roll, barrier clamp]
   KIND_PKT_ARRIVE at dst: rx-NIC virtual clock gives (start, finish);
       sojourn = start - arrival feeds CoDel, which may drop; otherwise
       a local Emit at dt = finish - now of kind KIND_PKT_RX
-  KIND_PKT_RX at dst: socket demux, byte count, app on_recv callback
+  KIND_PKT_RX at dst: socket demux, then the app's on_recv callback
+      (UDP: byte count first; TCP: segment processing through the
+      installed `transport.tcp.TCP`, which counts delivered bytes)
 
 With `fuse_rx` the delivery runs inside KIND_PKT_ARRIVE at the NIC's
 finish instant: its emits shift by finish - now, so every output time
@@ -71,18 +73,18 @@ _I64 = torch.int64
 
 
 def _rows(v, like: torch.Tensor, dtype) -> torch.Tensor:
-    """A scalar or [H] value as an [H] tensor of `dtype` beside `like`."""
-    return torch.as_tensor(v, dtype=dtype, device=like.device).expand(
-        like.shape[:1])
+    """A scalar or [H] value as an [H] tensor of `dtype` beside `like`
+    (a scalar is filled on the device, never copied from the host)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype).expand(like.shape[:1])
+    return torch.full(like.shape[:1], v, dtype=dtype, device=like.device)
 
 
 def _sel(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """a[row, c[row]] from an [H, S] tensor by a one-hot select;
-    out-of-range c clamps, as JAX indexing does."""
-    s = a.shape[1]
-    cc = torch.clamp(c, 0, s - 1)
-    hit = torch.arange(s, dtype=_I32, device=a.device)[None, :] == cc[:, None]
-    return torch.sum(torch.where(hit, a, 0), dim=1, dtype=a.dtype)
+    """a[h, c[h]] from an [H, S] tensor; out-of-range c clamps, as JAX
+    indexing does."""
+    idx = torch.clamp(c, 0, a.shape[1] - 1).long()
+    return torch.gather(a, 1, idx[:, None])[:, 0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,20 +141,30 @@ class Pkt:
         ref = next(f for f in fields if isinstance(f, torch.Tensor))
         shape = torch.broadcast_shapes(
             *(f.shape for f in fields if isinstance(f, torch.Tensor)))
-        mk = lambda x, dtype=_I32: torch.as_tensor(
-            x, dtype=dtype, device=ref.device).expand(shape)
-        sack = mk(sack, _I64)
-        words = [mk(proto) | mk(flags), mk(sport), mk(dport), mk(seq),
-                 mk(ack), mk(length), mk(wnd), mk(aux), mk(0),
-                 (sack & 0xFFFFFFFF).to(_I32), (sack >> 32).to(_I32)]
-        return torch.stack(words, dim=-1)
+        out = torch.zeros(shape + (N_PKT_ARGS,), dtype=_I32,
+                          device=ref.device)
+        # each word is written cast to i32 (wrapping, as .to would)
+        words = ((A_META, proto | flags), (A_SPORT, sport), (A_DPORT, dport),
+                 (A_SEQ, seq), (A_ACK, ack), (A_LEN, length), (A_WND, wnd),
+                 (A_AUX, aux))
+        if isinstance(sack, torch.Tensor):
+            words += ((A_SACK0, sack & 0xFFFFFFFF), (A_SACK1, sack >> 32))
+        elif sack:
+            raise ValueError("a SACK word must be an int64 tensor")
+        for i, v in words:
+            if isinstance(v, torch.Tensor):
+                out[..., i] = v
+            elif v != 0:
+                out[..., i].fill_(v)  # on the device, not from the host
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
 class HostNet:
     """Per-host network state, [H]-leading: NIC both ways, the upstream
-    router's AQM and the socket table. `tcb` and `cap` (TCP, packet
-    capture) are not ported and stay None."""
+    router's AQM, the socket table and, when TCP is installed, the
+    connection table `tcb` ([H, S] `transport.tcp.TCB`). `cap` (packet
+    capture) is not ported and stays None."""
 
     nic_tx: NIC
     nic_rx: NIC
@@ -163,13 +175,30 @@ class HostNet:
 
     @staticmethod
     def create(n_hosts: int, n_sockets: int, bw_up_kib, bw_down_kib,
-               with_tcp: bool = False, rx_buf_bytes=0, *,
-               device) -> "HostNet":
+               with_tcp: bool = False, rcv_wnd_bytes=None,
+               wnd_words: int | None = None, rx_buf_bytes=0,
+               snd_buf_bytes=None, *, device) -> "HostNet":
         """Idle NICs at the given KiB/s bandwidths (scalars or [H]) with
-        an rx drop-tail bound (0 = none), closed sockets. `with_tcp` is
-        not ported."""
+        an rx drop-tail bound (0 = none), closed sockets and, with
+        `with_tcp`, a closed connection table: `rcv_wnd_bytes` ([H], 0 =
+        none) caps each host's autotuned receive window at its segment
+        count, `wnd_words` sizes the reassembly bitmap, `snd_buf_bytes`
+        ([H]) bounds the send buffer."""
+        tcb = None
         if with_tcp:
-            raise NotImplementedError("the TCP stack is not ported")
+            from shadow_tpu_torch.transport.tcp import MSS, TCB, WND_WORDS
+
+            ww = wnd_words or WND_WORDS
+            cap_max = 64 * ww
+            rcv_wnd = None
+            if rcv_wnd_bytes is not None:
+                rb = torch.as_tensor(rcv_wnd_bytes, dtype=torch.int64)
+                rcv_wnd = torch.where(rb > 0,
+                                      torch.clamp(rb // MSS, 1, cap_max),
+                                      cap_max).to(torch.int32)
+            tcb = TCB.create(n_hosts, n_sockets, rcv_wnd=rcv_wnd,
+                             wnd_words=ww, snd_cap=snd_buf_bytes,
+                             device=device)
         f64 = torch.float64
         up = torch.as_tensor(bw_up_kib, dtype=f64).to(device).expand(n_hosts)
         down = torch.as_tensor(bw_down_kib, dtype=f64).to(device).expand(
@@ -179,6 +208,7 @@ class HostNet:
             nic_rx=NIC.create(down, buf_bytes=rx_buf_bytes),
             codel=CoDel.create(n_hosts, device=device),
             sockets=SocketTable.create(n_hosts, n_sockets, device=device),
+            tcb=tcb,
         )
 
 
@@ -204,9 +234,10 @@ class Stack:
     (SimHost or any such dataclass).
     """
 
-    def __init__(self, *, bootstrap_end: int = 0, rx_queue: str = "codel",
-                 fuse_rx: bool = False):
-        """rx_queue selects the upstream router's queue manager: 'codel'
+    def __init__(self, *, bootstrap_end: int = 0, tcp=None,
+                 rx_queue: str = "codel", fuse_rx: bool = False):
+        """`tcp` is the TCP hook (a `transport.tcp.TCP`) or None.
+        rx_queue selects the upstream router's queue manager: 'codel'
         (AQM, the default), 'static' (drop-tail against the NIC buffer
         bound) or 'single' (one packet queued at a time). fuse_rx folds
         the KIND_PKT_RX delivery into KIND_PKT_ARRIVE (one event per
@@ -215,6 +246,7 @@ class Stack:
         if rx_queue not in ("codel", "static", "single"):
             raise ValueError(f"unknown rx_queue {rx_queue!r}")
         self.bootstrap_end = bootstrap_end  # unlimited-bandwidth phase end
+        self.tcp = tcp
         self.rx_queue = rx_queue
         self.fuse_rx = fuse_rx
 
@@ -249,8 +281,10 @@ class Stack:
 
     # ------------------------------------------------------------ handlers
     def make_handlers(self, on_recv: OnRecvHost):
-        """[KIND_PKT_ARRIVE, KIND_PKT_RX] handlers; `on_recv` runs for
-        every demuxed UDP delivery."""
+        """[KIND_PKT_ARRIVE, KIND_PKT_RX] handlers, then TCP's
+        [KIND_TCP_TIMER, KIND_TCP_TX] when a TCP hook is installed;
+        `on_recv` runs for every demuxed UDP delivery and every TCP app
+        delivery."""
 
         def on_arrive(hs, ev: Events, key):
             # router enqueue, rx-NIC scheduling and the CoDel verdict: the
@@ -318,6 +352,10 @@ class Stack:
             pkt = Pkt.decode(ev)
             slot = net.sockets.demux(pkt.proto, pkt.dst_port, pkt.src_host,
                                      pkt.src_port)
+            if self.tcp is not None:
+                # TCP counts delivered bytes itself and routes UDP on
+                return self.tcp.process_segment(self, hs, slot, pkt, ev, key,
+                                                on_recv)
             sockets = net.sockets.add_rx(slot, pkt.length)
             hs = dataclasses.replace(
                 hs, net=dataclasses.replace(net, sockets=sockets))
@@ -332,4 +370,7 @@ class Stack:
                                      device=ev.time.device)
             return deliver(hs, ev, key)
 
-        return [on_arrive, on_rx]
+        handlers = [on_arrive, on_rx]
+        if self.tcp is not None:
+            handlers += self.tcp.make_handlers(self)
+        return handlers

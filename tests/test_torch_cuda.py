@@ -16,6 +16,7 @@ import pytest
 import torch
 
 import chip_smoke
+import torch_tcp_harness as tcp_harness
 import torch_toy
 from shadow_tpu_torch import convert
 from shadow_tpu_torch.core import merge
@@ -116,6 +117,106 @@ def test_phold_net_on_cuda_matches_cpu():
     for key, a in states["cpu"].items():
         np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
     assert states["cpu"]["hosts.app.n_recv"].sum() > 0
+
+
+def test_tgen_on_cuda_matches_cpu():
+    """TGen over TCP (NewReno, burst folding), built from a config by
+    build_simulation (3 pairs, bucketed to 16 hosts), on the card equals
+    the CPU run, which tests/test_torch_tgen.py holds against the JAX
+    reference."""
+    _need_card()
+    from shadow_tpu_torch import config, sim
+
+    cfg = config.parse_config(chip_smoke.tgen_config(3).replace(
+        f'stoptime="{chip_smoke.TGEN_STOP_S}"', 'stoptime="6"'))
+    states = {}
+    for dev in ("cuda", "cpu"):
+        s = sim.build_simulation(
+            cfg, seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
+            capacity=chip_smoke.TGEN_CAPACITY, device=dev)
+        before = merge.launches
+        states[dev] = convert.engine_state_to_numpy(s.run())
+        if dev == "cuda":
+            assert merge.launches - before >= int(
+                states[dev]["stats.n_sweeps"]) > 0
+    assert states["cuda"].keys() == states["cpu"].keys()
+    for key, a in states["cpu"].items():
+        np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
+    assert states["cpu"]["hosts.app.streams_done"].sum() > 0
+    assert states["cpu"]["hosts.net.tcb.ooo"].dtype == np.uint64
+
+
+# name: (harness, keywords, stop s): tests/test_torch_tcp.py's lossy
+# scenarios and tests/test_torch_tcp_matrix.py's lossy cells and SACK run
+TCP_LOSS = {
+    "bulk_lossy": (tcp_harness.build_pair,
+                   dict(total=50_000, reliability=0.85, seed=11), 20),
+    "heavy_loss": (tcp_harness.build_pair,
+                   dict(total=100, reply=5000, reliability=0.7,
+                        close_after_send=False, seed=1), 120),
+    "lossy_reno": (tcp_harness.build_stream,
+                   dict(total=60_000, reliability=0.85, cc="reno", seed=3),
+                   60),
+    "lossy_aimd": (tcp_harness.build_stream,
+                   dict(total=60_000, reliability=0.85, cc="aimd", seed=3),
+                   60),
+    "sack": (tcp_harness.build_stream,
+             dict(total=120_000, reliability=0.85, seed=5), 60),
+}
+# the states compared on the way, while segments are out of order
+TCP_STOPS_S = (0.25, 1, 2, 4)
+
+
+def _tcp_runs(build, kw, stops_ns, edit=None):
+    """{device: [leaves at each stop]}, through the kernel on the card;
+    `edit(state, put)` changes the state after the first stop."""
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        eng, st = build(device=dev, **kw)
+        before = merge.launches
+        runs[dev] = []
+        for i, stop in enumerate(stops_ns):
+            st = eng.run(st, stop)
+            runs[dev].append(convert.engine_state_to_numpy(st))
+            if i == 0 and edit is not None:
+                st = edit(st)
+        if dev == "cuda":
+            assert merge.launches - before >= int(
+                runs[dev][-1]["stats.n_sweeps"]) > 0
+    for got, want in zip(runs["cuda"], runs["cpu"]):
+        assert got.keys() == want.keys()
+        for key, a in want.items():
+            np.testing.assert_array_equal(got[key], a, err_msg=key)
+    return runs["cpu"]
+
+
+@pytest.mark.parametrize("name", list(TCP_LOSS))
+def test_tcp_loss_paths_on_cuda_match_cpu(name):
+    """TCP's loss paths on the card (fast retransmit, RTO, SACK, and the
+    out-of-order bitmaps held as u64 bits in int64) equal the CPU run,
+    which tests/test_torch_tcp.py and tests/test_torch_tcp_matrix.py hold
+    against the JAX reference: every leaf, at stops taken while segments
+    are out of order and at the end."""
+    _need_card()
+    build, kw, stop_s = TCP_LOSS[name]
+    stops = [int(s * chip_smoke.SECOND) for s in TCP_STOPS_S + (stop_s,)]
+    cpu = _tcp_runs(build, kw, stops)
+    assert cpu[-1]["hosts.net.tcb.n_retx"].sum() > 0
+    assert any(r["hosts.net.tcb.ooo"].any() for r in cpu)
+
+
+def test_tcp_rst_on_cuda_matches_cpu():
+    """TCP(rst_on_unmatched=True) on the card equals the CPU run: the
+    server loses its connection with data in flight, and the RST the
+    client draws closes it."""
+    _need_card()
+    ms = chip_smoke.SECOND // 1000
+    cpu = _tcp_runs(
+        tcp_harness.build_pair, dict(rst_on_unmatched=True),
+        [50 * ms, 2 * chip_smoke.SECOND],
+        edit=lambda st: tcp_harness.forget_socket(
+            st, 1, 1, tcp_harness.put_torch))
+    assert cpu[-1]["hosts.net.tcb.state"][0, 0] == tcp_harness.ttcp.CLOSED
 
 
 def test_plan_layout_agrees_with_the_kernel():

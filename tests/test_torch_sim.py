@@ -253,11 +253,14 @@ def test_unported_knobs_raise():
         '<host id="peer"', '<host id="peer" logpcap="true"')
     with pytest.raises(NotImplementedError):
         tsim.build_simulation(tconfig.parse_config(pcap), device="cpu")
-    for plugin in ("tgen", "tor", "bitcoin"):
-        text = tgen_config() if plugin == "tgen" else \
-            texamples.phold_example(8, 1, 2).replace("phold", plugin)
+    for plugin in ("tor", "bitcoin"):
+        text = texamples.phold_example(8, 1, 2).replace("phold", plugin)
         with pytest.raises(NotImplementedError, match="not ported"):
             tsim.build_simulation(tconfig.parse_config(text), device="cpu")
+    # tgen is ported (tests/test_torch_tgen.py); its CUBIC is not (F2)
+    with pytest.raises(NotImplementedError, match="F2"):
+        tsim.build_simulation(tconfig.parse_config(tgen_config()),
+                              tcp_cc="cubic", device="cpu")
 
 
 def test_strict_overflow_raises():

@@ -42,6 +42,7 @@ from shadow_tpu_torch.core.events import Events as TEvents
 from shadow_tpu_torch.host import nic as tnic
 from shadow_tpu_torch.host import sockets as tsock
 from shadow_tpu_torch.transport import stack as tstack
+from shadow_tpu_torch.transport import tcp as ttcp
 from test_torch_phold import assert_leaves_equal, jax_leaves
 
 MS = 1_000_000
@@ -620,8 +621,8 @@ def test_stack_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="capture"):
         tstack.Stack().send_udp(hs, torch.zeros(2, dtype=torch.int64), 0, 1,
                                 80, 100)
-    with pytest.raises(NotImplementedError):
-        tstack.HostNet.create(2, 2, 1.0, 1.0, with_tcp=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="F2"):
+        ttcp.TCP(cc="cubic")  # the TCP stack is ported; CUBIC is not
     with pytest.raises(ValueError):
         tstack.Stack(rx_queue="red")
     net = dataclasses.replace(
