@@ -24,10 +24,11 @@ Phases, each of which fails the run (exit 1, no result line) on error:
 7. the chained drain, `phold.build`'s default: the merge kernel held to
    its plain version on the first merge inputs of a chained run and
    timed on the last of them (a flush of the staging buffer); then
-   PHOLD 4096 on the chained drain for the full 20 sim-seconds, held to
-   PIN_4096's event count, to phase 4's state less the scheduler
-   counters, to the JAX/CPU inner-step and sweep pins, and to at least
-   one merge launch per sweep;
+   PHOLD 4096 on the chained drain to CHAINED_STOP_NS = 5 sim-s, held
+   to its JAX/CPU events, inner steps, sweeps and digest
+   (PIN_CHAINED_4096), to the state of a batched run to the same stop
+   less the scheduler counters, and to at least one merge launch per
+   sweep;
 8. PHOLD 4096 on the chained drain with the CPU model, and over a
    jittered, lossy four-PoI graph (GraphNetwork), each for 2 sim-s and
    pinned to its JAX/CPU event count and state digest;
@@ -50,21 +51,37 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    queue width (hc 128, the hot region, or the full capacity 768); the
    merge kernel held to its plain version on the run's captured inputs
    (at hc = 768 too where the run reaches it) and timed on the last
-   captured input of each width; a profile of the first 2 sim-s of
-   client traffic.
+   captured input of each width; a profile of the first sim-second
+   of client traffic;
+11. Tor (relay crypto on a virtual CPU, circuits over TCP), built from
+   `tor_example` at bench.py's 1,020-host tier by `sim.build_simulation`
+   with bench.py's Tor knobs and strict overflow, run once to TOR_STOP_S
+   = 5 sim-s in one call: held to its JAX/CPU events, windows, sweeps,
+   inner steps, drops, streams done, relayed bytes and state digest, and
+   to a merge launch per sweep; merge launches counted by queue width,
+   the kernel held to its plain version on captured inputs at every
+   width reached and timed on one per width; a profile of 3.00-3.25 s;
+12. Bitcoin (UDP control and TCP block bodies on one host), built from
+   `bitcoin_example(1000 nodes)` with bench.py's knobs, run once to
+   BTC_STOP_S = 36 sim-s in one call, when the first block has reached
+   every node: held the same way, and to `best` = 1 on every real node
+   (0 on the pad rows) and the last adoption time; a profile of
+   31.00-31.25 s.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
 package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
-without the result lines.
+without the result lines; `--only 11,12` runs phases 1-3 and then only
+the listed config-driven phases (9-12), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
 runs every pinned configuration in both packages on the CPU and asserts
 the pins against the JAX leaves (`tests/test_torch_tgen.py -m slow -k
-4096` for phase 10's). The merge-input generator below is shared with
+4096` for phase 10's, `tests/test_torch_tor_bitcoin.py -m slow -k pins`
+for phases 11 and 12). The merge-input generator below is shared with
 tests/test_torch_merge.py.
 """
 
@@ -95,10 +112,15 @@ PIN_4096 = (10_934_800,
             "ed198810b5740862351fb640ce1f068dc95b85980b27eaae1cc7c2770d707659")
 PIN_16384 = (43_740_010,
              "10c97d9e30b341bf6c12f4ab10fe61d122cd6160e2da7d64c7c4f669e79bc5cb")
-# The chained drain (phold.build's default) at the bench shape, 20 sim-s,
-# on JAX/CPU: (inner steps, sweeps). Its events equal PIN_4096's, and its
-# leaves less the scheduler counters SCHEDULER hash as the batched run's.
-PIN_CHAINED_4096 = (7143, 400)
+# The chained drain (phold.build's default) at the bench shape, run to
+# CHAINED_STOP_NS (cut from 20 sim-s, where it took 86-200 s on the card,
+# to fit phases 11-12 in the time limit), on JAX/CPU: (events, inner
+# steps, sweeps, digest of every leaf). Its leaves less the scheduler
+# counters SCHEDULER hash as the batched run's to the same stop.
+CHAINED_STOP_NS = 5 * SECOND
+PIN_CHAINED_4096 = (
+    2_742_812, 1_779, 100,
+    "0f2bac136ee992673418e632d08933de15b0f5ec621f0bf005d184abf150b36e")
 SCHEDULER = ("stats.n_sweeps", "stats.n_inner_steps", "stats.n_xchg_rounds")
 # PHOLD 4096 on the chained drain with the CPU model, and over a jittered,
 # lossy graph, for VARIANT_STOP_NS: (events, digest of every leaf) each,
@@ -237,8 +259,8 @@ PIN_TGEN = (
 PIN_TGEN_BENCH = (
     25_462, 121, 121, 403, 666,
     "6e69cf8dc3908aa4d8db168709ae80f2747e51b9de9216686481cfd9121b66dd")
-# clients start at 3-7 s: the profile covers their first 2 sim-s
-TGEN_PROFILE_STOP_S = 5
+# clients start at 3-7 s: the profile covers their first sim-second
+TGEN_PROFILE_STOP_S = 4
 # the merge call whose input phase 10 times: mid-run, in steady traffic
 TGEN_TIMED_CALL = 61
 
@@ -260,6 +282,94 @@ def tgen_pin(leaves) -> tuple:
             int(leaves["stats.n_inner_steps"]),
             int(leaves["hosts.app.streams_done"].sum()),
             leaves_digest(leaves))
+
+
+# Tor (phase 11): bench.py's Tor-circuit measurement (`tor_worker`,
+# bench.py:257-330: seed 1, 32 sockets, capacity 768, relays on a 3 GHz
+# virtual CPU, 64 KiB fetches, 2 per client) at its tier 2 (TOR_TIERS[2],
+# bench.py:218: 110 relays per class, 660 clients, 30 servers, 1,020 hosts
+# bucketed to 1,024 rows), run to TOR_STOP_S in one call. Pins from
+# JAX/CPU: (events, windows, sweeps, inner steps, queue drops, streams
+# done, relayed bytes, digest of every leaf).
+TOR_TIER = (110, 660, 30)
+TOR_SEED, TOR_SOCKETS, TOR_CAPACITY, TOR_CPU_GHZ = 1, 32, 768, 3.0
+TOR_FILESIZE, TOR_COUNT, TOR_CONFIG_STOP_S, TOR_STOP_S = "64KiB", 2, 10, 5
+PIN_TOR = (
+    30_494, 39, 113, 1_787, 0, 132, 52_310_016,
+    "4bca53860798065dc506c35a52afe747883f2f18d6509b0a16094017e91e9dfc")
+# the first clients start at 3 s: the profile covers 3.00-3.25 s
+TOR_PROFILE_S = (3.0, 3.25)
+# the merge call whose input phase 11 times: mid-run, in circuit traffic
+TOR_TIMED_CALL = 57
+# Bitcoin (phase 12): bench.py's gossip measurement (`btc_worker`,
+# bench.py:582-624: 1,000 nodes bucketed to 1,024 rows, 2 blocks of 256
+# KiB at a 30 s interval, seed 1, 16 sockets, capacity 768), run to
+# BTC_STOP_S in one call: block 1, mined at 31 s, has reached every node.
+# Pins from JAX/CPU: (events, windows, sweeps, inner steps, queue drops,
+# least and largest `best` over the real nodes, largest over the pad
+# rows, largest `t_best`, digest of every leaf).
+BTC_NODES, BTC_BLOCKS, BTC_BLOCKSIZE, BTC_INTERVAL = 1000, 2, "256KiB", 30
+BTC_SEED, BTC_SOCKETS, BTC_CAPACITY, BTC_STOP_S = 1, 16, 768, 36
+PIN_BTC = (
+    87_525, 91, 179, 2_385, 0, 1, 1, 0, 35_055_078_069,
+    "a669432d597848a47028c3b4f5e25db24f3440603f4c3fdaff363fd1e4fc87c5")
+# the first block is mined at 31 s: the profile covers 31.00-31.25 s
+BTC_PROFILE_S = (31.0, 31.25)
+# the merge call whose input phase 12 times: in the first block's spread
+BTC_TIMED_CALL = 120
+
+
+def tor_config(tier=TOR_TIER) -> str:
+    """Shadow config text of bench.py's Tor measurement at a tier
+    (relays per class, clients, servers)."""
+    from shadow_tpu_torch.examples import tor_example
+
+    relays, clients, servers = tier
+    return tor_example(n_relays_per_class=relays, n_clients=clients,
+                       n_servers=servers, filesize=TOR_FILESIZE,
+                       count=TOR_COUNT, stoptime=TOR_CONFIG_STOP_S,
+                       relay_cpu_ghz=TOR_CPU_GHZ)
+
+
+def btc_config(n_nodes=BTC_NODES) -> str:
+    """Shadow config text of bench.py's Bitcoin measurement."""
+    from shadow_tpu_torch.examples import bitcoin_example
+
+    return bitcoin_example(n_nodes=n_nodes, blocks=BTC_BLOCKS,
+                           blocksize=BTC_BLOCKSIZE, interval=BTC_INTERVAL)
+
+
+TOR_KW = dict(seed=TOR_SEED, n_sockets=TOR_SOCKETS, capacity=TOR_CAPACITY)
+BTC_KW = dict(seed=BTC_SEED, n_sockets=BTC_SOCKETS, capacity=BTC_CAPACITY)
+
+
+def _counts(leaves) -> tuple:
+    return (int(leaves["stats.n_executed"].sum()),
+            int(leaves["stats.n_windows"]), int(leaves["stats.n_sweeps"]),
+            int(leaves["stats.n_inner_steps"]),
+            int(leaves["queues.drops"].sum()))
+
+
+def tor_pin(leaves) -> tuple:
+    """A Tor run's pin from its numpy leaves (either package's)."""
+    from shadow_tpu_torch.convert import leaves_digest
+
+    return _counts(leaves) + (
+        int(leaves["hosts.app.streams_done"].sum()),
+        int(leaves["hosts.app.relayed_bytes"].sum()), leaves_digest(leaves))
+
+
+def btc_pin(leaves, n_real: int) -> tuple:
+    """A Bitcoin run's pin from its numpy leaves (either package's):
+    `best` over the first n_real rows (the nodes) and over the rest (the
+    shape bucket's pad rows)."""
+    from shadow_tpu_torch.convert import leaves_digest
+
+    best = leaves["hosts.app.best"]
+    return _counts(leaves) + (
+        int(best[:n_real].min()), int(best[:n_real].max()),
+        int(best[n_real:].max(initial=0)),
+        int(leaves["hosts.app.t_best"].max()), leaves_digest(leaves))
 
 
 # sha256 of JAX's -log1p(-u) f32 bytes over u = (0 .. 2^24-1) / 2^24
@@ -597,8 +707,10 @@ def time_merge_shape(merge, args, reps=200) -> dict:
     del outs
     k_ms = device_ms(lambda: merge.fused_merge(*args), reps)
     qt, bpay = args[0], args[5]
-    return {"h": qt.shape[0], "hc": qt.shape[1], "w": bpay.shape[1],
-            "nw": bpay.shape[2], "us": k_ms * 1e3,
+    h, hc, w = qt.shape[0], qt.shape[1], bpay.shape[1]
+    return {"h": h, "hc": hc, "w": w, "nw": bpay.shape[2],
+            "warps_per_block": merge.launch_plan(h, hc, w).warps_per_block,
+            "us": k_ms * 1e3,
             "bound_us": bound_ms * 1e3, "bound_by": by, "bytes": nbytes,
             "share": bound_ms / k_ms}
 
@@ -651,7 +763,8 @@ def time_captured(merge, dev, args, smi_line, label,
           f"m={st_.shape[0]}), {100 * row['share']:.1f}% of it; plain "
           f"{row['plain_ms'] * 1e3:.2f} us, two stable torch.sort passes "
           f"(yardstick) {row['yardstick_ms'] * 1e3:.2f} us, at "
-          f"h={qt.shape[0]} hc={qt.shape[1]} w={bpay.shape[1]}, {label} "
+          f"h={qt.shape[0]} hc={qt.shape[1]} w={bpay.shape[1]}, "
+          f"{row['warps_per_block']} rows per block, {label} "
           f"({smi_line}) {row.get('us_by_plan', '')}")
     return row
 
@@ -707,13 +820,16 @@ def phase_live_inputs(merge, events, phold, dev, batched) -> list:
     return captured
 
 
-def phase_chained(phold, merge, convert, dev, smi_line,
-                  batched_stripped) -> dict:
+def phase_chained(phold, merge, convert, dev, smi_line) -> dict:
     """PHOLD 4096 on the chained drain (phold.build's default) to
-    BENCH_STOP_NS, held to the events of PIN_4096, to the batched run's
-    state less the scheduler counters, and to PIN_CHAINED_4096."""
+    CHAINED_STOP_NS, held to PIN_CHAINED_4096 and to the state of a
+    batched run to the same stop less the scheduler counters."""
+    _, st, _ = run_phold(phold, 4096, dev, stop_ns=CHAINED_STOP_NS)
+    batched_stripped = convert.leaves_digest(
+        convert.engine_state_to_numpy(st), SCHEDULER)
     merge.launches = 0
-    eng, st, wall = run_phold(phold, 4096, dev, batched=False)
+    eng, st, wall = run_phold(phold, 4096, dev, stop_ns=CHAINED_STOP_NS,
+                              batched=False)
     launches = merge.launches
     leaves = convert.engine_state_to_numpy(st)
     ev = int(leaves["stats.n_executed"].sum())
@@ -727,13 +843,13 @@ def phase_chained(phold, merge, convert, dev, smi_line,
           f"{ev / wall:.1f} inner steps {inner} sweeps {sweeps} host syncs "
           f"{eng.host_syncs} merge launches {launches} ({smi_line})")
     print(json.dumps({"phold_4096_chained": run, "card": smi_line}))
-    check(ev == PIN_4096[0], f"chained events {ev} != JAX/CPU {PIN_4096[0]}")
+    got = (ev, inner, sweeps, convert.leaves_digest(leaves))
+    check(got == PIN_CHAINED_4096, f"chained (events, inner steps, sweeps, "
+                                   f"digest) {got} != JAX/CPU "
+                                   f"{PIN_CHAINED_4096}")
     stripped = convert.leaves_digest(leaves, SCHEDULER)
     check(stripped == batched_stripped,
           f"chained state {stripped} != the batched run's {batched_stripped}")
-    check((inner, sweeps) == PIN_CHAINED_4096,
-          f"chained (inner steps, sweeps) {(inner, sweeps)} != JAX/CPU "
-          f"{PIN_CHAINED_4096}")
     check(launches >= sweeps > 0,
           f"merge launches {launches} < sweeps {sweeps}")
     return run
@@ -872,6 +988,77 @@ def phase_phold_net(sim_mod, config_mod, merge, events, convert, dev,
     return out
 
 
+class MergeRecorder:
+    """While active, counts the merge calls of a live run by queue width
+    hc and keeps clones of their inputs: at each width the first three,
+    the one at call `timed_call` and the last."""
+
+    def __init__(self, merge, events, timed_call: int):
+        import collections
+
+        self.events, self.timed_call = events, timed_call
+        self.by_hc = collections.Counter()
+        self.kept = collections.defaultdict(list)
+        self.last = {}
+        self.kernel = merge.fused_merge
+
+    def _record(self, *args):
+        hc = args[0].shape[1]
+        self.by_hc[hc] += 1
+        copy = tuple(a.clone() for a in args)
+        if len(self.kept[hc]) < 3 or self.by_hc[hc] == self.timed_call:
+            self.kept[hc].append(copy)
+        else:
+            self.last[hc] = copy
+        return self.kernel(*args)
+
+    def __enter__(self):
+        self.events.merge.fused_merge = self._record
+        return self
+
+    def __exit__(self, *exc):
+        self.events.merge.fused_merge = self.kernel
+
+    def captured(self) -> list:
+        """(hc, inputs) of every kept call, by width."""
+        return [(hc, a) for hc in sorted(self.kept)
+                for a in self.kept[hc] + ([self.last[hc]]
+                                          if hc in self.last else [])]
+
+
+def check_and_time_captured(merge, dev, rec: MergeRecorder, smi_line,
+                            model: str, capacity: int) -> dict:
+    """Hold the kernel to its plain version on every input `rec` kept,
+    then time it on the latest kept input of each width (the one at call
+    `timed_call` where the run got that far), at the full queue width
+    (`capacity`) also at 1, 2, 4 and 8 rows per block: {hc: row}."""
+    import torch
+
+    captured = rec.captured()
+    check(len(captured) >= 4, f"{model}: only {len(captured)} merge inputs "
+                              "captured")
+    for i, (hc, args) in enumerate(captured):
+        bad = compare_merge(merge, args)
+        check(bad == 0, f"merge kernel != plain on {model} input {i} "
+                        f"(hc={hc}): {bad} elements differ")
+        print(f"  merge == plain on {model} input {i}: h={args[0].shape[0]} "
+              f"hc={hc} w={args[5].shape[1]} nw={args[2].shape[-1]} "
+              f"m={args[3].shape[0]} admitted={int(args[7].sum())}")
+    timing = {}
+    for hc in sorted(rec.kept):
+        args = rec.kept[hc][-1]
+        call = (rec.timed_call if len(rec.kept[hc]) > 3
+                else len(rec.kept[hc]))
+        timing[hc] = time_captured(
+            merge, dev, args, smi_line,
+            f"captured {model} flush (hc={hc}, merge call {call}, "
+            f"m={args[3].shape[0]})", sweep_plans=hc == capacity)
+    rec.kept.clear()
+    rec.last.clear()
+    torch.cuda.empty_cache()
+    return timing
+
+
 def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
                smi_line) -> dict:
     """TGen at TGEN_PAIRS through build_simulation, run twice, each held
@@ -880,9 +1067,7 @@ def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
     inputs of the first run (at each width the first three, the one at
     call TGEN_TIMED_CALL, mid-run, and the last) and timed on the
     latest of them before the last, which flushes an empty run; a
-    profile of the first 2 sim-s of client traffic."""
-    import collections
-
+    profile of the first sim-second of client traffic."""
     import torch
 
     t0 = time.perf_counter()
@@ -893,33 +1078,21 @@ def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     print(f"  built TGen {TGEN_PAIRS} pairs in {build_s:.1f} s")
-    by_hc = collections.Counter()
-    kept, last = collections.defaultdict(list), {}
-    kernel = merge.fused_merge
-
-    def record(*args):
-        hc = args[0].shape[1]
-        by_hc[hc] += 1
-        copy = tuple(a.clone() for a in args)
-        if len(kept[hc]) < 3 or by_hc[hc] == TGEN_TIMED_CALL:
-            kept[hc].append(copy)
-        else:
-            last[hc] = copy
-        return kernel(*args)
+    rec = MergeRecorder(merge, events, TGEN_TIMED_CALL)
 
     runs, digests = [], []
     for rep in range(2):
-        if rep == 0:
-            events.merge.fused_merge = record
         syncs0 = sim.engine.host_syncs
         torch.cuda.synchronize()
         merge.launches = 0
         t0 = time.perf_counter()
-        try:
+        if rep == 0:
+            with rec:
+                st = sim.run()
+                torch.cuda.synchronize()
+        else:
             st = sim.run()
             torch.cuda.synchronize()
-        finally:
-            events.merge.fused_merge = kernel
         wall = time.perf_counter() - t0
         launches = merge.launches
         leaves = convert.engine_state_to_numpy(st)
@@ -933,9 +1106,9 @@ def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
                "queue_drops": int(leaves["queues.drops"].sum()),
                "retransmits": int(leaves["hosts.net.tcb.n_retx"].sum())}
         if rep == 0:
-            run["launches_by_hc"] = dict(sorted(by_hc.items()))
-            check(sum(by_hc.values()) == launches,
-                  f"tgen: {sum(by_hc.values())} merge calls by hc != "
+            run["launches_by_hc"] = dict(sorted(rec.by_hc.items()))
+            check(sum(rec.by_hc.values()) == launches,
+                  f"tgen: {sum(rec.by_hc.values())} merge calls by hc != "
                   f"{launches} launches")
         print(f"  tgen run {rep}: {json.dumps(run)} ({smi_line})")
         check(got == PIN_TGEN, f"tgen: (events, windows, sweeps, inner "
@@ -946,37 +1119,88 @@ def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
         runs.append(run)
     check(digests[0] == digests[1], "tgen: two runs gave different states")
 
-    captured = [(hc, a) for hc in sorted(kept)
-                for a in kept[hc] + ([last[hc]] if hc in last else [])]
-    check(len(captured) >= 4, f"tgen: only {len(captured)} merge inputs "
-                              "captured")
-    for i, (hc, args) in enumerate(captured):
-        bad = compare_merge(merge, args)
-        check(bad == 0, f"merge kernel != plain on TGen input {i} (hc={hc})"
-                        f": {bad} elements differ")
-        print(f"  merge == plain on TGen input {i}: h={args[0].shape[0]} "
-              f"hc={hc} w={args[5].shape[1]} nw={args[2].shape[-1]} "
-              f"m={args[3].shape[0]} admitted={int(args[7].sum())}")
-    timing = {}
-    for hc in sorted(kept):
-        args = kept[hc][-1]
-        call = TGEN_TIMED_CALL if len(kept[hc]) > 3 else len(kept[hc])
-        timing[hc] = time_captured(
-            merge, dev, args, smi_line,
-            f"captured TGen flush (hc={hc}, merge call {call}, "
-            f"m={args[3].shape[0]})")
-    del kept, last, captured
-    torch.cuda.empty_cache()
+    timing = check_and_time_captured(merge, dev, rec, smi_line, "TGen",
+                                     TGEN_CAPACITY)
     t0 = time.perf_counter()
     prof = profile_run(sim.engine.run, sim.state0,
                        TGEN_PROFILE_STOP_S * SECOND)
-    print(f"  profile of TGen 4096, first 2 sim-s of client traffic "
+    print(f"  profile of TGen 4096, first sim-second of client traffic "
           f"({time.perf_counter() - t0:.1f} s with the trace's reading): "
           f"{json.dumps(prof)}")
     print(json.dumps({"tgen_4096": runs[0], "tgen_4096_rerun": runs[1],
                       "card": smi_line}))
     return {"runs": runs, "timing": timing, "profile": prof,
-            "by_hc": dict(sorted(by_hc.items())), "build_s": build_s}
+            "by_hc": dict(sorted(rec.by_hc.items())), "build_s": build_s}
+
+
+def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
+              smi_line) -> dict:
+    """Tor ("tor", phase 11) or Bitcoin ("btc", phase 12) at bench.py's
+    shape through build_simulation with overflow left strict, run once to
+    its stop in one call: held to its JAX/CPU pin and to a merge launch
+    per sweep, merge launches counted by queue width; the kernel held to
+    its plain version on captured inputs at every width reached and
+    timed on the latest of them per width; then a short profile (from a
+    state run to the profile's start)."""
+    import torch
+
+    if model == "tor":
+        text, kw, stop_s = tor_config(), TOR_KW, TOR_STOP_S
+        timed_call, prof_s = TOR_TIMED_CALL, TOR_PROFILE_S
+    else:
+        text, kw, stop_s = btc_config(), BTC_KW, BTC_STOP_S
+        timed_call, prof_s = BTC_TIMED_CALL, BTC_PROFILE_S
+    t0 = time.perf_counter()
+    sim = sim_mod.build_simulation(config_mod.parse_config(text), device=dev,
+                                   **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"  built {model} ({len(sim.names)} hosts) in {build_s:.1f} s")
+    rec = MergeRecorder(merge, events, timed_call)
+    syncs0 = sim.engine.host_syncs
+    torch.cuda.synchronize()
+    merge.launches = 0
+    t0 = time.perf_counter()
+    with rec:
+        st = sim.run(stop_s * SECOND)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = merge.launches
+    leaves = convert.engine_state_to_numpy(st)
+    if model == "tor":
+        got, pin = tor_pin(leaves), PIN_TOR
+        extra = {"streams_done": got[5], "relayed_bytes": got[6]}
+    else:
+        got, pin = btc_pin(leaves, len(sim.names)), PIN_BTC
+        extra = {"best_min": got[5], "best_max": got[6],
+                 "best_pad_max": got[7], "t_best_max": got[8]}
+    run = {"events": got[0], "windows": got[1], "sweeps": got[2],
+           "inner_steps": got[3], "queue_drops": got[4], **extra,
+           "wall_s": wall, "events_per_s": got[0] / wall,
+           "ms_per_inner_step": 1e3 * wall / max(got[3], 1),
+           "host_syncs": sim.engine.host_syncs - syncs0,
+           "launches": launches,
+           "launches_by_hc": dict(sorted(rec.by_hc.items())),
+           "retransmits": int(leaves["hosts.net.tcb.n_retx"].sum())}
+    print(f"  {model} run: {json.dumps(run)} ({smi_line})")
+    check(sum(rec.by_hc.values()) == launches,
+          f"{model}: {sum(rec.by_hc.values())} merge calls by hc != "
+          f"{launches} launches")
+    check(got == pin, f"{model}: pin {got} != JAX/CPU {pin}")
+    check(launches >= got[2] > 0,
+          f"{model}: merge launches {launches} < sweeps {got[2]}")
+    del st, leaves
+    timing = check_and_time_captured(merge, dev, rec, smi_line, model,
+                                     kw["capacity"])
+    t0 = time.perf_counter()
+    start = sim.run(int(prof_s[0] * SECOND))
+    prof = profile_run(sim.engine.run, start, int(prof_s[1] * SECOND))
+    print(f"  profile of {model}, {prof_s[0]}-{prof_s[1]} sim-s "
+          f"({time.perf_counter() - t0:.1f} s with the run to its start and "
+          f"the trace's reading): {json.dumps(prof)}")
+    print(json.dumps({f"{model}_bench": run, "card": smi_line}))
+    return {"run": run, "timing": timing, "profile": prof,
+            "by_hc": run["launches_by_hc"], "build_s": build_s}
 
 
 def main(argv=None) -> int:
@@ -988,7 +1212,14 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
+    ap.add_argument("--only", default="",
+                    help="comma-separated config-driven phases (9-12) to "
+                         "run after phases 1-3, skipping the others; "
+                         "prints no result lines")
     opts = ap.parse_args(argv)
+    only = {int(p) for p in opts.only.split(",") if p}
+    if not only <= {9, 10, 11, 12}:
+        ap.error("--only takes phases 9, 10, 11 and 12")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1023,6 +1254,20 @@ def main(argv=None) -> int:
     if opts.kernels_only:
         print(json.dumps({"merge_timing": timing, "card": smi_line}))
         return 0
+    if only:
+        with tempfile.TemporaryDirectory() as workdir:
+            for p in sorted(only):
+                phase(f"{p}. (--only)")
+                if p == 9:
+                    phase_phold_net(sim, config, merge, events, convert, dev,
+                                    smi_line, workdir)
+                elif p == 10:
+                    phase_tgen(sim, config, merge, events, convert, dev,
+                               smi_line)
+                else:
+                    phase_app("tor" if p == 11 else "btc", sim, config,
+                              merge, events, convert, dev, smi_line)
+        return 0
 
     phase("4. main path: PHOLD 4096 hosts, 20 sim-s, batched drain")
     digests = []
@@ -1048,7 +1293,6 @@ def main(argv=None) -> int:
         if main_run is None:
             main_run = dict(summ, wall_s=wall, launches=launches,
                             host_syncs=eng.host_syncs)
-            batched_stripped = convert.leaves_digest(leaves, SCHEDULER)
     check(digests[0] == digests[1], "two runs gave different states")
 
     print(json.dumps({"phold_4096": main_run, "card": smi_line}))
@@ -1074,13 +1318,12 @@ def main(argv=None) -> int:
     check(sha == EXP_SHA256, f"exponential sha256 {sha} != {EXP_SHA256}")
     print(f"  sha256 {sha} == JAX/CPU")
 
-    phase("7. the chained drain: PHOLD 4096 hosts, 20 sim-s")
+    phase("7. the chained drain: PHOLD 4096 hosts, 5 sim-s")
     captured_c = phase_live_inputs(merge, events, phold, dev, batched=False)
     chained_merge = time_captured(
         merge, dev, captured_c[-1], smi_line,
         f"captured chained flush (m={captured_c[-1][3].shape[0]})")
-    chained_run = phase_chained(phold, merge, convert, dev, smi_line,
-                                batched_stripped)
+    chained_run = phase_chained(phold, merge, convert, dev, smi_line)
     prof = profile_phold(phold, dev, batched=False)
     print(f"  profile of chained PHOLD 4096, first 250 sim-ms: "
           f"{json.dumps(prof)}")
@@ -1103,6 +1346,18 @@ def main(argv=None) -> int:
     tgen_hc = max(tgen["by_hc"], key=tgen["by_hc"].get)
     tgen_merge = tgen["timing"][tgen_hc]
 
+    phase("11. Tor: bench.py's 1,020-host tier from a Shadow config, 5 sim-s")
+    tor = phase_app("tor", sim, config, merge, events, convert, dev,
+                    smi_line)
+    tor_hc = max(tor["by_hc"], key=tor["by_hc"].get)
+    tor_merge = tor["timing"][tor_hc]
+
+    phase("12. Bitcoin: 1,000 nodes from a Shadow config, 36 sim-s")
+    btc = phase_app("btc", sim, config, merge, events, convert, dev,
+                    smi_line)
+    btc_hc = max(btc["by_hc"], key=btc["by_hc"].get)
+    btc_merge = btc["timing"][btc_hc]
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -1110,12 +1365,17 @@ def main(argv=None) -> int:
         "replaces": "shadow_tpu/core/merge_pallas.py:125",
         "launches": (main_run["launches"] + chained_run["launches"]
                      + net["main"]["launches"]
-                     + tgen["runs"][0]["launches"]),
+                     + tgen["runs"][0]["launches"]
+                     + tor["run"]["launches"] + btc["run"]["launches"]),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
         "launches_tgen": tgen["runs"][0]["launches"],
         "launches_tgen_by_hc": tgen["by_hc"],
+        "launches_tor": tor["run"]["launches"],
+        "launches_tor_by_hc": tor["by_hc"],
+        "launches_btc": btc["run"]["launches"],
+        "launches_btc_by_hc": btc["by_hc"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -1139,10 +1399,22 @@ def main(argv=None) -> int:
         "tgen_bound_us": tgen_merge["bound_us"],
         "tgen_plain_ms": tgen_merge["plain_ms"],
         "tgen_yardstick_ms": tgen_merge["yardstick_ms"],
+        "tor_hc": tor_hc,
+        "tor_us": tor_merge["us"],
+        "tor_bound_us": tor_merge["bound_us"],
+        "tor_plain_ms": tor_merge["plain_ms"],
+        "tor_yardstick_ms": tor_merge["yardstick_ms"],
+        "btc_hc": btc_hc,
+        "btc_us": btc_merge["us"],
+        "btc_bound_us": btc_merge["bound_us"],
+        "btc_plain_ms": btc_merge["plain_ms"],
+        "btc_yardstick_ms": btc_merge["yardstick_ms"],
         "shapes": [{key: row[key] for key in
-                    ("hc", "w", "nw", "regime", "us", "bound_us", "share")}
+                    ("hc", "w", "nw", "regime", "us", "bound_us", "share",
+                     "warps_per_block")}
                    for row in timing["shapes"] + [chained_merge, net_merge]
-                   + [tgen["timing"][hc] for hc in sorted(tgen["timing"])]],
+                   + [run["timing"][hc] for run in (tgen, tor, btc)
+                      for hc in sorted(run["timing"])]],
         "build_s": build_s,
     }]
     print(json.dumps({"kernels": kernels}))

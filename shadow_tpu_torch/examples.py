@@ -89,3 +89,87 @@ def tgen_example(n_pairs: int = 64, sendsize: str = "16KiB",
         + "".join(hosts)
         + "</shadow>"
     )
+
+
+def tor_example(
+    n_relays_per_class: int = 10,
+    n_clients: int = 950,
+    n_servers: int = 10,
+    filesize: str = "320KiB",
+    count: int = 5,
+    stoptime: int = 60,
+    relay_cpu_ghz: float = 0.0,
+) -> str:
+    """A Tor-like network (BASELINE.md config 3's shape): guard, middle
+    and exit relays, web servers and torperf-style clients whose starts
+    stagger over 5 s (3 s to 7 s). relay_cpu_ghz > 0 gives every relay a
+    cpufrequency, which turns on the virtual CPU and the model's
+    per-segment relay crypto charge."""
+    cpu_attr = (
+        f' cpufrequency="{int(relay_cpu_ghz * 1_000_000)}"'
+        if relay_cpu_ghz > 0 else ""
+    )
+    hosts = []
+    for klass in ("guard", "middle", "exit"):
+        for i in range(n_relays_per_class):
+            hosts.append(
+                f'<host id="{klass}{i}" bandwidthup="102400" '
+                f'bandwidthdown="102400"{cpu_attr}>'
+                '<process plugin="tor" starttime="1" arguments="relay"/>'
+                "</host>"
+            )
+    for i in range(n_servers):
+        hosts.append(
+            f'<host id="web{i}" bandwidthup="102400" '
+            'bandwidthdown="102400">'
+            '<process plugin="tor" starttime="1" arguments="server port=80"/>'
+            "</host>"
+        )
+    for i in range(n_clients):
+        hosts.append(
+            f'<host id="torclient{i}">'
+            f'<process plugin="tor" starttime="{3 + (i % 5)}" '
+            f'arguments="client server=web{i % n_servers}:80 '
+            f'filesize={filesize} count={count} pause=1,2,3"/>'
+            "</host>"
+        )
+    return (
+        f'<shadow stoptime="{stoptime}">'
+        f"<topology><![CDATA[{EXAMPLE_TOPOLOGY}]]></topology>"
+        '<plugin id="tor" path="shadow-plugin-tor"/>'
+        + "".join(hosts)
+        + "</shadow>"
+    )
+
+
+def bitcoin_example(
+    n_nodes: int = 5000,
+    blocks: int = 3,
+    blocksize: str = "512KiB",
+    interval: int = 60,
+    stoptime: int | None = None,
+) -> str:
+    """A Bitcoin gossip network (BASELINE.md config 5's shape): one miner
+    and n_nodes - 1 nodes, 4 peers each; the run lasts two intervals past
+    the last block unless `stoptime` is given."""
+    stop = stoptime if stoptime is not None else interval * (blocks + 2)
+    hosts = [
+        '<host id="miner0">'
+        f'<process plugin="bitcoin" starttime="1" arguments="node miner '
+        f'peers=4 blocksize={blocksize} interval={interval} '
+        f'blocks={blocks}"/></host>'
+    ]
+    for i in range(1, n_nodes):
+        hosts.append(
+            f'<host id="btc{i}">'
+            f'<process plugin="bitcoin" starttime="1" arguments="node '
+            f'peers=4 blocksize={blocksize} interval={interval} '
+            f'blocks={blocks}"/></host>'
+        )
+    return (
+        f'<shadow stoptime="{stop}">'
+        f"<topology><![CDATA[{EXAMPLE_TOPOLOGY}]]></topology>"
+        '<plugin id="bitcoin" path="shadow-plugin-bitcoin"/>'
+        + "".join(hosts)
+        + "</shadow>"
+    )

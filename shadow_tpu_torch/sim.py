@@ -6,15 +6,15 @@ sizes their NICs, lets the app model bind its sockets and schedule its
 process starts, and compiles everything into one chained-drain Engine
 whose handler table is [stack pipeline | TCP timer and tx | app kinds].
 
-Ported: one app model per simulation, `phold` over UDP or `tgen` over
-TCP (NewReno or AIMD, `tcp_cc`), shape bucketing, per-host bandwidth,
+Ported: one app model per simulation, `phold` over UDP, `tgen` and `tor`
+over TCP (NewReno or AIMD, `tcp_cc`), `bitcoin` over both, a model's
+per-kind CPU charges, shape bucketing, per-host bandwidth,
 `cpufrequency`, `interfacebuffer`, `socketsendbuffer`,
 `socketrecvbuffer`, `bootstraptime`, process `stoptime`, the three rx
 queue managers, both `fuse_rx` modes, both qdiscs, the TCP knobs
 (`tcp_in_order`, `tcp_wnd_words`, `tcp_child_slot_limit`) and burst
 folding of TCP arrivals (`burst_rx`). Not ported, each raising
-NotImplementedError: CUBIC (F2), the `tor` and `bitcoin` models, fused
-multi-model tables, sharding (`mesh`, `locality`, `host_order`), the
+NotImplementedError: CUBIC (F2), fused multi-model tables, sharding (`mesh`, `locality`, `host_order`), the
 frontier drain, tracing, the stats plane, a profiler, lossless overflow
 (`spill`, `grow`), packet capture and fault schedules.
 """
@@ -58,6 +58,7 @@ from shadow_tpu_torch.transport.stack import (
     F_RST,
     F_SYN,
     KIND_PKT_ARRIVE,
+    KIND_PKT_RX,
     N_PKT_ARGS,
     HostNet,
     SimHost,
@@ -251,23 +252,18 @@ def resolve_app_models(
     ]
 
 
-def _not_ported(name: str) -> Callable:
-    def make():
-        raise NotImplementedError(f"the {name!r} app model is not ported")
-
-    return make
-
-
 def default_registry() -> dict[str, Callable]:
-    """The app models by plugin name; `tgen` and `phold` are ported."""
+    """The app models by plugin name."""
+    from shadow_tpu_torch.models.bitcoin import BitcoinModel
     from shadow_tpu_torch.models.phold_net import PholdNetModel
     from shadow_tpu_torch.models.tgen import TGenModel
+    from shadow_tpu_torch.models.tor import TorModel
 
     return {
         "tgen": TGenModel,
         "phold": PholdNetModel,
-        "tor": _not_ported("tor"),
-        "bitcoin": _not_ported("bitcoin"),
+        "tor": TorModel,
+        "bitcoin": BitcoinModel,
     }
 
 
@@ -372,6 +368,7 @@ def build_simulation(
     bw_up = np.full((n_hosts,), float(DEFAULT_BANDWIDTH_KIB), np.float64)
     bw_down = np.full((n_hosts,), float(DEFAULT_BANDWIDTH_KIB), np.float64)
     cpu_cost = np.zeros((n_hosts,), np.int64)
+    cpu_khz = np.zeros((n_hosts,), np.int64)  # for per-kind model charges
     rcv_wnd_bytes = np.zeros((n_hosts,), np.int64)
     snd_buf_bytes = np.zeros((n_hosts,), np.int64)  # 0 = unlimited
     # NIC receive buffer bound (interfacebuffer; the reference's default
@@ -387,6 +384,7 @@ def build_simulation(
                           or DEFAULT_BANDWIDTH_KIB)
         if s.cpufrequency:
             cpu_cost[h.gid] = CPU_CYCLES_PER_EVENT * 1_000_000 // s.cpufrequency
+            cpu_khz[h.gid] = s.cpufrequency
         if s.socketrecvbuffer:
             rcv_wnd_bytes[h.gid] = s.socketrecvbuffer
         if s.socketsendbuffer:
@@ -511,6 +509,23 @@ def build_simulation(
             cpu_cost[:, None], (n_hosts, len(handlers))
         ).copy()
         cost_arg[:, KIND_PKT_ARRIVE] += cpu_cost
+    # per-kind charges: a model may declare cycles for some event kinds
+    # (Tor's relay crypto per delivered segment); on hosts with a
+    # cpufrequency they become virtual-CPU ns on top of the per-event cost
+    if hasattr(model, "cpu_kind_cycles"):
+        cycles = model.cpu_kind_cycles(len(handlers))
+        if cycles is not None and cpu_khz.any():
+            if fuse_rx:
+                # deliveries run inside KIND_PKT_ARRIVE when fused, so a
+                # per-delivery charge moves onto the kind that runs
+                cycles = np.array(cycles, copy=True)
+                cycles[:, KIND_PKT_ARRIVE] += cycles[:, KIND_PKT_RX]
+                cycles[:, KIND_PKT_RX] = 0
+            extra_ns = np.where(
+                cpu_khz[:, None] > 0,
+                cycles * 1_000_000 // np.maximum(cpu_khz[:, None], 1), 0)
+            base = cost_arg if cost_arg.ndim == 2 else cpu_cost[:, None]
+            cost_arg = base + extra_ns
     eng = Engine(
         ecfg, handlers, network,
         cpu_cost=torch.from_numpy(cost_arg) if cost_arg.any() else None,

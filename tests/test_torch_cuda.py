@@ -146,6 +146,56 @@ def test_tgen_on_cuda_matches_cpu():
     assert states["cpu"]["hosts.net.tcb.ooo"].dtype == np.uint64
 
 
+def _config_on_both(text, kw, stop_s=None):
+    """{device: final leaves} of one config built by build_simulation on
+    the card and on the CPU; the card run must launch the merge at least
+    once per sweep."""
+    from shadow_tpu_torch import config, sim
+
+    states = {}
+    for dev in ("cuda", "cpu"):
+        s = sim.build_simulation(config.parse_config(text), device=dev, **kw)
+        before = merge.launches
+        st = s.run(None if stop_s is None else stop_s * chip_smoke.SECOND)
+        states[dev] = convert.engine_state_to_numpy(st)
+        if dev == "cuda":
+            assert merge.launches - before >= int(
+                states[dev]["stats.n_sweeps"]) > 0
+    assert states["cuda"].keys() == states["cpu"].keys()
+    for key, a in states["cpu"].items():
+        np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
+    return states["cpu"]
+
+
+def test_tor_on_cuda_matches_cpu():
+    """Tor (tests/test_tor_bitcoin.py's three-hop scenario, seed 11) on
+    the card equals the CPU run, which tests/test_torch_tor_bitcoin.py
+    holds against the JAX reference."""
+    _need_card()
+    cpu = _config_on_both(tcp_harness.tor_config(),
+                          dict(seed=11, n_sockets=16))
+    assert cpu["hosts.app.streams_done"][7:10].tolist() == [2, 2, 2]
+
+
+def test_tor_relay_cpu_on_cuda_matches_cpu():
+    """Tor at chip_smoke's knobs, relays on the virtual CPU (the fused
+    per-kind table), on the card equals the CPU run."""
+    _need_card()
+    cpu = _config_on_both(chip_smoke.tor_config((2, 10, 2)),
+                          chip_smoke.TOR_KW, stop_s=5)
+    assert cpu["hosts.app.relayed_bytes"].sum() > 0
+
+
+def test_bitcoin_on_cuda_matches_cpu():
+    """Bitcoin (tests/test_tor_bitcoin.py's 8 nodes, 3 blocks, seed 9,
+    capacity 512) on the card equals the CPU run; every node ends at
+    block 3."""
+    _need_card()
+    cpu = _config_on_both(tcp_harness.btc_config(blocks=3),
+                          dict(seed=9, n_sockets=16, capacity=512))
+    assert cpu["hosts.app.best"][:8].tolist() == [3] * 8
+
+
 # name: (harness, keywords, stop s): tests/test_torch_tcp.py's lossy
 # scenarios and tests/test_torch_tcp_matrix.py's lossy cells and SACK run
 TCP_LOSS = {

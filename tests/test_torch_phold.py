@@ -178,7 +178,7 @@ def test_unported_knobs_raise():
 @functools.lru_cache(maxsize=None)
 def bench_run(n_hosts, batched):
     """The bench shape for 20 sim-s in both packages (cached for the
-    slow tests, which share the batched 4096 run)."""
+    slow tests)."""
     return run_both(n_hosts, chip_smoke.BENCH_STOP_NS, batched,
                     **chip_smoke.BENCH)
 
@@ -202,16 +202,18 @@ def test_bench_shape_parity_and_pins(n_hosts, pin):
 
 @pytest.mark.slow
 def test_chained_bench_shape_parity_and_pins():
-    """The same 4096-host run on the chained drain (phold.build's
-    default) in both packages: equal leaves, the events of PIN_4096, the
-    batched run's state less the scheduler counters, and the inner-step
-    and sweep pins chip_smoke.py holds the card to."""
-    lj, lt = bench_run(4096, False)
+    """The 4096-host bench shape on the chained drain (phold.build's
+    default) to chip_smoke.CHAINED_STOP_NS in both packages: equal
+    leaves, the batched run's state to the same stop less the scheduler
+    counters, and the (events, inner steps, sweeps, digest) pin
+    chip_smoke.py holds the card to."""
+    stop = chip_smoke.CHAINED_STOP_NS
+    lj, lt = run_both(4096, stop, False, **chip_smoke.BENCH)
     assert_leaves_equal(lj, lt)
-    assert int(lj["stats.n_executed"].sum()) == chip_smoke.PIN_4096[0]
-    assert (int(lj["stats.n_inner_steps"]), int(lj["stats.n_sweeps"])) \
+    assert (int(lj["stats.n_executed"].sum()), int(lj["stats.n_inner_steps"]),
+            int(lj["stats.n_sweeps"]), convert.leaves_digest(lj)) \
         == chip_smoke.PIN_CHAINED_4096
-    batched, _ = bench_run(4096, True)
+    batched, _ = run_both(4096, stop, True, **chip_smoke.BENCH)
     assert convert.leaves_digest(lj, chip_smoke.SCHEDULER) == \
         convert.leaves_digest(batched, chip_smoke.SCHEDULER)
 

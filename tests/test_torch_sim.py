@@ -253,9 +253,14 @@ def test_unported_knobs_raise():
         '<host id="peer"', '<host id="peer" logpcap="true"')
     with pytest.raises(NotImplementedError):
         tsim.build_simulation(tconfig.parse_config(pcap), device="cpu")
-    for plugin in ("tor", "bitcoin"):
+    # tor and bitcoin are ported (tests/test_torch_tor_bitcoin.py): PHOLD's
+    # arguments under their plugins fail as in the reference
+    for plugin, why in (("tor", "needs a role"),
+                        ("bitcoin", "must include 'node'")):
         text = texamples.phold_example(8, 1, 2).replace("phold", plugin)
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match=why):
+            jsim.build_simulation(jconfig.parse_config(text))
+        with pytest.raises(ValueError, match=why):
             tsim.build_simulation(tconfig.parse_config(text), device="cpu")
     # tgen is ported (tests/test_torch_tgen.py); its CUBIC is not (F2)
     with pytest.raises(NotImplementedError, match="F2"):

@@ -173,3 +173,79 @@ def put_torch(a, host, slot, v):
     a = a.clone()
     a[host, slot] = v
     return a
+
+
+# -- tests/test_tor_bitcoin.py's configs, JAX-free ----------------------------
+TOR_BTC_TOPOLOGY = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d4" />
+  <key attr.name="latency" attr.type="double" for="edge" id="d3" />
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d2" />
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d1" />
+  <graph edgedefault="undirected">
+    <node id="poi-1">
+      <data key="d1">102400</data>
+      <data key="d2">102400</data>
+    </node>
+    <edge source="poi-1" target="poi-1">
+      <data key="d3">20.0</data>
+      <data key="d4">0.0</data>
+    </edge>
+  </graph>
+</graphml>"""
+
+
+def tor_config(n_clients=3, filesize="64KiB", count=2):
+    """Two guards, middles and exits, one web server and `n_clients`
+    clients starting at 3 s, 120 sim-s."""
+    hosts = []
+    for kind in ("guard", "middle", "exit"):
+        for i in range(2):
+            hosts.append(
+                f'<host id="{kind}{i}">'
+                '<process plugin="tor" starttime="1" arguments="relay"/>'
+                "</host>"
+            )
+    hosts.append(
+        '<host id="web0">'
+        '<process plugin="tor" starttime="1" arguments="server port=80"/>'
+        "</host>"
+    )
+    for i in range(n_clients):
+        hosts.append(
+            f'<host id="torclient{i}">'
+            f'<process plugin="tor" starttime="3" arguments="client '
+            f'server=web0:80 filesize={filesize} count={count} pause=1"/>'
+            "</host>"
+        )
+    return (
+        '<shadow stoptime="120">'
+        f"<topology><![CDATA[{TOR_BTC_TOPOLOGY}]]></topology>"
+        '<plugin id="tor" path="~/.shadow/bin/shadow-plugin-tor"/>'
+        + "".join(hosts)
+        + "</shadow>"
+    )
+
+
+def btc_config(n_nodes=8, blocks=3, blocksize="256KiB", interval=30):
+    """One miner and n_nodes - 1 nodes, 3 peers each, running three
+    intervals past the last block."""
+    hosts = [
+        '<host id="miner0">'
+        f'<process plugin="bitcoin" starttime="1" arguments="node miner '
+        f'peers=3 blocksize={blocksize} interval={interval} blocks={blocks}"/>'
+        "</host>"
+    ]
+    for i in range(1, n_nodes):
+        hosts.append(
+            f'<host id="btc{i}">'
+            f'<process plugin="bitcoin" starttime="1" arguments="node '
+            f'peers=3 blocksize={blocksize} interval={interval} blocks={blocks}"/>'
+            "</host>"
+        )
+    return (
+        f'<shadow stoptime="{interval * (blocks + 3)}">'
+        f"<topology><![CDATA[{TOR_BTC_TOPOLOGY}]]></topology>"
+        '<plugin id="bitcoin" path="~/.shadow/bin/shadow-plugin-bitcoin"/>'
+        + "".join(hosts)
+        + "</shadow>"
+    )
