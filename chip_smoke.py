@@ -45,9 +45,10 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    a bootstrap phase, a process stoptime), each pinned the same way;
 10. TGen over TCP (NewReno, burst folding on the chained drain), built
    from `tgen_example(2048 pairs)` by `sim.build_simulation` with
-   bench.py's TCP knobs: run twice to 10 sim-s, each held to its
-   JAX/CPU events, windows, sweeps, inner steps, streams done and state
-   digest, and to a merge launch per sweep; merge launches counted by
+   bench.py's TCP knobs: run once to 10 sim-s, held to its JAX/CPU
+   events, windows, sweeps, inner steps, streams done and state digest
+   (and its digest less n_inner_steps, which phase 15 shares), and to a
+   merge launch per sweep; merge launches counted by
    queue width (hc 128, the hot region, or the full capacity 768); the
    merge kernel held to its plain version on the run's captured inputs
    (at hc = 768 too where the run reaches it) and timed on the last
@@ -56,17 +57,36 @@ Phases, each of which fails the run (exit 1, no result line) on error:
 11. Tor (relay crypto on a virtual CPU, circuits over TCP), built from
    `tor_example` at bench.py's 1,020-host tier by `sim.build_simulation`
    with bench.py's Tor knobs and strict overflow, run once to TOR_STOP_S
-   = 5 sim-s in one call: held to its JAX/CPU events, windows, sweeps,
+   = 4.5 sim-s in one call: held to its JAX/CPU events, windows, sweeps,
    inner steps, drops, streams done, relayed bytes and state digest, and
    to a merge launch per sweep; merge launches counted by queue width,
    the kernel held to its plain version on captured inputs at every
    width reached and timed on one per width; a profile of 3.00-3.25 s;
 12. Bitcoin (UDP control and TCP block bodies on one host), built from
    `bitcoin_example(1000 nodes)` with bench.py's knobs, run once to
-   BTC_STOP_S = 36 sim-s in one call, when the first block has reached
-   every node: held the same way, and to `best` = 1 on every real node
-   (0 on the pad rows) and the last adoption time; a profile of
-   31.00-31.25 s.
+   BTC_STOP_S = 32 sim-s in one call, while the first block (mined at
+   31 s) spreads: held the same way, and to the least and largest `best`
+   over the real nodes (0 and 1; 0 on the pad rows) and the last
+   adoption time;
+13. several app models in one config (`sim.FusedModel`): TGen at 1,024
+   pairs beside 2,048 PHOLD peers (4096 hosts), with bench.py's TCP
+   knobs, run once to MIXED_STOP_S = 5 sim-s: held the same way as 11,
+   and to its TGen streams done, PHOLD messages sent and received and
+   hosts per model; a profile of 1.00-1.25 s;
+14. lossless overflow (`runtime.pressure`): bench.py's skew shape
+   (PHOLD 4096 x 8 with 64 hot hosts, batched drain) to SKEW_STOP_NS =
+   2 sim-s at capacity 256 with drops, with a 1,024-slot spill ring
+   through `run_with_spill`, and at capacity 512: each held to its
+   JAX/CPU pin and to a merge launch per sweep; the spill run loses
+   nothing, equals the capacity-512 run in the behaviour leaves, and
+   its device queue and reservoir partition that run's queue; the
+   merge kernel held to its plain version on the spill run's first
+   full-width admission round and first refill push, and timed on
+   each; launches counted by (hc, w);
+15. the frontier drain: phase 10's config with frontier = 16, run once:
+   held the same way as 11 (inner steps count every position, the
+   terminating probes included), and its state less n_inner_steps to
+   phase 10's; a profile of 3-4 s.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -74,21 +94,24 @@ package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines; `--only 11,12` runs phases 1-3 and then only
-the listed config-driven phases (9-12), without the result lines.
+the listed phases (9-15), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
 runs every pinned configuration in both packages on the CPU and asserts
 the pins against the JAX leaves (`tests/test_torch_tgen.py -m slow -k
 4096` for phase 10's, `tests/test_torch_tor_bitcoin.py -m slow -k pins`
-for phases 11 and 12). The merge-input generator below is shared with
-tests/test_torch_merge.py.
+for phases 11 and 12, `tests/test_torch_multimodel.py`,
+`tests/test_torch_pressure.py` and `tests/test_torch_frontier.py` with
+`-m slow` for phases 13, 14 and 15). The merge-input generator below is
+shared with tests/test_torch_merge.py.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
 import subprocess
 import sys
@@ -284,6 +307,126 @@ def tgen_pin(leaves) -> tuple:
             leaves_digest(leaves))
 
 
+# TGen with the frontier drain (phase 15): phase 10's run with bench.py's
+# BENCH_FRONTIER=16 (`tgen_worker`, bench.py:505-572). Pin from JAX/CPU:
+# (events, windows, sweeps, inner steps, queue drops, streams done,
+# digest); its leaves less n_inner_steps hash as phase 10's do.
+TGEN_FRONTIER = 16
+PIN_TGEN_FRONTIER = (
+    203_616, 121, 121, 790, 0, 5_326,
+    "6877eefde0cce5137d858f02389d335a1c60eba3a19dcac97120b222a962a96a")
+TGEN_LESS_INNER = (
+    "ae027d42a3f536e5bfa23bf00d36c3fde838a14132da569df49ca883b98fe790")
+# Mixed TGen + PHOLD (phase 13): one config on the example topology with
+# both plugins through FusedModel: tgen_example's hosts at MIXED_PAIRS
+# pairs beside MIXED_PEERS PHOLD peers at load MIXED_LOAD starting at
+# 1 s (as phold_example writes them), 4096 hosts, with bench.py's TCP
+# knobs, run to MIXED_STOP_S in one call. Pin from JAX/CPU: (events,
+# windows, sweeps, inner steps, queue drops, TGen streams done, PHOLD
+# messages sent and received, hosts of model 0 and of model 1, digest).
+MIXED_PAIRS, MIXED_PEERS, MIXED_LOAD = 1024, 2048, 2
+# cut to 5 sim-s, where JAX/CPU counts 652 inner steps (825 at 6 s, 1,164
+# at 8 s); the clients starting at 3 s and 4 s have run by then
+MIXED_STOP_S = 5
+PIN_MIXED = (
+    351_459, 80, 80, 652, 0, 410, 327_680, 323_584, 2_048, 2_048,
+    "1f84b1a2f5af122ed6cd235f1b976452a6da5978ece605e03c88ea0e48b561f0")
+# PHOLD's messages start at 1 s: the profile covers 1.00-1.25 s
+MIXED_PROFILE_S = (1.0, 1.25)
+MIXED_TIMED_CALL = 61
+# Lossless overflow (phase 14): bench.py's `skew_worker` (bench.py:
+# 689-703: PHOLD 4096 x 8, seed 1234, batched drain, 64 hot hosts taking
+# 30% of the traffic), cut from 10 to SKEW_STOP_NS, at capacity
+# SKEW_CAPACITY with drops, with a spill ring of SKEW_SPILL slots through
+# run_with_spill, and at twice the capacity with drops (drop-free). Pins
+# from JAX/CPU: (events, queue drops, digest); the spill run's (events,
+# queue drops, events spilled, harvested, refilled, digest).
+SKEW = dict(BENCH, hot_hosts=64, hot_weight=0.3)
+SKEW_STOP_NS = 2 * SECOND
+SKEW_CAPACITY = 256
+SKEW_SPILL = 4 * SKEW_CAPACITY
+PIN_SKEW_DROP = (
+    1_083_893, 984,
+    "88d1d2ad8cc9b061246c14bf2e769fcc8cf8c5d4d34aca72c1d972f541e37edd")
+PIN_SKEW_SPILL = (
+    1_104_201, 0, 1_915, 1_915, 1_915,
+    "937f810dd3bc12abedd9c1e515b20eab674fb7e43bb70ee74989203064cafa68")
+PIN_SKEW_2C = (
+    1_104_201, 0,
+    "265ce556f42bf06cc6612761b8e209f73338eca86c4237306ccce06dc582055a")
+# the leaves a spill run must share with the drop-free run at twice the
+# capacity (the queue layout and the ring legitimately differ)
+BEHAVIOUR = ("now", "stats.n_executed", "stats.n_emitted",
+             "hosts.n_received", "src_seq")
+
+
+def mixed_config(n_pairs=MIXED_PAIRS, n_peers=MIXED_PEERS,
+                 stop_s=MIXED_STOP_S) -> str:
+    """Shadow config text of TGen at n_pairs pairs (as tgen_config) beside
+    n_peers PHOLD peers, each starting at 1 s with MIXED_LOAD messages."""
+    from shadow_tpu_torch.examples import tgen_example
+
+    peers = ('<plugin id="phold" path="shadow-plugin-test-phold"/>'
+             f'<host id="peer" quantity="{n_peers}">'
+             f'<process plugin="phold" starttime="1" '
+             f'arguments="load={MIXED_LOAD}"/></host>')
+    return tgen_example(n_pairs, "16KiB", "64KiB", 4, stop_s).replace(
+        "</shadow>", peers + "</shadow>")
+
+
+def mixed_pin(leaves) -> tuple:
+    """A mixed run's pin from its numpy leaves (either package's)."""
+    from shadow_tpu_torch.convert import leaves_digest
+
+    mid = leaves["hosts.app.model_id"]
+    return _counts(leaves) + (
+        int(leaves["hosts.app.subs.0.streams_done"].sum()),
+        int(leaves["hosts.app.subs.1.n_sent"].sum()),
+        int(leaves["hosts.app.subs.1.n_recv"].sum()),
+        int((mid == 0).sum()), int((mid == 1).sum()), leaves_digest(leaves))
+
+
+def tgen_frontier_pin(leaves) -> tuple:
+    """Phase 15's pin from its numpy leaves (either package's)."""
+    from shadow_tpu_torch.convert import leaves_digest
+
+    return _counts(leaves) + (int(leaves["hosts.app.streams_done"].sum()),
+                              leaves_digest(leaves))
+
+
+def skew_pin(leaves, ctrl=None) -> tuple:
+    """A phase-14 run's pin from its numpy leaves (either package's) and,
+    for the spill run, its controller."""
+    from shadow_tpu_torch.convert import leaves_digest
+
+    head = (int(leaves["stats.n_executed"].sum()),
+            int(leaves["queues.drops"].sum()))
+    if ctrl is None:
+        return head + (leaves_digest(leaves),)
+    return head + (int(leaves["queues.spill.n_spilled"].sum()),
+                   int(ctrl.n_harvested.sum()), int(ctrl.n_refilled.sum()),
+                   leaves_digest(leaves))
+
+
+def queue_keys(leaves, ctrl=None) -> np.ndarray:
+    """Every pending event as a (host, time, src, seq) row, sorted: the
+    device queue's, plus the reservoir's when a controller is given."""
+    t = leaves["queues.time"]
+    host, col = np.nonzero(t != I64MAX)
+    rows = [np.stack([host, t[host, col], leaves["queues.src"][host, col],
+                      leaves["queues.seq"][host, col]], axis=1)]
+    if ctrl is not None:
+        res = [(h, rec[0], rec[1]) for h, hp in enumerate(ctrl._heaps)
+               for rec in hp]
+        if res:
+            r = np.asarray(res, np.int64)
+            rows.append(np.stack([r[:, 0], r[:, 1], r[:, 2] >> 32,
+                                  (r[:, 2] & 0xFFFFFFFF).astype(np.uint32)
+                                  .astype(np.int32)], axis=1))
+    keys = np.concatenate(rows).astype(np.int64)
+    return keys[np.lexsort(keys.T[::-1])]
+
+
 # Tor (phase 11): bench.py's Tor-circuit measurement (`tor_worker`,
 # bench.py:257-330: seed 1, 32 sockets, capacity 768, relays on a 3 GHz
 # virtual CPU, 64 KiB fetches, 2 per client) at its tier 2 (TOR_TIERS[2],
@@ -293,30 +436,38 @@ def tgen_pin(leaves) -> tuple:
 # done, relayed bytes, digest of every leaf).
 TOR_TIER = (110, 660, 30)
 TOR_SEED, TOR_SOCKETS, TOR_CAPACITY, TOR_CPU_GHZ = 1, 32, 768, 3.0
-TOR_FILESIZE, TOR_COUNT, TOR_CONFIG_STOP_S, TOR_STOP_S = "64KiB", 2, 10, 5
+TOR_FILESIZE, TOR_COUNT, TOR_CONFIG_STOP_S = "64KiB", 2, 10
+# cut from 5 sim-s (1,787 inner steps, 140.6 s on the card) to 4.5: the
+# first clients start at 3 s (nothing runs before), and by 4.5 s every
+# client has finished its first fetch (946 inner steps on JAX/CPU)
+TOR_STOP_S = 4.5
 PIN_TOR = (
-    30_494, 39, 113, 1_787, 0, 132, 52_310_016,
-    "4bca53860798065dc506c35a52afe747883f2f18d6509b0a16094017e91e9dfc")
+    18_941, 29, 64, 946, 0, 132, 26_357_760,
+    "9d87a037281661d203b7188e1432588fe99bb689a5b11edd671648746e540900")
 # the first clients start at 3 s: the profile covers 3.00-3.25 s
 TOR_PROFILE_S = (3.0, 3.25)
 # the merge call whose input phase 11 times: mid-run, in circuit traffic
-TOR_TIMED_CALL = 57
+TOR_TIMED_CALL = 40
 # Bitcoin (phase 12): bench.py's gossip measurement (`btc_worker`,
 # bench.py:582-624: 1,000 nodes bucketed to 1,024 rows, 2 blocks of 256
 # KiB at a 30 s interval, seed 1, 16 sockets, capacity 768), run to
-# BTC_STOP_S in one call: block 1, mined at 31 s, has reached every node.
+# BTC_STOP_S in one call, while block 1 spreads.
 # Pins from JAX/CPU: (events, windows, sweeps, inner steps, queue drops,
 # least and largest `best` over the real nodes, largest over the pad
 # rows, largest `t_best`, digest of every leaf).
 BTC_NODES, BTC_BLOCKS, BTC_BLOCKSIZE, BTC_INTERVAL = 1000, 2, "256KiB", 30
-BTC_SEED, BTC_SOCKETS, BTC_CAPACITY, BTC_STOP_S = 1, 16, 768, 36
+BTC_SEED, BTC_SOCKETS, BTC_CAPACITY = 1, 16, 768
+# cut from 36 sim-s (2,385 inner steps, 191.7 s on the card) to 32: 38
+# inner steps before block 1 is mined at 31 s, 545 by 32 s, when the
+# first nodes have fetched its body over TCP and adopted it
+BTC_STOP_S = 32
 PIN_BTC = (
-    87_525, 91, 179, 2_385, 0, 1, 1, 0, 35_055_078_069,
-    "a669432d597848a47028c3b4f5e25db24f3440603f4c3fdaff363fd1e4fc87c5")
-# the first block is mined at 31 s: the profile covers 31.00-31.25 s
-BTC_PROFILE_S = (31.0, 31.25)
+    15_347, 28, 49, 545, 0, 0, 1, 0, 31_603_341_630,
+    "c2ef82a0a7170dcd1bc6eedcf1f165f1dc82d82082f67194adc00acab282022d")
+# no profile: one of 31.00-31.25 s took 19.2 s with the run to its start
+# (PERF.md, PR 7)
 # the merge call whose input phase 12 times: in the first block's spread
-BTC_TIMED_CALL = 120
+BTC_TIMED_CALL = 40
 
 
 def tor_config(tier=TOR_TIER) -> str:
@@ -377,6 +528,8 @@ EXP_SHA256 = "bf7c3c6d0fc775831d7614f9101d864c08051c1ee138c8aa3f6a3ef9c4a9b205"
 
 # peak rates of one H100 SXM (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
+# the H100 SXM5's L2 cache
+L2_BYTES = 50 * 2**20
 FP32_OPS_PER_S = 67e12
 
 
@@ -487,18 +640,25 @@ def check(cond: bool, msg: str) -> None:
 
 def device_kernels(prof) -> list:
     """The device-side events (kernels, copies) of a torch.profiler
-    trace: (name, microseconds) each."""
+    trace: (name, microseconds) each, read from the raw kineto records:
+    `prof.events()` builds the profiler's event tree first, at about
+    0.1 ms per event, 20 s for a trace of 160,000 kernels."""
     from torch.autograd import DeviceType
 
-    return [(e.name, e.device_time_total) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
 
 
-def device_ms(fn, reps: int, attempts: int = 3) -> float:
+def device_ms(fn, reps: int, attempts: int = 3,
+              per_call: int | None = None) -> float:
     """Device time of one fn() call: the kernels' own time summed from a
-    torch.profiler trace of `reps` calls. A trace that comes back without
-    device events is taken again (said on stderr), up to `attempts`
-    times; then the phase fails."""
+    torch.profiler trace of `reps` calls. Where `per_call` gives the
+    device events of one call, the sum is divided by the calls the trace
+    recorded, since a trace may miss a few kernel records (said on
+    stdout) and dividing by `reps` would then read short. A trace that
+    comes back without device events is taken again (said on stderr),
+    up to `attempts` times; then the phase fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -513,7 +673,11 @@ def device_ms(fn, reps: int, attempts: int = 3) -> float:
             torch.cuda.synchronize()
         kernels = device_kernels(prof)
         if kernels:
-            return sum(us for _, us in kernels) / reps / 1e3
+            calls = reps if per_call is None else len(kernels) / per_call
+            if calls != reps:
+                print(f"  torch.profiler trace held {len(kernels)} device "
+                      f"events for {reps} calls of {per_call}")
+            return sum(us for _, us in kernels) / calls / 1e3
         print(f"  torch.profiler trace {attempt} held no device events",
               file=sys.stderr)
     raise PhaseError("torch.profiler recorded no device events")
@@ -701,16 +865,31 @@ def merge_bound_ms(args, outs) -> tuple[float, str, int]:
 
 def time_merge_shape(merge, args, reps=200) -> dict:
     """The kernel's device time per launch on one input set, beside its
-    bound."""
+    bound. `us` is timed cold: the launches rotate through copies of the
+    inputs, each output kept until its slot comes round again, so that
+    at least 2 x L2_BYTES of other traffic lies between two launches on
+    the same memory and the inputs come from HBM, as the byte bound
+    assumes. `warm_us` repeats the one input set, which L2 may still
+    hold from the launch before."""
     outs = merge.fused_merge(*args)
     bound_ms, by, nbytes = merge_bound_ms(args, outs)
     del outs
-    k_ms = device_ms(lambda: merge.fused_merge(*args), reps)
+    n = max(2, -(-2 * L2_BYTES // nbytes) + 1)
+    copies = [args] + [tuple(a.clone() for a in args) for _ in range(n - 1)]
+    kept, turn = [None] * n, itertools.count()
+
+    def cold():
+        i = next(turn) % n
+        kept[i] = merge.fused_merge(*copies[i])
+
+    k_ms = device_ms(cold, max(reps, 2 * n), per_call=1)
+    del copies, kept
+    warm_ms = device_ms(lambda: merge.fused_merge(*args), reps, per_call=1)
     qt, bpay = args[0], args[5]
     h, hc, w = qt.shape[0], qt.shape[1], bpay.shape[1]
     return {"h": h, "hc": hc, "w": w, "nw": bpay.shape[2],
             "warps_per_block": merge.launch_plan(h, hc, w).warps_per_block,
-            "us": k_ms * 1e3,
+            "us": k_ms * 1e3, "warm_us": warm_ms * 1e3, "copies": n,
             "bound_us": bound_ms * 1e3, "bound_by": by, "bytes": nbytes,
             "share": bound_ms / k_ms}
 
@@ -727,7 +906,7 @@ def plan_sweep(merge, args, reps=50) -> dict:
         plan = merge.launch_plan(h, hc, w, warps_per_block=warps)
         if plan.warps_per_block == warps:
             out[warps] = device_ms(lambda: merge.launch(args, plan),
-                                   reps) * 1e3
+                                   reps, per_call=1) * 1e3
     return out
 
 
@@ -757,8 +936,9 @@ def time_captured(merge, dev, args, smi_line, label,
     row["yardstick_ms"] = device_ms(two_sorts, 200)
     row["m"] = st_.shape[0]
     row["regime"] = label
-    print(f"  merge kernel {row['us']:.2f} us/launch (torch.profiler "
-          f"device time), bound {row['bound_us']:.2f} us "
+    print(f"  merge kernel {row['us']:.2f} us/launch cold over "
+          f"{row['copies']} input copies ({row['warm_us']:.2f} us warm; "
+          f"torch.profiler device time), bound {row['bound_us']:.2f} us "
           f"({row['bytes']} B, {int(cnt.sum())} events admitted, "
           f"m={st_.shape[0]}), {100 * row['share']:.1f}% of it; plain "
           f"{row['plain_ms'] * 1e3:.2f} us, two stable torch.sort passes "
@@ -792,7 +972,8 @@ def phase_merge_timing(merge, dev, captured, smi_line,
         if sweep_plans:
             row["us_by_plan"] = plan_sweep(merge, args)
         shapes.append(row)
-        print(f"  merge kernel {row['us']:.2f} us/launch, bound "
+        print(f"  merge kernel {row['us']:.2f} us/launch cold "
+              f"({row['warm_us']:.2f} us warm), bound "
               f"{row['bound_us']:.2f} us ({row['bytes']} B), "
               f"{100 * row['share']:.1f}% of it, at h={h} hc={hc} w={w} "
               f"nw={nw} {regime} (== plain) "
@@ -1061,13 +1242,14 @@ def check_and_time_captured(merge, dev, rec: MergeRecorder, smi_line,
 
 def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
                smi_line) -> dict:
-    """TGen at TGEN_PAIRS through build_simulation, run twice, each held
-    to PIN_TGEN and to a merge launch per sweep; merge launches counted
-    by queue width hc; the kernel held to its plain version on captured
-    inputs of the first run (at each width the first three, the one at
-    call TGEN_TIMED_CALL, mid-run, and the last) and timed on the
-    latest of them before the last, which flushes an empty run; a
-    profile of the first sim-second of client traffic."""
+    """TGen at TGEN_PAIRS through build_simulation, run once, held to
+    PIN_TGEN and to a merge launch per sweep; merge launches counted by
+    queue width hc; the kernel held to its plain version on captured
+    inputs (at each width the first three, the one at call
+    TGEN_TIMED_CALL, mid-run, and the last) and timed on the latest of
+    them before the last, which flushes an empty run; a profile of the
+    first sim-second of client traffic. (Phase 15 runs the same config
+    on the frontier drain, where PR 6 ran it a second time here.)"""
     import torch
 
     t0 = time.perf_counter()
@@ -1079,45 +1261,40 @@ def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
     build_s = time.perf_counter() - t0
     print(f"  built TGen {TGEN_PAIRS} pairs in {build_s:.1f} s")
     rec = MergeRecorder(merge, events, TGEN_TIMED_CALL)
-
-    runs, digests = [], []
-    for rep in range(2):
-        syncs0 = sim.engine.host_syncs
+    syncs0 = sim.engine.host_syncs
+    torch.cuda.synchronize()
+    merge.launches = 0
+    t0 = time.perf_counter()
+    with rec:
+        st = sim.run()
         torch.cuda.synchronize()
-        merge.launches = 0
-        t0 = time.perf_counter()
-        if rep == 0:
-            with rec:
-                st = sim.run()
-                torch.cuda.synchronize()
-        else:
-            st = sim.run()
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = merge.launches
-        leaves = convert.engine_state_to_numpy(st)
-        got = tgen_pin(leaves)
-        digests.append(got[-1])
-        run = {"events": got[0], "windows": got[1], "sweeps": got[2],
-               "inner_steps": got[3], "streams_done": got[4],
-               "wall_s": wall, "events_per_s": got[0] / wall,
-               "host_syncs": sim.engine.host_syncs - syncs0,
-               "launches": launches,
-               "queue_drops": int(leaves["queues.drops"].sum()),
-               "retransmits": int(leaves["hosts.net.tcb.n_retx"].sum())}
-        if rep == 0:
-            run["launches_by_hc"] = dict(sorted(rec.by_hc.items()))
-            check(sum(rec.by_hc.values()) == launches,
-                  f"tgen: {sum(rec.by_hc.values())} merge calls by hc != "
-                  f"{launches} launches")
-        print(f"  tgen run {rep}: {json.dumps(run)} ({smi_line})")
-        check(got == PIN_TGEN, f"tgen: (events, windows, sweeps, inner "
-                               f"steps, streams, digest) {got} != JAX/CPU "
-                               f"{PIN_TGEN}")
-        check(launches >= got[2] > 0,
-              f"tgen: merge launches {launches} < sweeps {got[2]}")
-        runs.append(run)
-    check(digests[0] == digests[1], "tgen: two runs gave different states")
+    wall = time.perf_counter() - t0
+    launches = merge.launches
+    leaves = convert.engine_state_to_numpy(st)
+    got = tgen_pin(leaves)
+    run = {"events": got[0], "windows": got[1], "sweeps": got[2],
+           "inner_steps": got[3], "streams_done": got[4],
+           "wall_s": wall, "events_per_s": got[0] / wall,
+           "ms_per_inner_step": 1e3 * wall / max(got[3], 1),
+           "host_syncs": sim.engine.host_syncs - syncs0,
+           "launches": launches,
+           "launches_by_hc": dict(sorted(rec.by_hc.items())),
+           "queue_drops": int(leaves["queues.drops"].sum()),
+           "retransmits": int(leaves["hosts.net.tcb.n_retx"].sum())}
+    print(f"  tgen run: {json.dumps(run)} ({smi_line})")
+    check(sum(rec.by_hc.values()) == launches,
+          f"tgen: {sum(rec.by_hc.values())} merge calls by hc != "
+          f"{launches} launches")
+    check(got == PIN_TGEN, f"tgen: (events, windows, sweeps, inner "
+                           f"steps, streams, digest) {got} != JAX/CPU "
+                           f"{PIN_TGEN}")
+    check(launches >= got[2] > 0,
+          f"tgen: merge launches {launches} < sweeps {got[2]}")
+    less_inner = convert.leaves_digest(leaves, ("stats.n_inner_steps",))
+    check(less_inner == TGEN_LESS_INNER,
+          f"tgen: digest less n_inner_steps {less_inner} != "
+          f"{TGEN_LESS_INNER}")
+    del st, leaves
 
     timing = check_and_time_captured(merge, dev, rec, smi_line, "TGen",
                                      TGEN_CAPACITY)
@@ -1127,29 +1304,175 @@ def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
     print(f"  profile of TGen 4096, first sim-second of client traffic "
           f"({time.perf_counter() - t0:.1f} s with the trace's reading): "
           f"{json.dumps(prof)}")
-    print(json.dumps({"tgen_4096": runs[0], "tgen_4096_rerun": runs[1],
-                      "card": smi_line}))
-    return {"runs": runs, "timing": timing, "profile": prof,
-            "by_hc": dict(sorted(rec.by_hc.items())), "build_s": build_s}
+    print(json.dumps({"tgen_4096": run, "card": smi_line}))
+    return {"runs": [run], "timing": timing, "profile": prof,
+            "by_hc": run["launches_by_hc"], "build_s": build_s}
+
+
+def phase_skew(phold, pressure, merge, events, convert, dev,
+               smi_line) -> dict:
+    """Phase 14: bench.py's skew shape three times to SKEW_STOP_NS: at
+    SKEW_CAPACITY with drops, with a SKEW_SPILL-slot spill ring through
+    run_with_spill, and at twice the capacity with drops. Each is held
+    to its JAX/CPU pin and to a merge launch per sweep; the spill run
+    loses nothing, equals the 2C run in the BEHAVIOUR leaves, and its
+    device queue and reservoir partition the 2C run's queue. The merge
+    kernel is held to its plain version on the spill run's first
+    full-width admission round (the ring's loop) and first refill push,
+    and timed on each; launches are counted by (hc, w)."""
+    import collections
+
+    import torch
+
+    def build(cap, spill=0):
+        return phold.build(4096, device=dev, batched=True, spill=spill,
+                           **dict(SKEW, capacity=cap))
+
+    out, leaves_of = {}, {}
+    for label, cap, pin in (("drop", SKEW_CAPACITY, PIN_SKEW_DROP),
+                            ("2c", 2 * SKEW_CAPACITY, PIN_SKEW_2C)):
+        merge.launches = 0
+        eng, st, wall = run_engine(*build(cap), SKEW_STOP_NS)
+        leaves = convert.engine_state_to_numpy(st)
+        got = skew_pin(leaves)
+        run = {"capacity": cap, "events": got[0], "queue_drops": got[1],
+               "sweeps": int(leaves["stats.n_sweeps"]),
+               "windows": int(leaves["stats.n_windows"]), "wall_s": wall,
+               "events_per_s": got[0] / wall, "host_syncs": eng.host_syncs,
+               "launches": merge.launches}
+        print(f"  skew {label}: {json.dumps(run)} ({smi_line})")
+        check(got == pin, f"skew {label}: (events, drops, digest) {got} != "
+                          f"JAX/CPU {pin}")
+        check(run["launches"] >= run["sweeps"] > 0,
+              f"skew {label}: merge launches {run['launches']} < sweeps")
+        out[label], leaves_of[label] = run, leaves
+
+    eng, init = build(SKEW_CAPACITY, SKEW_SPILL)
+    ctrl = pressure.PressureController(4096, SKEW_CAPACITY,
+                                       eng.cfg.lookahead,
+                                       n_args=phold.N_PHOLD_ARGS)
+    by_w = collections.Counter()
+    kept = {}
+    kernel, push = merge.fused_merge, ctrl._push
+    in_refill = []
+
+    def record(*args):
+        hc, w = args[0].shape[1], args[5].shape[1]
+        by_w[f"{hc}x{w}"] += 1
+        label = ("refill" if in_refill
+                 else "loop" if w == SKEW_CAPACITY else None)
+        if label and label not in kept:
+            kept[label] = tuple(a.clone() for a in args)
+        return kernel(*args)
+
+    def refill(*a, **k):
+        in_refill.append(True)
+        try:
+            return push(*a, **k)
+        finally:
+            in_refill.pop()
+
+    st = init()
+    torch.cuda.synchronize()
+    merge.launches = 0
+    events.merge.fused_merge, ctrl._push = record, refill
+    t0 = time.perf_counter()
+    try:
+        st = pressure.run_with_spill(eng, st, SKEW_STOP_NS, ctrl)
+        torch.cuda.synchronize()
+    finally:
+        events.merge.fused_merge, ctrl._push = kernel, push
+    wall = time.perf_counter() - t0
+    leaves = convert.engine_state_to_numpy(st)
+    got = skew_pin(leaves, ctrl)
+    run = {"capacity": SKEW_CAPACITY, "spill_slots": SKEW_SPILL,
+           "events": got[0], "queue_drops": got[1], "spilled": got[2],
+           "harvested": got[3], "refilled": got[4],
+           "lost": int(leaves["queues.spill.n_lost"].sum()),
+           "overdue": ctrl.n_overdue,
+           "fill_hwm": int(leaves["queues.spill.fill_hwm"].max()),
+           "reservoir_left": int(ctrl.resident().sum()),
+           "sweeps": int(leaves["stats.n_sweeps"]),
+           "windows": int(leaves["stats.n_windows"]),
+           "boundaries": ctrl.boundaries, "wall_s": wall,
+           "events_per_s": got[0] / wall,
+           "host_syncs": eng.host_syncs + ctrl.host_syncs,
+           "engine_host_syncs": eng.host_syncs,
+           "controller_host_syncs": ctrl.host_syncs,
+           "harvest_s": ctrl.harvest_seconds,
+           "launches": merge.launches,
+           "launches_by_hc_w": dict(sorted(by_w.items()))}
+    print(f"  skew spill: {json.dumps(run)} ({smi_line})")
+    check(got == PIN_SKEW_SPILL, f"skew spill: (events, drops, spilled, "
+                                 f"harvested, refilled, digest) {got} != "
+                                 f"JAX/CPU {PIN_SKEW_SPILL}")
+    check(run["lost"] == 0 and run["overdue"] == 0,
+          f"skew spill lost {run['lost']}, overdue {run['overdue']}")
+    check(run["launches"] >= run["sweeps"] > 0,
+          f"skew spill: merge launches {run['launches']} < sweeps")
+    for key in BEHAVIOUR:
+        check(np.array_equal(leaves[key], leaves_of["2c"][key]),
+              f"skew spill: {key} differs from the run at twice the "
+              "capacity")
+    check(np.array_equal(queue_keys(leaves, ctrl),
+                         queue_keys(leaves_of["2c"])),
+          "skew spill: device queue + reservoir != the 2C run's queue")
+    out["spill"] = run
+    print("  skew spill == the 2C run in the behaviour leaves; device "
+          "queue + reservoir partition its queue")
+
+    check(set(kept) == {"loop", "refill"},
+          f"skew spill: captured only {sorted(kept)} merge inputs")
+    timing = {}
+    for label in ("loop", "refill"):
+        args = kept[label]
+        bad = compare_merge(merge, args)
+        check(bad == 0, f"merge kernel != plain on the spill run's first "
+                        f"{label} input: {bad} elements differ")
+        timing[label] = time_captured(
+            merge, dev, args, smi_line,
+            f"captured spill {label} (m={args[3].shape[0]})")
+    out["timing"] = timing
+    print(json.dumps({"skew": out["drop"], "skew_spill": run,
+                      "skew_2c": out["2c"], "card": smi_line}))
+    return out
+
+
+# the config-driven phases run once to their stop by `phase_app`: (config
+# text, build keywords, stop in sim-s, merge call to time, profile window
+# in sim-s or None, pin function, pin)
+def app_phases() -> dict:
+    tgen_kw = dict(seed=TGEN_SEED, n_sockets=TGEN_SOCKETS,
+                   capacity=TGEN_CAPACITY)
+    return {
+        "tor": (tor_config(), TOR_KW, TOR_STOP_S, TOR_TIMED_CALL,
+                TOR_PROFILE_S, lambda lv, n: tor_pin(lv), PIN_TOR),
+        "btc": (btc_config(), BTC_KW, BTC_STOP_S, BTC_TIMED_CALL,
+                None, btc_pin, PIN_BTC),
+        "mixed": (mixed_config(), tgen_kw, MIXED_STOP_S, MIXED_TIMED_CALL,
+                  MIXED_PROFILE_S, lambda lv, n: mixed_pin(lv), PIN_MIXED),
+        "tgen_frontier": (tgen_config(TGEN_PAIRS),
+                          dict(tgen_kw, frontier=TGEN_FRONTIER),
+                          TGEN_STOP_S, TGEN_TIMED_CALL,
+                          (3.0, float(TGEN_PROFILE_STOP_S)),
+                          lambda lv, n: tgen_frontier_pin(lv),
+                          PIN_TGEN_FRONTIER),
+    }
 
 
 def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
               smi_line) -> dict:
-    """Tor ("tor", phase 11) or Bitcoin ("btc", phase 12) at bench.py's
-    shape through build_simulation with overflow left strict, run once to
-    its stop in one call: held to its JAX/CPU pin and to a merge launch
-    per sweep, merge launches counted by queue width; the kernel held to
-    its plain version on captured inputs at every width reached and
-    timed on the latest of them per width; then a short profile (from a
-    state run to the profile's start)."""
+    """A config-driven run at its bench shape through build_simulation
+    (`app_phases`: Tor, phase 11; Bitcoin, 12; mixed TGen + PHOLD, 13;
+    TGen on the frontier drain, 15), run once to its stop in one call:
+    held to its JAX/CPU pin and to a merge launch per sweep, merge
+    launches counted by queue width; the kernel held to its plain
+    version on captured inputs at every width reached and timed on the
+    latest of them per width; then, where the phase has one, a short
+    profile (from a state run to the profile's start)."""
     import torch
 
-    if model == "tor":
-        text, kw, stop_s = tor_config(), TOR_KW, TOR_STOP_S
-        timed_call, prof_s = TOR_TIMED_CALL, TOR_PROFILE_S
-    else:
-        text, kw, stop_s = btc_config(), BTC_KW, BTC_STOP_S
-        timed_call, prof_s = BTC_TIMED_CALL, BTC_PROFILE_S
+    text, kw, stop_s, timed_call, prof_s, pin_fn, pin = app_phases()[model]
     t0 = time.perf_counter()
     sim = sim_mod.build_simulation(config_mod.parse_config(text), device=dev,
                                    **kw)
@@ -1162,20 +1485,20 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
     merge.launches = 0
     t0 = time.perf_counter()
     with rec:
-        st = sim.run(stop_s * SECOND)
+        st = sim.run(int(stop_s * SECOND))
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = merge.launches
     leaves = convert.engine_state_to_numpy(st)
-    if model == "tor":
-        got, pin = tor_pin(leaves), PIN_TOR
-        extra = {"streams_done": got[5], "relayed_bytes": got[6]}
-    else:
-        got, pin = btc_pin(leaves, len(sim.names)), PIN_BTC
-        extra = {"best_min": got[5], "best_max": got[6],
-                 "best_pad_max": got[7], "t_best_max": got[8]}
+    got = pin_fn(leaves, len(sim.names))
+    names = {"tor": ("streams_done", "relayed_bytes"),
+             "btc": ("best_min", "best_max", "best_pad_max", "t_best_max"),
+             "mixed": ("streams_done", "phold_sent", "phold_received",
+                       "hosts_tgen", "hosts_phold"),
+             "tgen_frontier": ("streams_done",)}[model]
     run = {"events": got[0], "windows": got[1], "sweeps": got[2],
-           "inner_steps": got[3], "queue_drops": got[4], **extra,
+           "inner_steps": got[3], "queue_drops": got[4],
+           **dict(zip(names, got[5:-1])),
            "wall_s": wall, "events_per_s": got[0] / wall,
            "ms_per_inner_step": 1e3 * wall / max(got[3], 1),
            "host_syncs": sim.engine.host_syncs - syncs0,
@@ -1189,15 +1512,25 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
     check(got == pin, f"{model}: pin {got} != JAX/CPU {pin}")
     check(launches >= got[2] > 0,
           f"{model}: merge launches {launches} < sweeps {got[2]}")
+    if model == "tgen_frontier":
+        # the reference's contract: the chained drain's state, less the
+        # count of inner steps
+        less_inner = convert.leaves_digest(leaves, ("stats.n_inner_steps",))
+        check(less_inner == TGEN_LESS_INNER,
+              f"tgen_frontier: digest less n_inner_steps {less_inner} != "
+              f"phase 10's {TGEN_LESS_INNER}")
+        run["state_less_inner_steps_equals_chained"] = True
     del st, leaves
     timing = check_and_time_captured(merge, dev, rec, smi_line, model,
                                      kw["capacity"])
-    t0 = time.perf_counter()
-    start = sim.run(int(prof_s[0] * SECOND))
-    prof = profile_run(sim.engine.run, start, int(prof_s[1] * SECOND))
-    print(f"  profile of {model}, {prof_s[0]}-{prof_s[1]} sim-s "
-          f"({time.perf_counter() - t0:.1f} s with the run to its start and "
-          f"the trace's reading): {json.dumps(prof)}")
+    prof = None
+    if prof_s is not None:
+        t0 = time.perf_counter()
+        start = sim.run(int(prof_s[0] * SECOND))
+        prof = profile_run(sim.engine.run, start, int(prof_s[1] * SECOND))
+        print(f"  profile of {model}, {prof_s[0]}-{prof_s[1]} sim-s "
+              f"({time.perf_counter() - t0:.1f} s with the run to its start "
+              f"and the trace's reading): {json.dumps(prof)}")
     print(json.dumps({f"{model}_bench": run, "card": smi_line}))
     return {"run": run, "timing": timing, "profile": prof,
             "by_hc": run["launches_by_hc"], "build_s": build_s}
@@ -1213,13 +1546,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated config-driven phases (9-12) to "
-                         "run after phases 1-3, skipping the others; "
-                         "prints no result lines")
+                    help="comma-separated phases (9-15) to run after "
+                         "phases 1-3, skipping the others; prints no "
+                         "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= {9, 10, 11, 12}:
-        ap.error("--only takes phases 9, 10, 11 and 12")
+    if not only <= set(range(9, 16)):
+        ap.error("--only takes phases 9 to 15")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1229,6 +1562,7 @@ def main(argv=None) -> int:
         from shadow_tpu_torch.core.engine import state_summary
         from shadow_tpu_torch.models import phold
         from shadow_tpu_torch.net import topology
+        from shadow_tpu_torch.runtime import pressure
     except ImportError as e:
         print(f"chip_smoke: shadow_tpu_torch not importable here: {e}",
               file=sys.stderr)
@@ -1264,8 +1598,12 @@ def main(argv=None) -> int:
                 elif p == 10:
                     phase_tgen(sim, config, merge, events, convert, dev,
                                smi_line)
+                elif p == 14:
+                    phase_skew(phold, pressure, merge, events, convert, dev,
+                               smi_line)
                 else:
-                    phase_app("tor" if p == 11 else "btc", sim, config,
+                    phase_app({11: "tor", 12: "btc", 13: "mixed",
+                               15: "tgen_frontier"}[p], sim, config,
                               merge, events, convert, dev, smi_line)
         return 0
 
@@ -1346,17 +1684,34 @@ def main(argv=None) -> int:
     tgen_hc = max(tgen["by_hc"], key=tgen["by_hc"].get)
     tgen_merge = tgen["timing"][tgen_hc]
 
-    phase("11. Tor: bench.py's 1,020-host tier from a Shadow config, 5 sim-s")
+    phase("11. Tor: bench.py's 1,020-host tier from a Shadow config, "
+          f"{TOR_STOP_S} sim-s")
     tor = phase_app("tor", sim, config, merge, events, convert, dev,
                     smi_line)
     tor_hc = max(tor["by_hc"], key=tor["by_hc"].get)
     tor_merge = tor["timing"][tor_hc]
 
-    phase("12. Bitcoin: 1,000 nodes from a Shadow config, 36 sim-s")
+    phase(f"12. Bitcoin: 1,000 nodes from a Shadow config, {BTC_STOP_S} sim-s")
     btc = phase_app("btc", sim, config, merge, events, convert, dev,
                     smi_line)
     btc_hc = max(btc["by_hc"], key=btc["by_hc"].get)
     btc_merge = btc["timing"][btc_hc]
+
+    phase("13. mixed TGen + PHOLD: 4096 hosts from one Shadow config")
+    mixed = phase_app("mixed", sim, config, merge, events, convert, dev,
+                      smi_line)
+    mixed_hc = max(mixed["by_hc"], key=mixed["by_hc"].get)
+    mixed_merge = mixed["timing"][mixed_hc]
+
+    phase("14. lossless overflow: skewed PHOLD 4096 with a spill ring")
+    skew = phase_skew(phold, pressure, merge, events, convert, dev,
+                      smi_line)
+
+    phase("15. the frontier drain: TGen 4096 hosts, frontier=16")
+    front = phase_app("tgen_frontier", sim, config, merge, events, convert,
+                      dev, smi_line)
+    front_hc = max(front["by_hc"], key=front["by_hc"].get)
+    front_merge = front["timing"][front_hc]
 
     kernels = [{
         "name": "merge",
@@ -1366,7 +1721,10 @@ def main(argv=None) -> int:
         "launches": (main_run["launches"] + chained_run["launches"]
                      + net["main"]["launches"]
                      + tgen["runs"][0]["launches"]
-                     + tor["run"]["launches"] + btc["run"]["launches"]),
+                     + tor["run"]["launches"] + btc["run"]["launches"]
+                     + mixed["run"]["launches"]
+                     + skew["spill"]["launches"]
+                     + front["run"]["launches"]),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -1376,6 +1734,12 @@ def main(argv=None) -> int:
         "launches_tor_by_hc": tor["by_hc"],
         "launches_btc": btc["run"]["launches"],
         "launches_btc_by_hc": btc["by_hc"],
+        "launches_mixed": mixed["run"]["launches"],
+        "launches_mixed_by_hc": mixed["by_hc"],
+        "launches_spill": skew["spill"]["launches"],
+        "launches_spill_by_hc_w": skew["spill"]["launches_by_hc_w"],
+        "launches_frontier": front["run"]["launches"],
+        "launches_frontier_by_hc": front["by_hc"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -1409,12 +1773,29 @@ def main(argv=None) -> int:
         "btc_bound_us": btc_merge["bound_us"],
         "btc_plain_ms": btc_merge["plain_ms"],
         "btc_yardstick_ms": btc_merge["yardstick_ms"],
+        "mixed_hc": mixed_hc,
+        "mixed_us": mixed_merge["us"],
+        "mixed_bound_us": mixed_merge["bound_us"],
+        "mixed_plain_ms": mixed_merge["plain_ms"],
+        "spill_loop_us": skew["timing"]["loop"]["us"],
+        "spill_loop_bound_us": skew["timing"]["loop"]["bound_us"],
+        "spill_loop_plain_ms": skew["timing"]["loop"]["plain_ms"],
+        "spill_loop_yardstick_ms": skew["timing"]["loop"]["yardstick_ms"],
+        "spill_refill_us": skew["timing"]["refill"]["us"],
+        "spill_refill_bound_us": skew["timing"]["refill"]["bound_us"],
+        "spill_refill_plain_ms": skew["timing"]["refill"]["plain_ms"],
+        "frontier_hc": front_hc,
+        "frontier_us": front_merge["us"],
+        "frontier_bound_us": front_merge["bound_us"],
+        "frontier_plain_ms": front_merge["plain_ms"],
         "shapes": [{key: row[key] for key in
-                    ("hc", "w", "nw", "regime", "us", "bound_us", "share",
-                     "warps_per_block")}
+                    ("hc", "w", "nw", "regime", "us", "warm_us",
+                     "bound_us", "share", "warps_per_block")}
                    for row in timing["shapes"] + [chained_merge, net_merge]
-                   + [run["timing"][hc] for run in (tgen, tor, btc)
-                      for hc in sorted(run["timing"])]],
+                   + [run["timing"][hc] for run in (tgen, tor, btc, mixed,
+                                                    front)
+                      for hc in sorted(run["timing"])]
+                   + [skew["timing"]["loop"], skew["timing"]["refill"]]],
         "build_s": build_s,
     }]
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,10 @@
 """Carry an EngineState between this package and numpy leaves.
 
 Leaves are keyed by field path ("now", "queues.time",
-"hosts.n_received", "stats.n_by_kind", ...), the same paths the
-reference's EngineState pytree has with its optional subtrees (trace,
-exchange, stats plane, spill ring) off. So a state can move between the
+"hosts.n_received", "stats.n_by_kind", "hosts.app.subs.0.gid", ...),
+the same paths the reference's EngineState pytree has (a tuple element
+is keyed by its index), with its trace, exchange and stats-plane
+subtrees off; a queue's spill ring appears as "queues.spill.*". So a state can move between the
 reference and this package leaf for leaf, and `leaves_digest` gives both
 the same fingerprint. A reference GraphNetwork's routing tables come over
 as numpy arrays through `GraphNetwork.from_numpy`.
@@ -18,22 +19,28 @@ import numpy as np
 import torch
 
 from shadow_tpu_torch.core.engine import EngineState, Stats
-from shadow_tpu_torch.core.events import EventQueue
+from shadow_tpu_torch.core.events import EventQueue, SpillRing
 from shadow_tpu_torch.models.phold import PholdHost
 
 
 def _leaves(obj, prefix: str, out: dict) -> dict:
     for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
-        key = f"{prefix}{f.name}"
-        if v is None:
-            continue  # an absent subtree (HostNet.tcb), as in a pytree
-        if dataclasses.is_dataclass(v):
-            _leaves(v, key + ".", out)
-        else:
-            a = v.detach().cpu().numpy()
-            out[key] = a.view(np.uint64) if f.metadata.get("u64") else a
+        _leaf(getattr(obj, f.name), f"{prefix}{f.name}",
+              f.metadata.get("u64"), out)
     return out
+
+
+def _leaf(v, key: str, u64, out: dict) -> None:
+    if v is None:
+        return  # an absent subtree (HostNet.tcb), as in a pytree
+    if dataclasses.is_dataclass(v):
+        _leaves(v, key + ".", out)
+    elif isinstance(v, tuple):
+        for i, item in enumerate(v):
+            _leaf(item, f"{key}.{i}", u64, out)
+    else:
+        a = v.detach().cpu().numpy()
+        out[key] = a.view(np.uint64) if u64 else a
 
 
 def engine_state_to_numpy(state: EngineState) -> dict[str, np.ndarray]:
@@ -47,8 +54,9 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,
 
     `hosts` gives the shape of the host state: a dataclass whose fields
     are all tensors (PHOLD's `PholdHost`, the default), or a template
-    instance, whose nested dataclasses are followed and whose None
-    fields stay None (a `SimHost`, for instance).
+    instance, whose nested dataclasses and tuples are followed and whose
+    None fields stay None (a `SimHost`, for instance). The queues carry
+    a spill ring iff the leaves hold one.
     """
     used = set()
 
@@ -63,21 +71,29 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,
         if isinstance(template, type):  # a flat dataclass of tensors
             return template(**{f.name: tensor(prefix + f.name)
                                for f in dataclasses.fields(template)})
-        kw = {}
-        for f in dataclasses.fields(template):
-            sub = getattr(template, f.name)
-            if sub is None:
-                kw[f.name] = None
-            elif dataclasses.is_dataclass(sub):
-                kw[f.name] = build(sub, f"{prefix}{f.name}.")
-            else:
-                kw[f.name] = tensor(prefix + f.name)
-        return type(template)(**kw)
+        return type(template)(**{
+            f.name: value(getattr(template, f.name), prefix + f.name)
+            for f in dataclasses.fields(template)})
 
-    nested = {"queues": EventQueue, "hosts": hosts, "stats": Stats}
+    def value(sub, key):
+        if sub is None:
+            return None
+        if dataclasses.is_dataclass(sub):
+            return build(sub, key + ".")
+        if isinstance(sub, tuple):
+            return tuple(value(x, f"{key}.{i}") for i, x in enumerate(sub))
+        return tensor(key)
+
+    spill = (build(SpillRing, "queues.spill.")
+             if "queues.spill.time" in leaves else None)
+    queues = EventQueue(spill=spill, **{
+        f.name: tensor("queues." + f.name)
+        for f in dataclasses.fields(EventQueue) if f.name != "spill"})
+    nested = {"hosts": hosts, "stats": Stats}
     state = EngineState(**{
-        f.name: (build(nested[f.name], f"{f.name}.") if f.name in nested
-                 else tensor(f.name))
+        f.name: (queues if f.name == "queues"
+                 else build(nested[f.name], f"{f.name}.")
+                 if f.name in nested else tensor(f.name))
         for f in dataclasses.fields(EngineState)
     })
     extra = set(leaves) - used

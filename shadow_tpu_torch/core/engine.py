@@ -14,6 +14,11 @@ sweeps until no host has an event below its barrier.
   the queues in one push per sweep. With `EngineConfig.burst` set,
   contiguous same-flow packet arrivals fold into one event at the dump
   (`_burst_fold`).
+- The frontier drain (`_drain_window_frontier`, `EngineConfig.frontier`
+  > 0): the chained drain's sweeps, but per round each host's staging is
+  key-sorted once and a run of equal-time, same-kind staged events
+  executes one position at a time; the staging bookkeeping happens once
+  per round. Bit-identical to the chained drain.
 - The batched drain (`_drain_window_batched`, engines built with a
   `batch_handler`): each sweep executes every host's whole below-barrier
   frontier in one [H, B]-shaped handler call.
@@ -26,10 +31,12 @@ JAX's `lax.while_loop`/`lax.cond` become Python loops and branches on a
 Per window: the loop test in `run`/`step_window` and the drain's first
 flag; per sweep: the sweep's drain flag and the push's fallback-round
 decision, plus, on the chained drain, one read per inner step, the
-inner loop's last test and the flush's narrow-or-full decision.
+inner loop's last test and the flush's narrow-or-full decision; on the
+frontier drain one read per round and one per position. A queue with a
+spill ring adds one read per full-width admission round.
 
-Not ported (each raises NotImplementedError): the frontier drain,
-tracing, the stats plane, the spill ring, sharding and faults.
+Not ported (each raises NotImplementedError): tracing, the stats plane,
+sharding and faults.
 """
 
 from __future__ import annotations
@@ -182,9 +189,15 @@ def state_summary(state: EngineState) -> dict:
         state.now, state.stats.n_windows, state.stats.n_executed.sum(),
         state.stats.n_sweeps, state.queues.drops.sum(),
     ]).tolist()
-    return dict(zip(
+    out = dict(zip(
         ("now_ns", "windows", "executed", "sweeps", "queue_drops"), vals
     ))
+    ring = state.queues.spill
+    if ring is not None:
+        vals = torch.stack([ring.n_spilled.sum(), ring.n_lost.sum(),
+                            ring.fill_hwm.max().to(torch.int64)]).tolist()
+        out.update(zip(("spilled", "spill_lost", "fill_hwm"), vals))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,24 +216,30 @@ class EngineConfig:
     #   (kind, seq_arg, len_arg, sport_arg, dport_arg, meta_arg,
     #    proto, flags_excl_mask, mss, ctl_cols)
     burst: tuple | None = None
+    # Overflow-spill ring slots per host (runtime.pressure); 0 leaves the
+    # queue without a ring (EventQueue.spill is None)
+    spill: int = 0
+    # Frontier run batching (`_drain_window_frontier`): the most positions
+    # of a run per round; 0 keeps the chained drain
+    frontier: int = 0
     # knobs of paths this package does not port; any other value raises
     axis_name: str | None = None
     n_shards: int = 1
     trace: int = 0
-    spill: int = 0
-    frontier: int = 0
     stats: int = 0
 
     def __post_init__(self):
         if self.lookahead < 1:
             raise ValueError(
                 f"lookahead must be >= 1 ns, got {self.lookahead}")
+        if self.spill < 0:
+            raise ValueError(f"spill must be >= 0, got {self.spill}")
+        if self.frontier < 0:
+            raise ValueError(f"frontier must be >= 0, got {self.frontier}")
         unported = {
             "axis_name": self.axis_name is not None,
             "n_shards": self.n_shards != 1,
             "trace": self.trace != 0,
-            "spill": self.spill != 0,
-            "frontier": self.frontier != 0,
             "stats": self.stats != 0,
         }
         for name, set_ in unported.items():
@@ -285,14 +304,17 @@ def _kind_cost(cpu_cost: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
 
 def _select_rows(mask: torch.Tensor, new: Any, old: Any) -> Any:
     """Per-row select across two dataclasses of [H, ...] tensors: `new`
-    where the [H] mask is set, else `old`. Nested dataclasses recurse
-    and None fields stay None, as a pytree map over both would; a leaf
-    that is the same tensor on both sides is kept without a select."""
+    where the [H] mask is set, else `old`. Nested dataclasses and tuples
+    recurse and None fields stay None, as a pytree map over both would;
+    a leaf that is the same tensor on both sides is kept without a
+    select."""
     def sel(n, o):
         if o is None or n is o:
             return o
         if dataclasses.is_dataclass(o):
             return _select_rows(mask, n, o)
+        if isinstance(o, tuple):
+            return tuple(sel(a, b) for a, b in zip(n, o))
         return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)),
                            n, o)
 
@@ -367,6 +389,10 @@ class Engine:
     `cpu_cost`: per-event virtual-CPU nanoseconds by global host id,
     i64[H] (one cost per event) or i64[H, n_kinds] (per kind); None or
     all zeros disables the CPU model.
+
+    `frontier_kinds`: the event kinds allowed to form multi-position
+    runs on the frontier drain (cfg.frontier > 0); other kinds still run,
+    one position per round. None allows every kind.
     """
 
     def __init__(self, cfg: EngineConfig, handlers: Sequence[Callable],
@@ -375,8 +401,6 @@ class Engine:
                  frontier_kinds=None, device=None):
         if faults is not None:
             raise NotImplementedError("fault schedules are not ported")
-        if frontier_kinds is not None:
-            raise NotImplementedError("the frontier drain is not ported")
         self.cfg = cfg
         self.handlers = tuple(handlers)
         self.n_kinds = len(self.handlers)
@@ -384,6 +408,12 @@ class Engine:
         self.batch_handler = batch_handler
         self.device = resolve_device(device)
         self._base_key = srng.root_key(cfg.seed, self.device)
+        self._frontier_kinds = (
+            tuple(sorted({int(x) for x in frontier_kinds}))
+            if frontier_kinds is not None else None)
+        self._fk = (torch.tensor(self._frontier_kinds, dtype=torch.int32,
+                                 device=self.device)
+                    if frontier_kinds is not None else None)
         hg, nk = cfg.n_hosts * cfg.n_shards, self.n_kinds
         if cpu_cost is None:
             cpu_cost = torch.zeros((hg, nk), dtype=torch.int64)
@@ -407,11 +437,17 @@ class Engine:
         self.host_syncs += 1
         return bool(flag)
 
+    def _fetch(self, t: torch.Tensor):
+        """A counted device-to-host copy of a tensor, as numpy."""
+        self.host_syncs += 1
+        return t.cpu().numpy()
+
     def init_state(self, hosts: Any, initial: Events,
                    host0: int = 0) -> EngineState:
         cfg, dev = self.cfg, self.device
         h = cfg.n_hosts
-        q = EventQueue.create(h, cfg.capacity, cfg.n_args, device=dev)
+        q = EventQueue.create(h, cfg.capacity, cfg.n_args,
+                              spill=cfg.spill, device=dev)
         flat = initial.flatten()
         valid = flat.time != TIME_INVALID
         q = queue_push(q, flat, valid, host0, self._read)
@@ -668,68 +704,115 @@ class Engine:
                                      getattr(out, f.name))
                          for f in dataclasses.fields(stage)})
 
+    def _dump(self, q: EventQueue, window_end, gids, b: int, sw: int):
+        """A sweep's start: dump each host's earliest-b below-barrier
+        prefix into [H, sw] staging (burst-folded when configured) and
+        clear it from the queue. Returns (queue', staging, qh_t, qh_ss):
+        the key of each host's first un-dumped event, the queue-head
+        guard a staged event must order before to run this sweep."""
+        h, c = q.time.shape
+        cols = torch.arange(c, dtype=torch.int32, device=q.time.device)[None]
+        bvalid = q.time[:, :b] < window_end
+        ndump = torch.sum(bvalid, dim=1, dtype=torch.int32)
+        pad = sw - b
+        stage = Events(
+            time=_pad_slots(torch.where(bvalid, q.time[:, :b],
+                                        TIME_INVALID), pad, TIME_INVALID),
+            dst=_pad_slots(gids[:, None].expand(h, b), pad, 0),
+            src=_pad_slots(q.src[:, :b], pad, 0),
+            seq=_pad_slots(q.seq[:, :b], pad, 0),
+            kind=_pad_slots(q.kind[:, :b], pad, 0),
+            args=_pad_slots(q.args[:, :b], pad, 0),
+        )
+        q = dataclasses.replace(q, time=torch.where(
+            cols < ndump[:, None], TIME_INVALID, q.time))
+        if self.cfg.burst is not None:
+            # the dump precedes the queue head, so folding inside it
+            # cannot violate the head guard
+            stage = self._burst_fold(stage)
+        headsel = cols == ndump[:, None]
+        qh_t = torch.min(torch.where(headsel, q.time, _I64MAX), dim=1).values
+        qh_ss = torch.min(torch.where(
+            headsel & (q.time != TIME_INVALID),
+            pack_srcseq(q.src, q.seq), _I64MAX), dim=1).values
+        return q, stage, qh_t, qh_ss
+
+    def _runnable(self, sm, cpu_free, window_end, qh_t, qh_ss, sw: int):
+        """Rows whose minimum staged event runs next: below the barrier
+        (CPU permitting), before the queue head, and with append headroom
+        (the high-water gate). Returns (rows, effective times)."""
+        ev, mss, _oh, cnt = sm
+        eff_t = (torch.maximum(ev.time, cpu_free) if self._cpu_enabled
+                 else ev.time)
+        active = ((ev.time != TIME_INVALID) & (eff_t < window_end)
+                  & _precedes(ev.time, mss, qh_t, qh_ss)
+                  & (cnt + self.cfg.max_emit <= sw))
+        return active, eff_t
+
+    def _charge_cpu(self, cpu_cost, ev: Events, active, eff_t, cpu_free):
+        """Advance each active host's virtual CPU past its event."""
+        ev_cost = _kind_cost(cpu_cost, ev.kind)
+        if self.cfg.burst is not None:
+            # a folded arrival pays per segment; zero-payload count
+            # carriers are one packet
+            bkind, _sq, blen = self.cfg.burst[:3]
+            lw = ev.args[:, blen]
+            nseg = torch.where((lw & BURST_LEN_MASK) > 0,
+                               torch.clamp(lw >> BURST_NSEG_SHIFT, min=1), 1)
+            ev_cost = ev_cost * torch.where(
+                ev.kind == bkind, nseg.to(ev_cost.dtype), 1)
+        return torch.where(active & (ev_cost > 0), eff_t + ev_cost, cpu_free)
+
+    @staticmethod
+    def _sort_stage(stage: Events) -> Events:
+        """Each host's staging in (time, src, seq) order: the valid
+        entries become a prefix (two stable sorts, minor key first)."""
+        skey = pack_srcseq(stage.src, stage.seq)
+        o = torch.sort(skey, dim=1, stable=True).indices
+        o = torch.gather(o, 1, torch.sort(
+            torch.gather(stage.time, 1, o), dim=1, stable=True).indices)
+        return _take_slots(stage, o)
+
+    def _flush(self, q: EventQueue, stage: Events, host0: int) -> EventQueue:
+        """A sweep's end: push the staging leftovers, compacted to a
+        prefix; FLUSH_W columns unless a row holds more."""
+        stage = self._sort_stage(stage)
+        sw = stage.time.shape[1]
+        w1 = min(sw, FLUSH_W)
+        if w1 < sw and not self._read(torch.max(torch.sum(
+                stage.time != TIME_INVALID, dim=1, dtype=torch.int32)) > w1):
+            stage = Events(**{f.name: getattr(stage, f.name)[:, :w1]
+                              for f in dataclasses.fields(stage)})
+        flat = stage.flatten()
+        return queue_push(q, flat, flat.time != TIME_INVALID, host0,
+                          self._read)
+
     def _drain_window(self, st: EngineState, window_end, host0: int
                       ) -> EngineState:
         """Drain every event below `window_end`: the chained drain, or
-        the batched one for engines with a batch_handler."""
+        the frontier one (cfg.frontier > 0), or the batched one for
+        engines with a batch_handler."""
         if self.batch_handler is not None:
             return self._drain_window_batched(st, window_end, host0)
+        if self.cfg.frontier > 0:
+            return self._drain_window_frontier(st, window_end, host0)
         cfg, dev = self.cfg, self.device
-        h, k, c = cfg.n_hosts, cfg.max_emit, cfg.capacity
+        h = cfg.n_hosts
         b = cfg.eff_drain_batch
-        sw = max(cfg.eff_stage_width, b + k)
+        sw = max(cfg.eff_stage_width, b + cfg.max_emit)
         gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
         cpu_cost = self.cpu_cost[gids.long()]  # [H, NK]
-        cols = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
         q, hosts, stats = st.queues, st.hosts, st.stats
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
 
         while self._read(self._drain_flag(q, cpu_free, window_end)):
-            # 1. dump each host's earliest-b below-barrier prefix into
-            # staging and clear it from the queue
-            bvalid = q.time[:, :b] < window_end
-            ndump = torch.sum(bvalid, dim=1, dtype=torch.int32)
-            pad = sw - b
-            stage = Events(
-                time=_pad_slots(torch.where(bvalid, q.time[:, :b],
-                                            TIME_INVALID), pad, TIME_INVALID),
-                dst=_pad_slots(gids[:, None].expand(h, b), pad, 0),
-                src=_pad_slots(q.src[:, :b], pad, 0),
-                seq=_pad_slots(q.seq[:, :b], pad, 0),
-                kind=_pad_slots(q.kind[:, :b], pad, 0),
-                args=_pad_slots(q.args[:, :b], pad, 0),
-            )
-            q = dataclasses.replace(q, time=torch.where(
-                cols < ndump[:, None], TIME_INVALID, q.time))
-            if cfg.burst is not None:
-                # the dump precedes the queue head, so folding inside it
-                # cannot violate the head guard
-                stage = self._burst_fold(stage)
-
-            # queue-head guard: the first un-dumped event's key per host;
-            # a staged event runs only while it orders before it
-            headsel = cols == ndump[:, None]
-            qh_t = torch.min(torch.where(headsel, q.time, _I64MAX),
-                             dim=1).values
-            qh_ss = torch.min(torch.where(
-                headsel & (q.time != TIME_INVALID),
-                pack_srcseq(q.src, q.seq), _I64MAX), dim=1).values
-
-            def runnable(sm, cpu_free):
-                """Rows whose minimum staged event runs this step: below
-                the barrier (CPU permitting), before the queue head, and
-                with append headroom (the high-water gate)."""
-                ev, mss, _oh, cnt = sm
-                eff_t = (torch.maximum(ev.time, cpu_free)
-                         if self._cpu_enabled else ev.time)
-                active = ((ev.time != TIME_INVALID) & (eff_t < window_end)
-                          & _precedes(ev.time, mss, qh_t, qh_ss)
-                          & (cnt + k <= sw))
-                return active, eff_t
+            # 1. dump each host's earliest-b below-barrier prefix
+            q, stage, qh_t, qh_ss = self._dump(q, window_end, gids, b, sw)
 
             # 2. chained execution, one staged event per host per step
             sm = self._stage_min(stage)
-            active, eff_t = runnable(sm, cpu_free)
+            active, eff_t = self._runnable(sm, cpu_free, window_end, qh_t,
+                                           qh_ss, sw)
             while self._read(torch.any(active)):
                 ev, _mss, onehot, _cnt = sm
                 stage = dataclasses.replace(stage, time=torch.where(
@@ -741,41 +824,126 @@ class Engine:
                     self._execute_step(hosts, src_seq, exec_cnt, stats, ev,
                                        active, window_end, gids)
                 if self._cpu_enabled:
-                    ev_cost = _kind_cost(cpu_cost, ev.kind)
-                    if cfg.burst is not None:
-                        # a folded arrival pays per segment; zero-payload
-                        # count carriers are one packet
-                        bkind, _sq, blen = cfg.burst[:3]
-                        lw = ev.args[:, blen]
-                        nseg = torch.where(
-                            (lw & BURST_LEN_MASK) > 0,
-                            torch.clamp(lw >> BURST_NSEG_SHIFT, min=1), 1)
-                        ev_cost = ev_cost * torch.where(
-                            ev.kind == bkind, nseg.to(ev_cost.dtype), 1)
-                    cpu_free = torch.where(active & (ev_cost > 0),
-                                           eff_t + ev_cost, cpu_free)
+                    cpu_free = self._charge_cpu(cpu_cost, ev, active, eff_t,
+                                                cpu_free)
                 stage = self._stage_append(stage, out)
                 stats = dataclasses.replace(
                     stats, n_inner_steps=stats.n_inner_steps + 1)
                 sm = self._stage_min(stage)
-                active, eff_t = runnable(sm, cpu_free)
+                active, eff_t = self._runnable(sm, cpu_free, window_end,
+                                               qh_t, qh_ss, sw)
 
-            # 3. flush the leftovers: a (time, src, seq) row sort compacts
-            # them to a prefix; push FLUSH_W columns unless a row holds more
-            skey = pack_srcseq(stage.src, stage.seq)
-            o = torch.sort(skey, dim=1, stable=True).indices
-            o = torch.gather(o, 1, torch.sort(
-                torch.gather(stage.time, 1, o), dim=1, stable=True).indices)
-            stage = _take_slots(stage, o)
-            w1 = min(sw, FLUSH_W)
-            if w1 < sw and not self._read(torch.max(torch.sum(
-                    stage.time != TIME_INVALID, dim=1, dtype=torch.int32))
-                    > w1):
-                stage = Events(**{f.name: getattr(stage, f.name)[:, :w1]
-                                  for f in dataclasses.fields(stage)})
-            flat = stage.flatten()
-            q = queue_push(q, flat, flat.time != TIME_INVALID, host0,
-                           self._read)
+            # 3. flush the leftovers
+            q = self._flush(q, stage, host0)
+            stats = dataclasses.replace(stats,
+                                        n_sweeps=stats.n_sweeps + 1)
+
+        return dataclasses.replace(
+            st, queues=q, hosts=hosts, src_seq=src_seq, exec_cnt=exec_cnt,
+            stats=dataclasses.replace(stats,
+                                      n_windows=stats.n_windows + 1),
+            cpu_free=cpu_free,
+        )
+
+    # -- the frontier drain: runs of equal-time, same-kind events -----------
+    def _drain_window_frontier(self, st: EngineState, window_end,
+                               host0: int) -> EngineState:
+        """The chained drain's sweeps with the staging bookkeeping done
+        once per round, bit-identical to the chained drain.
+
+        Per round each host's staging is key-sorted once, so column j is
+        the host's j-th smallest staged event. Positions then execute in
+        order, each running the handler table once for every host whose
+        column j continues the run of column 0's time and kind (kinds
+        outside `frontier_kinds` run alone), with the chained drain's
+        per-event stall tests (CPU, queue head, headroom). The run rule
+        is exact because every local emit lands at dt >= 1 (the model
+        declares it; build_simulation refuses configs that cannot) and
+        remote emits at >= the window end, so no emit can order before a
+        remaining run member. A round ends when a position runs no host
+        (that probe counts as a position in `n_inner_steps`, as in the
+        reference) or after `cfg.frontier` positions; then the executed
+        columns clear as a prefix and every position's emits append in
+        one `_stage_append`. The reference's trace, stats-plane and
+        crash-overlay branches are not ported.
+        """
+        cfg, dev = self.cfg, self.device
+        h, k = cfg.n_hosts, cfg.max_emit
+        b = cfg.eff_drain_batch
+        sw = max(cfg.eff_stage_width, b + k)
+        u = max(1, min(cfg.frontier, sw))
+        gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
+        cpu_cost = self.cpu_cost[gids.long()]  # [H, NK]
+        slot = torch.arange(sw, dtype=torch.int32, device=dev)[None, :]
+        q, hosts, stats = st.queues, st.hosts, st.stats
+        src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
+
+        while self._read(self._drain_flag(q, cpu_free, window_end)):
+            # 1. the frontier dump, as on the chained drain
+            q, stage, qh_t, qh_ss = self._dump(q, window_end, gids, b, sw)
+
+            # 2. rounds: sort once, execute a run, bookkeep once
+            sm = self._stage_min(stage)
+            while self._read(torch.any(self._runnable(
+                    sm, cpu_free, window_end, qh_t, qh_ss, sw)[0])):
+                stage = self._sort_stage(stage)
+                ss = pack_srcseq(stage.src, stage.seq)
+                cnt = torch.sum(stage.time != TIME_INVALID, dim=1,
+                                dtype=torch.int32)
+                t0, kind0 = stage.time[:, 0], stage.kind[:, 0]
+                allowed0 = (torch.isin(kind0, self._fk)
+                            if self._fk is not None else None)
+                still = torch.ones((h,), dtype=torch.bool, device=dev)
+                nact = torch.zeros((h,), dtype=torch.int32, device=dev)
+                outs = []
+                j = 0
+                while j < u:
+                    ev_t = stage.time[:, j]
+                    eff_t = (torch.maximum(ev_t, cpu_free)
+                             if self._cpu_enabled else ev_t)
+                    member = (ev_t == t0) & (stage.kind[:, j] == kind0)
+                    if allowed0 is not None and j > 0:
+                        member = member & allowed0
+                    active = (still & member & (ev_t != TIME_INVALID)
+                              & (eff_t < window_end)
+                              & _precedes(ev_t, ss[:, j], qh_t, qh_ss)
+                              & (cnt + k <= sw))
+                    j += 1
+                    if not self._read(torch.any(active)):
+                        break  # the terminating probe: nothing ran
+                    ev = Events(time=torch.where(active, eff_t, TIME_INVALID),
+                                dst=gids, src=stage.src[:, j - 1],
+                                seq=stage.seq[:, j - 1],
+                                kind=stage.kind[:, j - 1],
+                                args=stage.args[:, j - 1])
+                    hosts, src_seq, exec_cnt, stats, out, fmask = \
+                        self._execute_step(hosts, src_seq, exec_cnt, stats,
+                                           ev, active, window_end, gids)
+                    if self._cpu_enabled:
+                        cpu_free = self._charge_cpu(cpu_cost, ev, active,
+                                                    eff_t, cpu_free)
+                    cnt = (cnt - active.to(torch.int32)
+                           + torch.sum(fmask, dim=1, dtype=torch.int32))
+                    nact = nact + active.to(torch.int32)
+                    outs.append(out)
+                    still = active
+
+                # 3. the round's bookkeeping: clear the executed prefix,
+                # append every position's routed emits (headroom held by
+                # the per-position gate), in position order
+                stage = dataclasses.replace(stage, time=torch.where(
+                    slot < nact[:, None], TIME_INVALID, stage.time))
+                if outs:
+                    stage = self._stage_append(stage, Events(**{
+                        f.name: torch.cat([getattr(o, f.name) for o in outs],
+                                          dim=1)
+                        for f in dataclasses.fields(Events)}))
+                stats = dataclasses.replace(
+                    stats, n_inner_steps=stats.n_inner_steps + j)
+                sm = self._stage_min(stage)
+
+            # 4. flush the leftovers, as on the chained drain
+            q = self._flush(q, stage, host0)
             stats = dataclasses.replace(stats,
                                         n_sweeps=stats.n_sweeps + 1)
 

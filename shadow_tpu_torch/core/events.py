@@ -7,16 +7,15 @@ Rows keep a sorted invariant: slots are ordered by the event key
 A push groups the incoming events by destination with one flat sort,
 finds each destination's run with one searchsorted, and merges each
 run into its row with the fused merge (`core.merge`); overflow drops
-the largest keys and counts them in `drops`.
-
-The overflow spill ring of the reference is not ported: `EventQueue`
-has no `spill` field and `EventQueue.create(spill > 0)` raises.
+the largest keys and counts them in `drops`, or, when the queue carries
+a `SpillRing`, lands them in the ring for the host-side reservoir
+(`runtime.pressure`) to harvest and re-insert at window boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable
 
 import torch
 
@@ -66,11 +65,51 @@ class Events:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpillRing:
+    """Per-host overflow ring: events evicted by `queue_push` land here,
+    in eviction order, for the host-side reservoir to harvest.
+
+    `wr` counts the events offered since the last reset; a record lands
+    at min(wr, cap), so a full ring's writes fall into `slack` scratch
+    columns (as wide as the widest single eviction, the queue capacity)
+    that the harvester never reads. Events past a full ring are the only
+    ones lost under spill, counted in `n_lost` and in the queue's
+    `drops`. The payload rides packed as inside `queue_push` (kind +
+    args as i64 word pairs).
+    """
+
+    time: torch.Tensor  # i64[H, cap + slack]
+    srcseq: torch.Tensor  # i64[H, cap + slack] pack_srcseq(src, seq)
+    pay: torch.Tensor  # i64[H, cap + slack, NW] packed kind+args words
+    wr: torch.Tensor  # i32[H] events offered since the last reset
+    n_spilled: torch.Tensor  # i64[H] events evicted into the ring
+    n_lost: torch.Tensor  # i64[H] events lost to ring overflow
+    fill_hwm: torch.Tensor  # i32[H] high-water mark of queue fill
+
+    @staticmethod
+    def create(n_hosts: int, cap: int, slack: int, n_args: int = N_ARGS,
+               *, device) -> "SpillRing":
+        nw = (1 + n_args + 1) // 2  # payload words, packed two per i64
+        width = cap + slack
+        z64 = lambda *s: torch.zeros(s, dtype=torch.int64, device=device)
+        return SpillRing(
+            time=torch.full((n_hosts, width), TIME_INVALID,
+                            dtype=torch.int64, device=device),
+            srcseq=z64(n_hosts, width), pay=z64(n_hosts, width, nw),
+            wr=torch.zeros((n_hosts,), dtype=torch.int32, device=device),
+            n_spilled=z64(n_hosts), n_lost=z64(n_hosts),
+            fill_hwm=torch.zeros((n_hosts,), dtype=torch.int32,
+                                 device=device),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class EventQueue:
     """All hosts' bounded event queues: [H, C] slot tensors.
 
     A slot is empty iff time == TIME_INVALID. `drops` counts events lost
-    to queue overflow per host.
+    to queue overflow per host. `spill` is None (no leaves) unless the
+    queue was created with an overflow ring.
     """
 
     time: torch.Tensor  # i64[H, C]
@@ -79,12 +118,11 @@ class EventQueue:
     kind: torch.Tensor  # i32[H, C]
     args: torch.Tensor  # i32[H, C, N_ARGS]
     drops: torch.Tensor  # i64[H]
+    spill: Any = None  # SpillRing, or None when spill is off
 
     @staticmethod
     def create(n_hosts: int, capacity: int, n_args: int = N_ARGS,
                spill: int = 0, *, device) -> "EventQueue":
-        if spill > 0:
-            raise NotImplementedError("the spill ring is not ported")
         z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
         return EventQueue(
             time=torch.full((n_hosts, capacity), TIME_INVALID,
@@ -94,6 +132,11 @@ class EventQueue:
             kind=z(n_hosts, capacity),
             args=z(n_hosts, capacity, n_args),
             drops=torch.zeros((n_hosts,), dtype=torch.int64, device=device),
+            # slack = capacity: a merge round evicts at most w <= C events
+            # per host in one append
+            spill=(SpillRing.create(n_hosts, spill, capacity, n_args,
+                                    device=device)
+                   if spill > 0 else None),
         )
 
     def min_time(self) -> torch.Tensor:
@@ -180,7 +223,11 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
     Events whose dst falls outside [host0, host0 + H), that are masked
     off, or whose time is negative or TIME_INVALID are ignored. When a
     destination queue overflows, the largest-key events are dropped and
-    counted in `drops`. The algorithm is that of the reference:
+    counted in `drops`, unless the queue carries a SpillRing: then every
+    evicted event lands in the ring, only ring overflow counts as drops,
+    and the last round's width is not capped (full-width rounds run
+    until every rank is admitted, so no event bypasses the ring). The
+    algorithm is that of the reference:
 
     1. a flat sort groups incoming events by destination in
        (time, src, seq) order; rejected events key to H;
@@ -193,7 +240,7 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
        destination's count exceeds W1, a full-width round for the rest.
 
     `read` turns a 0-d bool tensor into a Python bool; it is the only
-    device-to-host read here (the fallback round's and the hot region's
+    device-to-host read here (the fallback rounds' and the hot region's
     decisions), so a caller can count them.
     """
     h, c = q.time.shape
@@ -250,8 +297,15 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
             )
             over = torch.sum(mt[:, hc:] != TIME_INVALID, dim=1,
                              dtype=torch.int32)
-            if count_tail:
-                over = over + torch.clamp(count - lo - w, min=0)
+            spill = q.spill
+            if spill is None:
+                if count_tail:
+                    over = over + torch.clamp(count - lo - w, min=0)
+                drops_add = over.to(torch.int64)
+            else:
+                spill, drops_add = _spill_tail(spill, c, mt[:, hc:],
+                                               mss[:, hc:], mpay[:, hc:],
+                                               over)
             # truncate + re-canonicalize kept empties
             keep_t = mt[:, :hc]
             emp = keep_t == TIME_INVALID
@@ -262,15 +316,22 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
                 [pay_k[:, :, i] for i in range(pay_k.shape[-1])], nw_words
             )
             glue = lambda head, tail: torch.cat([head, tail], dim=1)
+            new_time = glue(keep_t, q.time[:, hc:])
+            if spill is not None:
+                fill = torch.sum(new_time != TIME_INVALID, dim=1,
+                                 dtype=torch.int32)
+                spill = dataclasses.replace(
+                    spill, fill_hwm=torch.maximum(spill.fill_hwm, fill))
             return EventQueue(
-                time=glue(keep_t, q.time[:, hc:]),
+                time=new_time,
                 src=glue(new_src, q.src[:, hc:]),
                 seq=glue(new_seq, q.seq[:, hc:]),
                 kind=glue(words[0], q.kind[:, hc:]),
                 args=torch.cat(
                     [torch.stack(words[1:], dim=-1), q.args[:, hc:]], dim=1
                 ),
-                drops=q.drops + over.to(torch.int64),
+                drops=q.drops + drops_add,
+                spill=spill,
             )
 
         if c < 2 * HOT_C:
@@ -286,9 +347,50 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
 
     w_full = min(c, m)
     w1 = min(w_full, MERGE_W)
-    if w1 == w_full:
-        return merge_round(q, 0, w_full, True)
+    if q.spill is None:
+        if w1 == w_full:
+            return merge_round(q, 0, w_full, True)
+        q = merge_round(q, 0, w1, False)
+        if read(torch.any(count > w1)):
+            q = merge_round(q, w1, w_full, True)
+        return q
+    # spill: a rank past the last round would be dropped without ever
+    # reaching the ring, so full-width rounds run until every rank is in
+    # (the ring's slack equals the capacity >= w_full, so each round's
+    # eviction tail fits one append)
     q = merge_round(q, 0, w1, False)
-    if read(torch.any(count > w1)):
-        q = merge_round(q, w1, w_full, True)
+    lo = w1
+    while read(torch.any(count > lo)):
+        q = merge_round(q, lo, w_full, False)
+        lo += w_full
     return q
+
+
+def _spill_tail(spill: SpillRing, c: int, tail_t, tail_ss, tail_pay, over):
+    """Append each row's whole [H, w] eviction tail to the ring at
+    min(wr, cap) and advance `wr` by the row's valid count `over`: the
+    merged row keeps empties last, so the evicted events lead the tail,
+    and what follows them is overwritten by the next append or never
+    read. Returns (ring', drops to add: the events past a full ring)."""
+    scap = spill.time.shape[1] - c  # slack == queue capacity
+    w = tail_t.shape[1]
+    # the reference's per-row dynamic_update_slice would clamp a start
+    # past width - w; with w <= slack it never has to
+    assert w <= c, f"eviction tail {w} wider than the ring's slack {c}"
+    starts = torch.clamp(spill.wr, max=scap).to(torch.int64)
+    idx = starts[:, None] + torch.arange(w, dtype=torch.int64,
+                                         device=starts.device)[None, :]
+    wr2 = spill.wr + over
+    lost = (torch.clamp(wr2 - scap, min=0)
+            - torch.clamp(spill.wr - scap, min=0)).to(torch.int64)
+    ring = SpillRing(
+        time=spill.time.scatter(1, idx, tail_t),
+        srcseq=spill.srcseq.scatter(1, idx, tail_ss),
+        pay=spill.pay.scatter(
+            1, idx[:, :, None].expand(tail_pay.shape), tail_pay),
+        wr=wr2,
+        n_spilled=spill.n_spilled + over.to(torch.int64),
+        n_lost=spill.n_lost + lost,
+        fill_hwm=spill.fill_hwm,
+    )
+    return ring, lost

@@ -126,6 +126,7 @@ def build(
     seed: int = 0,
     drain_batch: int = 24,
     batched: bool = False,
+    spill: int = 0,
     device=None,
 ):
     """Build (engine, init) for an n_hosts PHOLD network; `init(host0=0)`
@@ -134,7 +135,8 @@ def build(
     The 50 ms single-PoI topology matches the reference's stock config.
     `batched` selects the batched drain (whole frontiers per handler
     call); the state is bit-identical either way, apart from the
-    scheduler counters. `device=None` runs on CUDA.
+    scheduler counters. `spill` gives every queue an overflow ring of
+    that many slots (runtime.pressure). `device=None` runs on CUDA.
     """
     dev = resolve_device(device)
     cfg = EngineConfig(
@@ -145,6 +147,7 @@ def build(
         n_args=N_PHOLD_ARGS,
         seed=seed,
         drain_batch=drain_batch,
+        spill=spill,
     )
     eng = Engine(
         cfg,

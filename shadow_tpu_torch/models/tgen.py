@@ -220,6 +220,10 @@ class TGenModel:
         # the client-stream slot is the last one; passive-open children
         # take the first free slots from 0, so the two never meet
         self._cs = b.n_sockets - 1
+        # frontier-drain eligibility: inter-stream pauses are this model's
+        # only local emit delays; unused table rows keep the SECOND
+        # default, so the check covers exactly the configured clients
+        self._frontier_safe = bool((pause_ns >= 1).all())
         z32 = torch.zeros((n,), dtype=_I32, device=dev)
         state = TGenState(
             gid=torch.arange(n, dtype=_I32, device=dev),
@@ -228,6 +232,17 @@ class TGenModel:
             t_last_done=torch.zeros((n,), dtype=_I64, device=dev),
         )
         return state, self._make_handlers, self._on_recv
+
+    @property
+    def frontier_safe(self) -> bool:
+        """True when every local emit delay this build can schedule is
+        >= 1 ns: the frontier drain's run-rule invariant."""
+        return getattr(self, "_frontier_safe", False)
+
+    def frontier_kinds(self) -> tuple:
+        """Model kinds eligible for multi-position frontier runs (all of
+        them: KIND_STREAM's emits are pause-delayed or TCP-floored)."""
+        return tuple(range(self.n_kinds))
 
     # ---------------------------------------------------------- handlers
     def _make_handlers(self, stack, kind_base):

@@ -6,17 +6,18 @@ sizes their NICs, lets the app model bind its sockets and schedule its
 process starts, and compiles everything into one chained-drain Engine
 whose handler table is [stack pipeline | TCP timer and tx | app kinds].
 
-Ported: one app model per simulation, `phold` over UDP, `tgen` and `tor`
-over TCP (NewReno or AIMD, `tcp_cc`), `bitcoin` over both, a model's
-per-kind CPU charges, shape bucketing, per-host bandwidth,
-`cpufrequency`, `interfacebuffer`, `socketsendbuffer`,
-`socketrecvbuffer`, `bootstraptime`, process `stoptime`, the three rx
-queue managers, both `fuse_rx` modes, both qdiscs, the TCP knobs
-(`tcp_in_order`, `tcp_wnd_words`, `tcp_child_slot_limit`) and burst
-folding of TCP arrivals (`burst_rx`). Not ported, each raising
-NotImplementedError: CUBIC (F2), fused multi-model tables, sharding (`mesh`, `locality`, `host_order`), the
-frontier drain, tracing, the stats plane, a profiler, lossless overflow
-(`spill`, `grow`), packet capture and fault schedules.
+Ported: `phold` over UDP, `tgen` and `tor` over TCP (NewReno or AIMD,
+`tcp_cc`), `bitcoin` over both, several app models in one simulation
+(`FusedModel`), a model's per-kind CPU charges, shape bucketing,
+per-host bandwidth, `cpufrequency`, `interfacebuffer`,
+`socketsendbuffer`, `socketrecvbuffer`, `bootstraptime`, process
+`stoptime`, the three rx queue managers, both `fuse_rx` modes, both
+qdiscs, the TCP knobs (`tcp_in_order`, `tcp_wnd_words`,
+`tcp_child_slot_limit`), burst folding of TCP arrivals (`burst_rx`), the
+frontier drain (`frontier`) and lossless overflow (`overflow="spill"`,
+`spill_len`). Not ported, each raising NotImplementedError: CUBIC (F2),
+sharding (`mesh`, `locality`, `host_order`), tracing, the stats plane,
+a profiler, `overflow="grow"`, packet capture and fault schedules.
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ from shadow_tpu_torch.core.events import Events
 from shadow_tpu_torch.core.timebase import MILLISECOND, SECOND, TIME_INVALID
 from shadow_tpu_torch.net.dns import DNS
 from shadow_tpu_torch.net.topology import Topology, jax_index
+from shadow_tpu_torch.runtime.pressure import (
+    OVERFLOW_MODES,
+    PressureController,
+    QueuePressureError,
+)
 from shadow_tpu_torch.host.sockets import PROTO_TCP
 from shadow_tpu_torch.transport import tcp as tcpm
 from shadow_tpu_torch.transport.stack import (
@@ -71,31 +77,16 @@ DEFAULT_BANDWIDTH_KIB = 10240  # when neither host attr nor vertex attr set
 # host's configured CPU.
 CPU_CYCLES_PER_EVENT = 10_000
 
-OVERFLOW_MODES = ("drop", "strict", "spill", "grow")
-
-
-class QueuePressureError(RuntimeError):
-    """Raised under overflow="strict" at the first would-be drop."""
-
-    def __init__(self, drops: int, capacity: int, summary: dict):
-        self.drops = int(drops)
-        self.capacity = int(capacity)
-        self.summary = dict(summary)
-        super().__init__(
-            f"queue pressure: {drops} events would overflow the per-host "
-            f"event queues (capacity {capacity}); rerun with a larger "
-            "--capacity, or a lossless mode (--overflow spill/grow)"
-        )
-
-
 @dataclasses.dataclass
 class SimBuild:
     """Mutable build context handed to the app model.
 
     The app reads per-host process specs and arguments, resolves peer
     names through `dns`, binds sockets into `sockets` (and listeners into
-    `tcb`), and appends process start events. Per-host arrays are sized
-    `n_hosts` (the bucketed host count) and indexed by `HostInstance.gid`.
+    `tcb`), and appends process start events. `hosts` is the subset of
+    hosts the current model owns (all of them with one model); per-host
+    arrays are sized `n_hosts` (the bucketed host count) and indexed by
+    `HostInstance.gid`.
     """
 
     cfg: ShadowConfig
@@ -109,6 +100,7 @@ class SimBuild:
     start_events: list[tuple[int, int, int, list[int]]] = dataclasses.field(
         default_factory=list
     )  # (time_ns, gid, kind_rel, args words)
+    kind_offset: int = 0  # current model's kind base relative to the apps'
 
     def resolve_gid(self, name: str) -> int:
         addr = self.dns.resolve_name(name)
@@ -119,7 +111,8 @@ class SimBuild:
     def add_start_event(self, gid: int, time_s: float, kind_rel: int,
                         args: list[int] | None = None) -> None:
         self.start_events.append(
-            (int(time_s * SECOND), gid, kind_rel, list(args or [])))
+            (int(time_s * SECOND), gid, self.kind_offset + kind_rel,
+             list(args or [])))
 
 
 class AppModel(Protocol):
@@ -157,6 +150,7 @@ class Simulation:
     stack: Stack
     kind_names: tuple = ()  # handler-kind names
     overflow: str = "drop"
+    pressure: Any = None  # PressureController in spill mode
     # queue overflow is loud by default: the reference's event heaps are
     # unbounded, so a counted drop would silently change the run
     strict_overflow: bool = True
@@ -165,10 +159,24 @@ class Simulation:
         """Run to the stop time (the config's by default) from `state`
         (state0 by default); returns the final EngineState. The input
         state is not modified. Raises on queue overflow unless
-        strict_overflow is False and overflow is "drop"."""
+        strict_overflow is False and overflow is "drop".
+
+        In spill mode the run steps window by window, so that the
+        pressure controller sees every boundary: one copy of (now, the
+        ring's write cursor) per window, then the harvest and refill."""
         st = self.state0 if state is None else state
-        out = self.engine.run(
-            st, self.stop_ns if stop_ns is None else stop_ns)
+        stop = self.stop_ns if stop_ns is None else stop_ns
+        if self.pressure is not None:
+            eng = self.engine
+            now = int(eng._fetch(st.now))
+            while now < stop:
+                st = self.step_window(st, stop)
+                got = eng._fetch(torch.cat([
+                    st.now[None], st.queues.spill.wr.to(torch.int64)]))
+                now = int(got[0])
+                st = self.pressure.boundary(st, wr=got[1:], read=eng._read)
+            return st
+        out = self.engine.run(st, stop)
         if self.overflow == "strict" or self.strict_overflow:
             drops = int(out.queues.drops.sum())
             if drops > 0:
@@ -201,8 +209,15 @@ class Simulation:
 
     def summary(self, state) -> dict:
         """Host-side progress snapshot (frontier time, window count,
-        executed events, sweeps, queue drops)."""
-        return state_summary(state)
+        executed events, sweeps, queue drops; the reservoir's counters
+        in spill mode)."""
+        out = state_summary(state)
+        if self.pressure is not None:
+            snap = self.pressure.snapshot(state)
+            out["refilled"] = snap["refilled"]
+            out["reservoir"] = snap["resident"]
+            out["overdue"] = snap["overdue"]
+        return out
 
 
 def _plugin_tokens(cfg: ShadowConfig, plugin_id: str) -> set[str]:
@@ -252,6 +267,113 @@ def resolve_app_models(
     ]
 
 
+@dataclasses.dataclass(frozen=True)
+class MultiApp:
+    """Fused app state: every sub-model's [H]-leading state side by side,
+    and the per-host owning model's index for receive dispatch."""
+
+    model_id: torch.Tensor  # i32[H]
+    subs: tuple
+
+
+class FusedModel:
+    """Several app models in one handler table.
+
+    Kinds lay out as [stack | model0 kinds | model1 kinds | ...]; each
+    sub-model's handlers run on its own state slice (the rest of the
+    MultiApp rides along), and packet deliveries go to the receiving
+    host's owning model. Where the reference switches per host on
+    `model_id`, every sub-model's receive runs over all [H] rows and
+    each row keeps the result of its own model, every leaf of the host
+    state included, so a model leaves no trace on rows it does not own.
+    """
+
+    def __init__(self, parts):  # [(name, model, owned_hosts)]
+        self.parts = parts
+        self.name = "+".join(name for name, _, _ in parts)
+        self.needs_tcp = any(m.needs_tcp for _, m, _ in parts)
+        self.n_kinds = sum(m.n_kinds for _, m, _ in parts)
+
+    def app_rows(self) -> int:
+        return max(m.app_rows() for _, m, _ in self.parts)
+
+    def handler_rows(self) -> int:
+        return max(m.handler_rows() for _, m, _ in self.parts)
+
+    def cpu_kind_cycles(self, n_kinds: int):
+        """The sum of the parts' per-(host, kind) cycle tables: each is
+        zero on rows its model does not own, so the sum composes them."""
+        total = None
+        for _, m, _ in self.parts:
+            cy = (m.cpu_kind_cycles(n_kinds)
+                  if hasattr(m, "cpu_kind_cycles") else None)
+            if cy is not None:
+                total = cy if total is None else total + cy
+        return total
+
+    def build(self, b: SimBuild):
+        model_id = np.zeros((b.n_hosts,), np.int32)
+        subs, makers, recvs = [], [], []
+        offset = 0
+        all_hosts = b.hosts
+        for i, (_name, model, owned) in enumerate(self.parts):
+            for h in owned:
+                model_id[h.gid] = i
+            b.hosts, b.kind_offset = owned, offset
+            state_i, make_i, recv_i = model.build(b)
+            subs.append(state_i)
+            makers.append(make_i)
+            recvs.append(recv_i)
+            offset += model.n_kinds
+        b.hosts, b.kind_offset = all_hosts, 0
+        self._makers, self._recvs = makers, recvs
+        state = MultiApp(model_id=torch.from_numpy(model_id).to(b.device),
+                         subs=tuple(subs))
+        return state, self._make_handlers, self._on_recv
+
+    @staticmethod
+    def _sub_call(hs, i, fn, *args):
+        """Run a sub-model callable on its own app-state slice."""
+        hs2, em = fn(dataclasses.replace(hs, app=hs.app.subs[i]), *args)
+        subs = tuple(hs2.app if j == i else sub
+                     for j, sub in enumerate(hs.app.subs))
+        return dataclasses.replace(
+            hs2, app=MultiApp(model_id=hs.app.model_id, subs=subs)), em
+
+    def _make_handlers(self, stack, kind_base):
+        rows = self.handler_rows()
+        handlers = []
+        offset = kind_base
+        for i, ((_name, model, _), make) in enumerate(
+                zip(self.parts, self._makers)):
+            for fn in make(stack, offset):
+                def wrapped(hs, ev, key, _i=i, _fn=fn):
+                    hs2, em = self._sub_call(hs, _i, _fn, ev, key)
+                    return hs2, em.pad_to(rows)
+                handlers.append(wrapped)
+            offset += model.n_kinds
+        return handlers
+
+    def _on_recv(self, hs, slot, pkt, now, key):
+        rows = self.app_rows()
+        idx = torch.clamp(hs.app.model_id, 0, len(self._recvs) - 1)
+        hs_out = em_out = None
+        for i, recv in enumerate(self._recvs):
+            if recv is None:
+                hs_i, em_i = hs, Emit.none(now.shape[0], rows, N_PKT_ARGS,
+                                           device=now.device)
+            else:
+                hs_i, em_i = self._sub_call(hs, i, recv, slot, pkt, now, key)
+                em_i = em_i.pad_to(rows)
+            if hs_out is None:
+                hs_out, em_out = hs_i, em_i
+            else:
+                sel = idx == i
+                hs_out = _select_rows(sel, hs_i, hs_out)
+                em_out = _select_rows(sel, em_i, em_out)
+        return hs_out, em_out
+
+
 def default_registry() -> dict[str, Callable]:
     """The app models by plugin name."""
     from shadow_tpu_torch.models.bitcoin import BitcoinModel
@@ -267,7 +389,7 @@ def default_registry() -> dict[str, Callable]:
     }
 
 
-def _refuse_unported(*, mesh, locality, host_order, frontier, trace, stats,
+def _refuse_unported(*, mesh, locality, host_order, trace, stats,
                      profiler, overflow):
     if overflow not in OVERFLOW_MODES:
         raise ValueError(
@@ -276,11 +398,10 @@ def _refuse_unported(*, mesh, locality, host_order, frontier, trace, stats,
         "mesh (sharding)": mesh is not None,
         "locality": bool(locality),
         "host_order": host_order is not None,
-        "frontier": bool(frontier),
         "trace": bool(trace),
         "stats": bool(stats),
         "profiler": profiler is not None,
-        f"overflow={overflow!r}": overflow in ("spill", "grow"),
+        "overflow='grow' (it needs utils/checkpoint.py)": overflow == "grow",
     }
     for name, set_ in unported.items():
         if set_:
@@ -322,19 +443,27 @@ def build_simulation(
     stats: int = 0,
     profiler: Any = None,
     overflow: str = "drop",
+    spill_len: int = 0,
     host_order: Any = None,
     device=None,
 ) -> Simulation:
     """Config -> Simulation on `device` (None: CUDA, which must exist;
     pass "cpu" to run on the CPU).
 
-    The keywords are the reference's, less those that act only on spill
-    rings, meshes or an app model passed in whole, which come with the
-    code that reads them. `tcp_cc="cubic"` raises (F2).
+    The keywords are the reference's, less those that act only on
+    meshes or an app model passed in whole, which come with the code
+    that reads them. `tcp_cc="cubic"` raises (F2).
+
+    `overflow="spill"` gives every queue an overflow ring of `spill_len`
+    slots (4 x capacity by default) and a PressureController, and `run`
+    then steps window by window. `frontier=N` selects the frontier drain
+    (runs of up to N positions per round), bit-identical to the chained
+    drain; it requires a TCP stack with fuse_rx=True and a model that
+    declares `frontier_safe` (every local emit at dt >= 1).
     """
     _refuse_unported(mesh=mesh, locality=locality, host_order=host_order,
-                     frontier=frontier, trace=trace, stats=stats,
-                     profiler=profiler, overflow=overflow)
+                     trace=trace, stats=stats, profiler=profiler,
+                     overflow=overflow)
     if tcp_cc == "cubic":
         raise NotImplementedError(tcpm.F2_MESSAGE)
     if qdisc not in ("fifo", "rr"):
@@ -410,11 +539,7 @@ def build_simulation(
             proc_stop[h.gid] = int(stops.pop() * SECOND)
 
     parts = resolve_app_models(cfg, registry, hosts)
-    if len(parts) > 1:
-        raise NotImplementedError(
-            "several app models in one simulation (FusedModel) are not "
-            "ported")
-    model = parts[0][1]
+    model = parts[0][1] if len(parts) == 1 else FusedModel(parts)
     if snd_buf_bytes.any() and not model.needs_tcp:
         # without a TCP stack there is no send buffer for the cap to bound
         # (socketrecvbuffer sizes TCP's receive window; ignored without)
@@ -468,7 +593,9 @@ def build_simulation(
     kind_names = ["pkt_arrive", "pkt_rx"]
     if tcp is not None:
         kind_names += ["tcp_timer", "tcp_tx"]
-    kind_names += [f"{model.name}.{i}" for i in range(model.n_kinds)]
+    for name, sub, _ in (model.parts if isinstance(model, FusedModel)
+                         else [(model.name, model, None)]):
+        kind_names += [f"{name}.{i}" for i in range(sub.n_kinds)]
     if len(kind_names) != len(handlers):
         raise AssertionError(
             f"kind label table ({len(kind_names)}) out of sync with the "
@@ -495,9 +622,32 @@ def build_simulation(
         burst = (KIND_PKT_ARRIVE, A_SEQ, A_LEN, A_SPORT, A_DPORT, A_META,
                  PROTO_TCP, F_SYN | F_FIN | F_RST, tcpm.MSS,
                  (A_ACK, A_WND, A_AUX, A_SACK0, A_SACK1))
+    # spill ring: 4 x capacity record slots by default; an undersized
+    # ring reports its overflow in n_lost
+    spill = 0
+    if overflow == "spill":
+        spill = int(spill_len) if spill_len > 0 else 4 * capacity
+    # the frontier drain's run rule is exact only when every local emit
+    # lands at dt >= 1: the unfused ARRIVE -> RX re-emit can land at dt 0,
+    # and a model must declare its own delays safe
+    frontier_kinds = None
+    if frontier:
+        if tcp is None or not fuse_rx:
+            raise ValueError(
+                "frontier batching requires the TCP stack with "
+                "fuse_rx=True (the unfused ARRIVE->RX re-emit can land "
+                "at dt=0, breaking the run rule's dt >= 1 invariant)")
+        if not getattr(model, "frontier_safe", False):
+            raise ValueError(
+                f"model {model.name!r} does not declare frontier_safe "
+                "(its local emit delays are not provably >= 1 ns for "
+                "this config); run with frontier=0")
+        frontier_kinds = stack.frontier_kinds() + tuple(
+            kind_base + int(i) for i in model.frontier_kinds())
     ecfg = EngineConfig(
         n_hosts=n_hosts, capacity=capacity, lookahead=lookahead,
         max_emit=max_emit, n_args=N_PKT_ARGS, seed=seed, burst=burst,
+        spill=spill, frontier=int(frontier),
     )
     network = topo.build_network(host_vertex, device=dev)
     cost_arg = cpu_cost
@@ -529,7 +679,7 @@ def build_simulation(
     eng = Engine(
         ecfg, handlers, network,
         cpu_cost=torch.from_numpy(cost_arg) if cost_arg.any() else None,
-        device=dev,
+        frontier_kinds=frontier_kinds, device=dev,
     )
 
     # -- initial events: process starts at their starttime, with a
@@ -557,14 +707,25 @@ def build_simulation(
         engine=eng, state0=st0, stop_ns=int(cfg.stoptime * SECOND),
         dns=dns, topo=topo, names=[h.name for h in hosts], app=model,
         stack=stack, kind_names=tuple(kind_names), overflow=overflow,
+        pressure=(PressureController(n_hosts, capacity, lookahead,
+                                     n_args=N_PKT_ARGS)
+                  if overflow == "spill" else None),
     )
 
 
 def _mute_stopped(model, app_state, make_handlers, on_recv,
                   stop_at: torch.Tensor):
     """Wrap the app's handlers and receive callback so that a host whose
-    process stoptime has passed keeps its state and emits nothing."""
-    if not hasattr(app_state, "gid"):
+    process stoptime has passed keeps its state and emits nothing. The
+    receive callback finds the row's host id in the app state's `gid`,
+    or in the first sub-state of a MultiApp that has one."""
+    def lane_gid(app):
+        for sub in (app, *getattr(app, "subs", ())):
+            if hasattr(sub, "gid"):
+                return sub.gid
+        return None
+
+    if lane_gid(app_state) is None:
         raise ValueError(
             "process stoptime needs the app state to carry a gid field "
             f"(model {model.name!r} has none)")
@@ -584,7 +745,7 @@ def _mute_stopped(model, app_state, make_handlers, on_recv,
 
     def mute_recv(hs, slot, pkt, now, key):
         hs2, em = on_recv(hs, slot, pkt, now, key)
-        dead = now >= stop_at[jax_index(hs.app.gid, n)]
+        dead = now >= stop_at[jax_index(lane_gid(hs.app), n)]
         return dead_select(hs, hs2, em, dead)
 
     def make_muted(stack, kind_base):

@@ -374,3 +374,15 @@ class Stack:
         if self.tcp is not None:
             handlers += self.tcp.make_handlers(self)
         return handlers
+
+    def frontier_kinds(self) -> tuple:
+        """Stack kinds that may form multi-position runs on the frontier
+        drain, whose run rule needs every local emit at dt >= 1: the
+        fused arrival (its follow-ups go through helpers that floor the
+        delay at 1 ns) and TCP's timer and tx kinds. KIND_PKT_RX is
+        absent: fused it never runs, and unfused mode is refused, since
+        the bootstrap-phase ARRIVE -> RX re-emit can land at dt = 0."""
+        fk = (KIND_PKT_ARRIVE,)
+        if self.tcp is not None:
+            fk += (N_STACK_KINDS, N_STACK_KINDS + 1)  # tcp_timer, tcp_tx
+        return fk

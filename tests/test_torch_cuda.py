@@ -1,4 +1,5 @@
-"""shadow_tpu_torch on a CUDA card: the kernel against its plain version.
+"""shadow_tpu_torch on a CUDA card: the kernel against its plain version,
+and each path against the same run on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file
 imports no JAX, so it runs where JAX is not installed; from the
@@ -18,7 +19,7 @@ import torch
 import chip_smoke
 import torch_tcp_harness as tcp_harness
 import torch_toy
-from shadow_tpu_torch import convert
+from shadow_tpu_torch import convert, examples
 from shadow_tpu_torch.core import merge
 from shadow_tpu_torch.models import phold
 
@@ -194,6 +195,140 @@ def test_bitcoin_on_cuda_matches_cpu():
     cpu = _config_on_both(tcp_harness.btc_config(blocks=3),
                           dict(seed=9, n_sockets=16, capacity=512))
     assert cpu["hosts.app.best"][:8].tolist() == [3] * 8
+
+
+def test_mixed_on_cuda_matches_cpu():
+    """TGen beside PHOLD through FusedModel (chip_smoke's mixed config at
+    2 pairs and 8 peers, bucketed to 16 hosts) on the card equals the
+    CPU run, which tests/test_torch_multimodel.py holds against the JAX
+    reference."""
+    _need_card()
+    cpu = _config_on_both(chip_smoke.mixed_config(2, 8, 5), dict(
+        seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
+        capacity=chip_smoke.TGEN_CAPACITY))
+    assert cpu["hosts.app.subs.0.streams_done"].sum() > 0
+    assert cpu["hosts.app.subs.1.n_recv"].sum() > 0
+
+
+def test_frontier_on_cuda_matches_cpu():
+    """TGen on the frontier drain (3 pairs, frontier=16) on the card
+    equals the CPU run, which tests/test_torch_frontier.py holds against
+    the JAX reference."""
+    _need_card()
+    cpu = _config_on_both(
+        chip_smoke.tgen_config(3).replace(
+            f'stoptime="{chip_smoke.TGEN_STOP_S}"', 'stoptime="6"'),
+        dict(seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
+             capacity=chip_smoke.TGEN_CAPACITY,
+             frontier=chip_smoke.TGEN_FRONTIER))
+    assert cpu["hosts.app.streams_done"].sum() > 0
+
+
+def _spill_run(dev, record=None):
+    """tests/test_torch_pressure.py's skewed PHOLD (16 hosts, capacity 8,
+    a 32-slot ring) through run_with_spill on `dev`: (leaves, controller).
+    `record(args, in_refill)` sees every merge call's inputs."""
+    from shadow_tpu_torch.core import events
+    from shadow_tpu_torch.runtime import pressure
+
+    eng, init = phold.build(16, capacity=8, spill=32, batched=True,
+                            device=dev, hot_hosts=4, hot_weight=0.6,
+                            msgs_per_host=2)
+    ctrl = pressure.PressureController(16, 8, eng.cfg.lookahead,
+                                       n_args=phold.N_PHOLD_ARGS)
+    kernel, push, in_refill = events.merge.fused_merge, ctrl._push, []
+
+    def fused(*args):
+        record(args, bool(in_refill))
+        return kernel(*args)
+
+    def refill(*a, **k):
+        in_refill.append(True)
+        try:
+            return push(*a, **k)
+        finally:
+            in_refill.pop()
+
+    if record is not None:
+        events.merge.fused_merge, ctrl._push = fused, refill
+    try:
+        st = pressure.run_with_spill(eng, init(), 400 * chip_smoke.MS, ctrl)
+    finally:
+        events.merge.fused_merge, ctrl._push = kernel, push
+    return convert.engine_state_to_numpy(st), ctrl
+
+
+def test_spill_on_cuda_matches_cpu():
+    """The spill ring and the reservoir on the card equal the CPU run
+    (held against the JAX reference on the CPU), ring leaves whole; the
+    kernel equals its plain version on the run's full-width admission
+    rounds and refill pushes."""
+    _need_card()
+    seen = {"loop": [], "refill": []}
+
+    def record(args, in_refill):
+        w = args[5].shape[1]
+        label = "refill" if in_refill else "loop" if w == 8 else None
+        if label:
+            seen[label].append(tuple(a.clone() for a in args))
+
+    before = merge.launches
+    cuda, cc = _spill_run("cuda", record)
+    assert merge.launches - before >= int(cuda["stats.n_sweeps"]) > 0
+    cpu, ck = _spill_run("cpu")
+    assert cuda.keys() == cpu.keys()
+    for key, a in cpu.items():
+        np.testing.assert_array_equal(cuda[key], a, err_msg=key)
+    assert [sorted(h) for h in cc._heaps] == [sorted(h) for h in ck._heaps]
+    assert cpu["queues.spill.n_spilled"].sum() > 0 and ck.n_refilled.sum()
+    for label, calls in seen.items():
+        assert calls, f"no {label} merge call captured"
+        for args in calls:
+            got = merge.fused_merge(*args)
+            want = merge.merge_body(*args)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), label
+
+
+# name: (config, build_simulation keywords): tests/test_torch_pressure.py's
+# build_simulation spill runs, whose queues overflow into the ring
+SPILL_CONFIGS = {
+    "phold_udp": (examples.phold_example(16, 12, stoptime=2),
+                  dict(seed=4, capacity=12, overflow="spill")),
+    "tgen_tcp": (chip_smoke.tgen_config(3).replace(
+        f'stoptime="{chip_smoke.TGEN_STOP_S}"', 'stoptime="6"'),
+        dict(seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
+             capacity=16, overflow="spill")),
+}
+
+
+@pytest.mark.parametrize("name", list(SPILL_CONFIGS))
+def test_simulation_spill_on_cuda_matches_cpu(name):
+    """overflow="spill" through build_simulation and Simulation.run's
+    window-stepped loop, the ring holding packet payloads, on the card
+    equals the CPU run, reservoir included, and loses nothing."""
+    _need_card()
+    from shadow_tpu_torch import config, sim
+
+    text, kw = SPILL_CONFIGS[name]
+    states, heaps = {}, {}
+    for dev in ("cuda", "cpu"):
+        s = sim.build_simulation(config.parse_config(text), device=dev, **kw)
+        before = merge.launches
+        states[dev] = convert.engine_state_to_numpy(s.run())
+        heaps[dev] = [sorted(h) for h in s.pressure._heaps]
+        if dev == "cuda":
+            assert merge.launches - before >= int(
+                states[dev]["stats.n_sweeps"]) > 0
+        assert s.pressure.n_overdue == 0 and s.pressure.n_refilled.sum() > 0
+    assert states["cuda"].keys() == states["cpu"].keys()
+    for key, a in states["cpu"].items():
+        np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
+    assert heaps["cuda"] == heaps["cpu"]
+    cpu = states["cpu"]
+    assert cpu["queues.spill.pay"].shape[-1] > 1
+    assert cpu["queues.spill.n_spilled"].sum() > 0
+    assert cpu["queues.spill.n_lost"].sum() == 0
+    assert cpu["queues.drops"].sum() == 0
 
 
 # name: (harness, keywords, stop s): tests/test_torch_tcp.py's lossy

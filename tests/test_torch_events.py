@@ -131,5 +131,14 @@ def test_pack_srcseq_and_group_run_starts():
 
 
 def test_spill_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        te.EventQueue.create(4, 8, spill=16, device="cpu")
+    """The spill ring is ported now (tests/test_torch_pressure.py holds
+    its pushes against the reference): a queue created with spill slots
+    carries a ring shaped as the reference's, and spill=0 none."""
+    qj = je.EventQueue.create(4, 8, spill=16)
+    qt = te.EventQueue.create(4, 8, spill=16, device="cpu")
+    for f in ("time", "srcseq", "pay", "wr", "n_spilled", "n_lost",
+              "fill_hwm"):
+        a, b = np.asarray(getattr(qj.spill, f)), getattr(qt.spill, f).numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    assert te.EventQueue.create(4, 8, device="cpu").spill is None

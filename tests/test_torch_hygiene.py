@@ -35,6 +35,7 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.sim, shadow_tpu_torch.transport.stack\n"
         "import shadow_tpu_torch.models.phold_net\n"
         "import shadow_tpu_torch.models.tor, shadow_tpu_torch.models.bitcoin\n"
+        "import shadow_tpu_torch.runtime.pressure\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -28,9 +28,11 @@ SECOND = 1_000_000_000
 
 
 def jax_leaves(state) -> dict:
-    """The reference EngineState's leaves keyed by field path."""
+    """The reference EngineState's leaves keyed by field path (a tuple
+    element by its index, as `convert` keys them)."""
     flat, _ = jax.tree_util.tree_flatten_with_path(jax.device_get(state))
-    return {".".join(k.name for k in path): np.asarray(v) for path, v in flat}
+    return {".".join(str(getattr(k, "name", getattr(k, "idx", None)))
+                     for k in path): np.asarray(v) for path, v in flat}
 
 
 def assert_leaves_equal(lj: dict, lt: dict):
@@ -159,18 +161,23 @@ def test_state_summary_matches_reference():
 
 
 def test_unported_knobs_raise():
-    for knob in (dict(trace=4), dict(spill=8), dict(frontier=2),
-                 dict(stats=1), dict(n_shards=2), dict(axis_name="x")):
+    for knob in (dict(trace=4), dict(stats=1), dict(n_shards=2),
+                 dict(axis_name="x")):
         with pytest.raises(NotImplementedError):
             tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, **knob)
     cfg = tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1)
     net = tengine.ConstantNetwork(1)
     with pytest.raises(NotImplementedError):
         tengine.Engine(cfg, [None], net, faults=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tengine.Engine(cfg, [None], net, frontier_kinds=(0,), device="cpu")
-    # the chained drain, the CPU model and burst folding are ported
+    # the chained drain, the CPU model, burst folding, the spill ring and
+    # the frontier drain are ported (tests/test_torch_pressure.py and
+    # tests/test_torch_frontier.py)
     tengine.Engine(cfg, [None], net, cpu_cost=[1, 1, 1, 1], device="cpu")
+    for knob in (dict(spill=8), dict(frontier=2)):
+        tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, **knob)
+    tengine.Engine(cfg, [None], net, frontier_kinds=(0,), device="cpu")
+    assert tphold.build(8, spill=16, device="cpu")[1]().queues.spill.wr \
+        .shape == (8,)
     tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, burst=(0,))
     tphold.build(8, batched=False, device="cpu")
 

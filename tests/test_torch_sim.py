@@ -237,11 +237,22 @@ def test_step_window_and_state_carry(sim_dir):
 def test_unported_knobs_raise():
     cfg = tconfig.parse_config(texamples.phold_example(8, 1, 2))
     for kw in (dict(mesh=object()), dict(locality=True),
-               dict(host_order=[0]), dict(frontier=4), dict(trace=8),
+               dict(host_order=[0]), dict(trace=8),
                dict(stats=1), dict(profiler=object()),
-               dict(overflow="spill"), dict(overflow="grow")):
+               dict(overflow="grow")):
         with pytest.raises(NotImplementedError):
             tsim.build_simulation(cfg, device="cpu", **kw)
+    # spill and the frontier drain are ported (tests/test_torch_pressure.py,
+    # tests/test_torch_frontier.py); PHOLD over UDP is not frontier-safe,
+    # in both packages
+    assert tsim.build_simulation(cfg, device="cpu",
+                                 overflow="spill").engine.cfg.spill == 1024
+    for sim_mod, cfg_mod, extra in ((jsim, jconfig, {}),
+                                    (tsim, tconfig, {"device": "cpu"})):
+        with pytest.raises(ValueError, match="TCP stack"):
+            sim_mod.build_simulation(
+                cfg_mod.parse_config(texamples.phold_example(8, 1, 2)),
+                frontier=4, **extra)
     with pytest.raises(ValueError):
         tsim.build_simulation(cfg, device="cpu", overflow="lossy")
     with pytest.raises(ValueError):

@@ -27,7 +27,7 @@ shadow_tpu_torch against shadow_tpu, leaf for leaf.
 - the work of one Tor and one Bitcoin inner step, counted as the torch
   operations that launch a kernel on a device;
 - the slow pins: chip_smoke.py's phases 11 and 12 (Tor at bench.py's
-  1,020-host tier to 5 s, Bitcoin at 1,000 nodes to 36 s, each in one
+  1,020-host tier to 4.5 s, Bitcoin at 1,000 nodes to 32 s, each in one
   call) in both packages, against chip_smoke's constants.
 
 Every comparison is exact, dtypes included.
@@ -547,7 +547,7 @@ def test_tor_parity_and_pins():
     both packages on the CPU: equal leaves and the pins the card is held
     to."""
     js, ts = build_both(chip_smoke.tor_config(), **chip_smoke.TOR_KW)
-    stop = chip_smoke.TOR_STOP_S * SECOND
+    stop = int(chip_smoke.TOR_STOP_S * SECOND)
     lj = jax_leaves(js.run(stop))
     lt = convert.engine_state_to_numpy(ts.run(stop))
     assert_leaves_equal(lj, lt)
