@@ -86,7 +86,13 @@ Phases, each of which fails the run (exit 1, no result line) on error:
 15. the frontier drain: phase 10's config with frontier = 16, run once:
    held the same way as 11 (inner steps count every position, the
    terminating probes included), and its state less n_inner_steps to
-   phase 10's; a profile of 3-4 s.
+   phase 10's; a profile of 3-4 s;
+16. fault injection: phase 10's config under TGEN_FAULTS (server churn
+   with crash, restart, quarantine and RSTs; a partition that heals; a
+   loss spike; latency inflation; throttled server NICs), run once to
+   10 sim-s: held the same way as 11, and to its fault drops,
+   quarantined events and retransmits, each > 0; its wall time, host
+   syncs and inner steps printed beside phase 10's run of this call.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -94,7 +100,7 @@ package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines; `--only 11,12` runs phases 1-3 and then only
-the listed phases (9-15), without the result lines.
+the listed phases (9-16), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
@@ -103,7 +109,8 @@ the pins against the JAX leaves (`tests/test_torch_tgen.py -m slow -k
 4096` for phase 10's, `tests/test_torch_tor_bitcoin.py -m slow -k pins`
 for phases 11 and 12, `tests/test_torch_multimodel.py`,
 `tests/test_torch_pressure.py` and `tests/test_torch_frontier.py` with
-`-m slow` for phases 13, 14 and 15). The merge-input generator below is
+`-m slow` for phases 13, 14 and 15, `tests/test_torch_faults_tcp.py -m
+slow` for phase 16). The merge-input generator below is
 shared with tests/test_torch_merge.py.
 """
 
@@ -392,6 +399,44 @@ def tgen_frontier_pin(leaves) -> tuple:
 
     return _counts(leaves) + (int(leaves["hosts.app.streams_done"].sum()),
                               leaves_digest(leaves))
+
+
+# TGen under every fault type (phase 16): phase 10's config with
+# TGEN_FAULTS added, the scenario tests/test_faults.py builds at 2 hosts,
+# at 4096: server churn (crash, restart, quarantine, RSTs on unmatched
+# segments), a partition that heals, a loss spike, latency inflation and
+# throttled server NICs, all inside the clients' traffic (they start at
+# 3-7 s). Pin from JAX/CPU: (events, windows, sweeps, inner steps, queue
+# drops, streams done, fault drops, quarantined, retransmits, digest).
+TGEN_FAULTS = (
+    '<fault type="churn" hosts="srv*" start="4" end="9" period="2" '
+    'downtime="0.5" frac="0.1"/>'
+    '<fault type="partition" src="cli*3" dst="srv*" start="5" end="7"/>'
+    '<fault type="loss" src="cli*5" dst="*" loss="0.3" start="4" end="8"/>'
+    '<fault type="latency" src="cli*7" dst="srv*" factor="3" start="4" '
+    'end="9"/>'
+    '<fault type="bandwidth" hosts="srv*9" factor="0.25" start="4.5" '
+    'end="8.5"/>')
+PIN_TGEN_FAULTS = (
+    188_361, 132, 132, 646, 0, 4_619, 2_392, 246, 1_290,
+    "a41c65cbdebd12df08a54244e47a1384798bf5a402a2e6ba2b4e53fe90fbe6b0")
+
+
+def tgen_faults_config(n_pairs: int) -> str:
+    """Phase 16's config: tgen_config(n_pairs) under TGEN_FAULTS."""
+    return tgen_config(n_pairs).replace("</shadow>",
+                                        TGEN_FAULTS + "</shadow>")
+
+
+def tgen_faults_pin(leaves) -> tuple:
+    """Phase 16's pin from its numpy leaves (either package's)."""
+    from shadow_tpu_torch.convert import leaves_digest
+
+    return _counts(leaves) + (
+        int(leaves["hosts.app.streams_done"].sum()),
+        int(leaves["stats.n_fault_dropped"].sum()),
+        int(leaves["stats.n_quarantined"].sum()),
+        int(leaves["hosts.net.tcb.n_retx"].sum()), leaves_digest(leaves))
 
 
 def skew_pin(leaves, ctrl=None) -> tuple:
@@ -1457,6 +1502,9 @@ def app_phases() -> dict:
                           (3.0, float(TGEN_PROFILE_STOP_S)),
                           lambda lv, n: tgen_frontier_pin(lv),
                           PIN_TGEN_FRONTIER),
+        "tgen_faults": (tgen_faults_config(TGEN_PAIRS), tgen_kw, TGEN_STOP_S,
+                        TGEN_TIMED_CALL, None,
+                        lambda lv, n: tgen_faults_pin(lv), PIN_TGEN_FAULTS),
     }
 
 
@@ -1464,7 +1512,8 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
               smi_line) -> dict:
     """A config-driven run at its bench shape through build_simulation
     (`app_phases`: Tor, phase 11; Bitcoin, 12; mixed TGen + PHOLD, 13;
-    TGen on the frontier drain, 15), run once to its stop in one call:
+    TGen on the frontier drain, 15; TGen under faults, 16), run once to
+    its stop in one call:
     held to its JAX/CPU pin and to a merge launch per sweep, merge
     launches counted by queue width; the kernel held to its plain
     version on captured inputs at every width reached and timed on the
@@ -1495,7 +1544,9 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
              "btc": ("best_min", "best_max", "best_pad_max", "t_best_max"),
              "mixed": ("streams_done", "phold_sent", "phold_received",
                        "hosts_tgen", "hosts_phold"),
-             "tgen_frontier": ("streams_done",)}[model]
+             "tgen_frontier": ("streams_done",),
+             "tgen_faults": ("streams_done", "fault_dropped", "quarantined",
+                             "retransmits")}[model]
     run = {"events": got[0], "windows": got[1], "sweeps": got[2],
            "inner_steps": got[3], "queue_drops": got[4],
            **dict(zip(names, got[5:-1])),
@@ -1520,6 +1571,13 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
               f"tgen_frontier: digest less n_inner_steps {less_inner} != "
               f"phase 10's {TGEN_LESS_INNER}")
         run["state_less_inner_steps_equals_chained"] = True
+    if model == "tgen_faults":
+        # every overlay fired: drops to faulted links and dead hosts,
+        # events voided by crashes, and TCP's loss paths at width
+        check(min(run["fault_dropped"], run["quarantined"],
+                  run["retransmits"]) > 0,
+              f"tgen_faults: an overlay did not fire: {run}")
+        run["fault_epochs"] = sim.faults.n_epochs
     del st, leaves
     timing = check_and_time_captured(merge, dev, rec, smi_line, model,
                                      kw["capacity"])
@@ -1546,13 +1604,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (9-15) to run after "
+                    help="comma-separated phases (9-16) to run after "
                          "phases 1-3, skipping the others; prints no "
                          "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= set(range(9, 16)):
-        ap.error("--only takes phases 9 to 15")
+    if not only <= set(range(9, 17)):
+        ap.error("--only takes phases 9 to 16")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1603,7 +1661,8 @@ def main(argv=None) -> int:
                                smi_line)
                 else:
                     phase_app({11: "tor", 12: "btc", 13: "mixed",
-                               15: "tgen_frontier"}[p], sim, config,
+                               15: "tgen_frontier", 16: "tgen_faults"}[p],
+                              sim, config,
                               merge, events, convert, dev, smi_line)
         return 0
 
@@ -1713,6 +1772,17 @@ def main(argv=None) -> int:
     front_hc = max(front["by_hc"], key=front["by_hc"].get)
     front_merge = front["timing"][front_hc]
 
+    phase("16. fault injection: TGen 4096 hosts under every fault type")
+    faults = phase_app("tgen_faults", sim, config, merge, events, convert,
+                       dev, smi_line)
+    faults_hc = max(faults["by_hc"], key=faults["by_hc"].get)
+    faults_merge = faults["timing"][faults_hc]
+    free = tgen["runs"][0]
+    print(json.dumps({"tgen_faults_vs_tgen": {
+        key: [faults["run"][key], free[key]]
+        for key in ("wall_s", "host_syncs", "inner_steps",
+                    "ms_per_inner_step", "launches")}, "card": smi_line}))
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -1724,7 +1794,8 @@ def main(argv=None) -> int:
                      + tor["run"]["launches"] + btc["run"]["launches"]
                      + mixed["run"]["launches"]
                      + skew["spill"]["launches"]
-                     + front["run"]["launches"]),
+                     + front["run"]["launches"]
+                     + faults["run"]["launches"]),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -1740,6 +1811,8 @@ def main(argv=None) -> int:
         "launches_spill_by_hc_w": skew["spill"]["launches_by_hc_w"],
         "launches_frontier": front["run"]["launches"],
         "launches_frontier_by_hc": front["by_hc"],
+        "launches_tgen_faults": faults["run"]["launches"],
+        "launches_tgen_faults_by_hc": faults["by_hc"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -1788,12 +1861,17 @@ def main(argv=None) -> int:
         "frontier_us": front_merge["us"],
         "frontier_bound_us": front_merge["bound_us"],
         "frontier_plain_ms": front_merge["plain_ms"],
+        "tgen_faults_hc": faults_hc,
+        "tgen_faults_us": faults_merge["us"],
+        "tgen_faults_bound_us": faults_merge["bound_us"],
+        "tgen_faults_plain_ms": faults_merge["plain_ms"],
+        "tgen_faults_yardstick_ms": faults_merge["yardstick_ms"],
         "shapes": [{key: row[key] for key in
                     ("hc", "w", "nw", "regime", "us", "warm_us",
                      "bound_us", "share", "warps_per_block")}
                    for row in timing["shapes"] + [chained_merge, net_merge]
                    + [run["timing"][hc] for run in (tgen, tor, btc, mixed,
-                                                    front)
+                                                    front, faults)
                       for hc in sorted(run["timing"])]
                    + [skew["timing"]["loop"], skew["timing"]["refill"]]],
         "build_s": build_s,

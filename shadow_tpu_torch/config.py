@@ -8,9 +8,8 @@ entries, and <host> elements (quantity expansion, bandwidth overrides,
 attachment hints, heartbeat and pcap options) holding <process plugin
 starttime stoptime arguments>. Both element generations are accepted:
 "node" for "host", "application" for "process", and a <kill time="T"/>
-child in place of the stoptime attribute.
-
-Fault schedules (<fault>) are not ported: they raise NotImplementedError.
+child in place of the stoptime attribute. <fault> elements become
+`shadow_tpu_torch.faults.FaultSpec`s in `ShadowConfig.faults`.
 """
 
 from __future__ import annotations
@@ -19,6 +18,8 @@ import dataclasses
 import os
 import re
 import xml.etree.ElementTree as ET
+
+from shadow_tpu_torch.faults import parse_fault_attrs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +81,7 @@ class ShadowConfig:
     plugins: tuple[PluginSpec, ...] = ()
     hosts: tuple[HostSpec, ...] = ()
     base_dir: str = "."  # directory of the config file (path resolution)
-    faults: tuple = ()  # fault schedules (not ported: always empty)
+    faults: tuple = ()  # FaultSpec per <fault> element, in order
 
     def plugin_by_id(self, pid: str) -> PluginSpec | None:
         for p in self.plugins:
@@ -172,6 +173,7 @@ def parse_config(text_or_path: str, base_dir: str | None = None) -> ShadowConfig
 
     plugins: list[PluginSpec] = []
     hosts: list[HostSpec] = []
+    faults: list = []
     topo_path = ""
     topo_text = ""
 
@@ -187,7 +189,7 @@ def parse_config(text_or_path: str, base_dir: str | None = None) -> ShadowConfig
             # legacy: <kill time="T"/> == stoptime attr
             stoptime = float(el.attrib["time"])
         elif el.tag == "fault":
-            raise NotImplementedError("fault schedules are not ported")
+            faults.append(parse_fault_attrs(el.attrib))
         elif el.tag in ("host", "node"):
             hosts.append(_parse_host(el))
 
@@ -203,6 +205,7 @@ def parse_config(text_or_path: str, base_dir: str | None = None) -> ShadowConfig
         plugins=tuple(plugins),
         hosts=tuple(hosts),
         base_dir=base_dir,
+        faults=tuple(faults),
     )
 
 

@@ -35,8 +35,18 @@ inner loop's last test and the flush's narrow-or-full decision; on the
 frontier drain one read per round and one per position. A queue with a
 spill ring adds one read per full-width admission round.
 
-Not ported (each raises NotImplementedError): tracing, the stats plane,
-sharding and faults.
+A fault schedule (`faults`, a `shadow_tpu_torch.faults.CompiledFaults`)
+overlays all three drains: a dead host consumes its due events without
+running them (`n_quarantined`), `_route` scales latency and rolls an
+extra pass probability per link group and drops packets to hosts dead
+at arrival (`n_fault_dropped`), and `_apply_fault_epoch` wipes and
+re-templates crashed hosts and rescales NIC rates when a window opens in
+a new epoch. The epoch test costs no read of its own: with faults on,
+the window loop's `nxt < stop` read becomes one fetch of (nxt, the
+epoch watermark, stop), and the epoch is looked up on the host.
+
+Not ported (each raises NotImplementedError): tracing, the stats plane
+and sharding.
 """
 
 from __future__ import annotations
@@ -152,8 +162,8 @@ class Stats:
     n_inner_steps: torch.Tensor  # i64[] chained-drain inner steps
     n_xchg_rounds: torch.Tensor  # i64[] (sharded only; stays 0)
     n_cross_shard: torch.Tensor  # i64[] (sharded only; stays 0)
-    n_fault_dropped: torch.Tensor  # i64[H] (faults only; stays 0)
-    n_quarantined: torch.Tensor  # i64[H] (faults only; stays 0)
+    n_fault_dropped: torch.Tensor  # i64[H] packets lost to fault overlays
+    n_quarantined: torch.Tensor  # i64[H] events voided by host crashes
 
     @staticmethod
     def create(n_hosts: int, n_kinds: int, *, device) -> "Stats":
@@ -179,7 +189,7 @@ class EngineState:
     exec_cnt: torch.Tensor  # i32[H] per-host executed-event counters (RNG)
     stats: Stats
     cpu_free: torch.Tensor  # i64[H] virtual-CPU available-from time
-    fault_epoch: torch.Tensor  # i32[] (faults only; stays 0)
+    fault_epoch: torch.Tensor  # i32[] last fault epoch applied (0 without)
 
 
 def state_summary(state: EngineState) -> dict:
@@ -393,14 +403,17 @@ class Engine:
     `frontier_kinds`: the event kinds allowed to form multi-position
     runs on the frontier drain (cfg.frontier > 0); other kinds still run,
     one position per round. None allows every kind.
+
+    `faults`: a CompiledFaults on this engine's device, or None. Crashes
+    and bandwidth changes need `fault_reset`, the initial hosts state: a
+    restarted host's rows are re-templated from it, and NIC rates scale
+    from its `net.nic_tx`/`net.nic_rx` rates.
     """
 
     def __init__(self, cfg: EngineConfig, handlers: Sequence[Callable],
                  network, cpu_cost=None,
                  batch_handler: Callable | None = None, faults=None,
-                 frontier_kinds=None, device=None):
-        if faults is not None:
-            raise NotImplementedError("fault schedules are not ported")
+                 fault_reset=None, frontier_kinds=None, device=None):
         self.cfg = cfg
         self.handlers = tuple(handlers)
         self.n_kinds = len(self.handlers)
@@ -429,6 +442,27 @@ class Engine:
         # build-time flags, as in the reference: one host read each
         self._cpu_enabled = bool(torch.any(cpu_cost != 0))
         self._use_jitter = bool(getattr(network, "has_jitter", False))
+        # fault schedule: build-time sub-flags keep fault-free (and
+        # partly faulted) runs free of the overlays they do not need
+        self.faults = faults
+        self.fault_reset = fault_reset
+        self._f_crash = bool(faults is not None and faults.has_crash)
+        self._f_link = bool(faults is not None and faults.has_link)
+        self._f_bw = bool(faults is not None and faults.has_bw)
+        self._f_any = self._f_crash or self._f_link or self._f_bw
+        if (self._f_crash or self._f_bw) and fault_reset is None:
+            raise ValueError(
+                "faults with crashes or bandwidth changes need a "
+                "fault_reset template (the initial hosts state)")
+        if faults is not None and faults.alive.shape[1] != hg:
+            raise ValueError(
+                f"fault schedule compiled for {faults.alive.shape[1]} "
+                f"hosts, engine has {hg}")
+        # [H, T] liveness per epoch, the quarantine's lookup table (one
+        # shard: the schedule's rows are this engine's)
+        self._alive_ht = (faults.alive.T.contiguous() if self._f_crash
+                          else None)
+        self._fgrp = faults.fgrp.long() if self._f_link else None
         self.host_syncs = 0
 
     def _read(self, flag: torch.Tensor) -> bool:
@@ -470,13 +504,43 @@ class Engine:
             fault_epoch=torch.zeros((), dtype=torch.int32, device=dev),
         )
 
+    # -- fault-schedule helpers ---------------------------------------------
+    def _alive_at(self, al_sh, t) -> torch.Tensor:
+        """Liveness per host at time(s) t ([H] or [H, B]); `al_sh` is the
+        [H, T] liveness table per epoch. A time before the first epoch
+        reads as dead, as the reference's one-hot select over the epochs
+        does."""
+        e = self.faults.epoch_of(t).to(torch.int64)
+        idx = torch.clamp(e, min=0)
+        if t.dim() == 1:
+            idx = idx[:, None]
+        return torch.gather(al_sh, 1, idx).reshape(t.shape) & (e >= 0)
+
+    def _quarantine(self, al_sh, active, eff_t, stats):
+        """The rows of `active` that run: a host dead at its event's
+        effective time consumes the event without running it (its slot
+        still clears), counted in `n_quarantined`. Returns (runm,
+        stats')."""
+        if al_sh is None:
+            return active, stats
+        alv = self._alive_at(al_sh, eff_t)
+        return active & alv, dataclasses.replace(
+            stats, n_quarantined=stats.n_quarantined + (active & ~alv))
+
     # -- emit routing --------------------------------------------------------
     def _route(self, emit: Emit, base_time, gids, window_end, rkeys, emask,
                seq):
         """Route an [N, K] emit batch: local tasks keep their time; network
         sends add path latency (+ jitter, rolled on lane offset K), roll
         reliability (lane offset 0) and clamp to the window barrier.
-        Returns (Events[N, K], final_mask, dropped)."""
+
+        The fault schedule, when compiled in, overlays the lookup: path
+        latency scales by the send epoch's [G, G] factor before the jitter
+        and the barrier clamp; an extra pass-probability roll (lane offset
+        2K) and a destination-liveness check at the arrival epoch drop
+        packets with their own attribution.
+        Returns (Events[N, K], final_mask, dropped, fdropped), fdropped
+        None when no overlay is compiled in."""
         n, k = emit.dst.shape
         self_gid = gids[:, None]
         is_local = emit.local
@@ -484,14 +548,37 @@ class Engine:
         dt = torch.clamp(emit.dt, min=0)
         lat, rel, jit = self.network.route(self_gid.expand(n, k), dst)
         t = base_time[:, None] + dt
+        f = self.faults
+        if self._f_link or self._f_crash:
+            hg = f.fgrp.shape[0]
+            dstc = torch.clamp(dst, 0, hg - 1).long()
+        if self._f_link:
+            gs = self._fgrp[torch.clamp(self_gid, 0, hg - 1).long()]
+            gd = self._fgrp[dstc]
+            # link state is read at SEND time; an index of -1 (a time
+            # before 0, only on masked lanes) wraps as in the reference
+            e_s = f.epoch_of(t).long()
+            lat = lat * f.lat_milli[e_s, gs, gd] // 1000
         if self._use_jitter:
             uj = srng.uniform_lanes(rkeys, k, k)
             lat = torch.clamp(lat + jitter_offset(uj, jit), min=0)
         t_remote = torch.maximum(t + lat, window_end)
         u = srng.uniform_lanes(rkeys, k, 0)
         dropped = ~is_local & (u >= rel) & emask
-        t = torch.where(is_local, t, t_remote)
         final_mask = emask & ~dropped
+        fdropped = None  # no overlay compiled in: nothing to attribute
+        if self._f_link:
+            u2 = srng.uniform_lanes(rkeys, k, 2 * k)
+            fdropped = u2 >= f.passp[e_s, gs, gd]
+        if self._f_crash:
+            # a packet to a host dead when it ARRIVES is lost
+            e_a = f.epoch_of(t_remote).long()
+            dead = ~f.alive[e_a, dstc]
+            fdropped = dead if fdropped is None else fdropped | dead
+        if fdropped is not None:
+            fdropped = fdropped & ~is_local & final_mask
+            final_mask = final_mask & ~fdropped
+        t = torch.where(is_local, t, t_remote)
         out = Events(
             time=torch.where(final_mask, t, TIME_INVALID),
             dst=dst,
@@ -500,7 +587,7 @@ class Engine:
             kind=emit.kind,
             args=emit.args,
         )
-        return out, final_mask, dropped
+        return out, final_mask, dropped, fdropped
 
     def _drain_flag(self, q: EventQueue, cpu_free, window_end
                     ) -> torch.Tensor:
@@ -538,7 +625,7 @@ class Engine:
         seq = src_seq[:, None] + within
         src_seq = src_seq + torch.sum(inc, dim=1, dtype=torch.int32)
 
-        out, final_mask, dropped = self._route(
+        out, final_mask, dropped, fdropped = self._route(
             emit, ev.time, gids, window_end, rkeys, emask, seq)
         exec_cnt = exec_cnt + active.to(torch.int32)
         stats = dataclasses.replace(
@@ -551,6 +638,10 @@ class Engine:
             n_by_kind=stats.n_by_kind + _one_hot_kind(
                 ev.kind, self.n_kinds) * active[:, None],
         )
+        if fdropped is not None:
+            stats = dataclasses.replace(
+                stats, n_fault_dropped=stats.n_fault_dropped + torch.sum(
+                    fdropped, dim=1, dtype=torch.int64))
         return hosts, src_seq, exec_cnt, stats, out, final_mask
 
     def _burst_fold(self, stage: Events) -> Events:
@@ -802,6 +893,7 @@ class Engine:
         sw = max(cfg.eff_stage_width, b + cfg.max_emit)
         gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
         cpu_cost = self.cpu_cost[gids.long()]  # [H, NK]
+        al_sh = self._alive_ht
         q, hosts, stats = st.queues, st.hosts, st.stats
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
 
@@ -815,16 +907,17 @@ class Engine:
                                            qh_ss, sw)
             while self._read(torch.any(active)):
                 ev, _mss, onehot, _cnt = sm
+                runm, stats = self._quarantine(al_sh, active, eff_t, stats)
                 stage = dataclasses.replace(stage, time=torch.where(
                     onehot & active[:, None], TIME_INVALID, stage.time))
                 ev = dataclasses.replace(
-                    ev, time=torch.where(active, eff_t, TIME_INVALID),
+                    ev, time=torch.where(runm, eff_t, TIME_INVALID),
                     dst=gids)
                 hosts, src_seq, exec_cnt, stats, out, _ = \
                     self._execute_step(hosts, src_seq, exec_cnt, stats, ev,
-                                       active, window_end, gids)
+                                       runm, window_end, gids)
                 if self._cpu_enabled:
-                    cpu_free = self._charge_cpu(cpu_cost, ev, active, eff_t,
+                    cpu_free = self._charge_cpu(cpu_cost, ev, runm, eff_t,
                                                 cpu_free)
                 stage = self._stage_append(stage, out)
                 stats = dataclasses.replace(
@@ -864,8 +957,9 @@ class Engine:
         (that probe counts as a position in `n_inner_steps`, as in the
         reference) or after `cfg.frontier` positions; then the executed
         columns clear as a prefix and every position's emits append in
-        one `_stage_append`. The reference's trace, stats-plane and
-        crash-overlay branches are not ported.
+        one `_stage_append`. A dead host's members clear without running
+        (quarantine), as on the chained drain. The reference's trace and
+        stats-plane branches are not ported.
         """
         cfg, dev = self.cfg, self.device
         h, k = cfg.n_hosts, cfg.max_emit
@@ -874,6 +968,7 @@ class Engine:
         u = max(1, min(cfg.frontier, sw))
         gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
         cpu_cost = self.cpu_cost[gids.long()]  # [H, NK]
+        al_sh = self._alive_ht
         slot = torch.arange(sw, dtype=torch.int32, device=dev)[None, :]
         q, hosts, stats = st.queues, st.hosts, st.stats
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
@@ -911,16 +1006,19 @@ class Engine:
                     j += 1
                     if not self._read(torch.any(active)):
                         break  # the terminating probe: nothing ran
-                    ev = Events(time=torch.where(active, eff_t, TIME_INVALID),
+                    # a dead host's member is consumed, not run
+                    runm, stats = self._quarantine(al_sh, active, eff_t,
+                                                   stats)
+                    ev = Events(time=torch.where(runm, eff_t, TIME_INVALID),
                                 dst=gids, src=stage.src[:, j - 1],
                                 seq=stage.seq[:, j - 1],
                                 kind=stage.kind[:, j - 1],
                                 args=stage.args[:, j - 1])
                     hosts, src_seq, exec_cnt, stats, out, fmask = \
                         self._execute_step(hosts, src_seq, exec_cnt, stats,
-                                           ev, active, window_end, gids)
+                                           ev, runm, window_end, gids)
                     if self._cpu_enabled:
-                        cpu_free = self._charge_cpu(cpu_cost, ev, active,
+                        cpu_free = self._charge_cpu(cpu_cost, ev, runm,
                                                     eff_t, cpu_free)
                     cnt = (cnt - active.to(torch.int32)
                            + torch.sum(fmask, dim=1, dtype=torch.int32))
@@ -957,7 +1055,10 @@ class Engine:
     # -- the batched drain ---------------------------------------------------
     def _sweep(self, st: EngineState, window_end, host0: int) -> EngineState:
         """One sweep: execute every host's below-barrier frontier in one
-        handler call, route the emits, clear the frontier, push."""
+        handler call, route the emits, clear the frontier, push. A host
+        dead at an event's time consumes it without running it
+        (quarantine): the prefix still clears and the event's RNG
+        position is still spent."""
         cfg, dev = self.cfg, self.device
         h, k, c = cfg.n_hosts, cfg.max_emit, cfg.capacity
         b = cfg.eff_drain_batch
@@ -965,11 +1066,15 @@ class Engine:
         gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
         gids_hb = gids[:, None].expand(h, b)
         bt = q.time[:, :b]
-        run = bt < window_end  # a prefix: rows are key-sorted
+        bvalid = bt < window_end  # a prefix: rows are key-sorted
         if self._cpu_enabled:
             # a host whose virtual CPU is busy past the barrier runs
             # nothing this window
-            run = run & (cpu_free[:, None] < window_end)
+            bvalid = bvalid & (cpu_free[:, None] < window_end)
+        run = bvalid
+        if self._f_crash:
+            run = bvalid & self._alive_at(self._alive_ht,
+                                          torch.where(bvalid, bt, 0))
         evs = Events(
             time=torch.where(run, bt, TIME_INVALID),
             dst=gids_hb,
@@ -984,7 +1089,11 @@ class Engine:
                                  cnts.reshape(-1))
         hosts2, emit = self.batch_handler(st.hosts, evs,
                                           hk.reshape(h, b, 2))
-        n_run = torch.sum(run, dim=1, dtype=torch.int32)
+        # n_exec counts the cleared prefix and the RNG positions, which
+        # quarantined events consume too; n_run counts executions
+        n_exec = torch.sum(bvalid, dim=1, dtype=torch.int32)
+        n_run = (torch.sum(run, dim=1, dtype=torch.int32) if self._f_crash
+                 else n_exec)
         hosts = _select_rows(n_run > 0, hosts2, st.hosts)
         emask = emit.mask & run[:, :, None]
 
@@ -995,7 +1104,7 @@ class Engine:
         src_seq = st.src_seq + torch.sum(inc, dim=1, dtype=torch.int32)
 
         flat = lambda a: a.reshape((h * b,) + tuple(a.shape[2:]))
-        out, final_mask, dropped = self._route(
+        out, final_mask, dropped, fdropped = self._route(
             Emit(**{f.name: flat(getattr(emit, f.name))
                     for f in dataclasses.fields(emit)}),
             evs.time.reshape(-1),
@@ -1017,6 +1126,14 @@ class Engine:
                 dim=1),
             n_sweeps=s.n_sweeps + 1,
         )
+        if fdropped is not None:
+            stats = dataclasses.replace(
+                stats, n_fault_dropped=stats.n_fault_dropped + torch.sum(
+                    fdropped.reshape(h, b * k), dim=1, dtype=torch.int64))
+        if self._f_crash:
+            stats = dataclasses.replace(
+                stats, n_quarantined=stats.n_quarantined + torch.sum(
+                    bvalid & ~run, dim=1, dtype=torch.int64))
         if self._cpu_enabled:
             # the frontier's summed per-kind costs advance cpu_free past
             # its last executed event
@@ -1028,14 +1145,14 @@ class Engine:
                                    torch.maximum(cpu_free, t_last) + total,
                                    cpu_free)
         cleared = (torch.arange(c, dtype=torch.int32, device=dev)[None, :]
-                   < n_run[:, None])
+                   < n_exec[:, None])
         q = dataclasses.replace(
             q, time=torch.where(cleared, TIME_INVALID, q.time))
         q = queue_push(q, out.flatten(), final_mask.reshape(-1), host0,
                        self._read)
         return dataclasses.replace(
             st, queues=q, hosts=hosts, src_seq=src_seq,
-            exec_cnt=st.exec_cnt + n_run, stats=stats, cpu_free=cpu_free,
+            exec_cnt=st.exec_cnt + n_exec, stats=stats, cpu_free=cpu_free,
         )
 
     def _drain_window_batched(self, st: EngineState, window_end,
@@ -1058,10 +1175,64 @@ class Engine:
             nxt = torch.maximum(nxt, st.cpu_free)
         return torch.min(nxt)
 
-    def _advance(self, st: EngineState, nxt, stop, host0: int
-                 ) -> EngineState:
-        """Open the window [nxt, min(nxt + lookahead, stop)) and drain it."""
+    def _opens(self, st: EngineState, nxt, stop):
+        """Whether a window opens at `nxt` (nxt < stop), in one counted
+        read. With a fault schedule that read fetches (nxt, the epoch
+        watermark, stop) instead of the flag, and the epoch of nxt is
+        looked up on the host: returns (opens, (epoch, watermark) or
+        None)."""
+        if not self._f_any:
+            return self._read(nxt < stop), None
+        t, mark, end = (int(v) for v in self._fetch(torch.stack(
+            [nxt, st.fault_epoch.to(torch.int64), stop])))
+        return t < end, (self.faults.epoch_at_host(t), mark)
+
+    def _apply_fault_epoch(self, st: EngineState, e: int, mark: int
+                           ) -> EngineState:
+        """Apply the fault-schedule transitions entered since epoch
+        `mark` (the watermark) up to `e`, the epoch the window opens in.
+
+        Hosts dead at any newly entered epoch lose their queues (counted
+        as quarantined: a crash voids pending work) and take their state
+        rows from `fault_reset`, which is what a restart is: fresh
+        listening sockets, zeroed app state, while `src_seq`/`exec_cnt`
+        stay monotone so (src, seq) uniqueness and the RNG streams
+        survive the reboot. Bandwidth epochs rescale NIC rates from the
+        template's."""
+        f = self.faults
+        hosts, q, stats = st.hosts, st.queues, st.stats
+        tmpl = self.fault_reset
+        if self._f_crash:
+            reset = torch.any(~f.alive[mark + 1:e + 1], dim=0)  # [H]
+            wiped = torch.sum(reset[:, None] & (q.time != TIME_INVALID),
+                              dim=1, dtype=torch.int64)
+            q = dataclasses.replace(q, time=torch.where(
+                reset[:, None], TIME_INVALID, q.time))
+            hosts = _select_rows(reset, tmpl, hosts)
+            stats = dataclasses.replace(
+                stats, n_quarantined=stats.n_quarantined + wiped)
+        if self._f_bw:
+            bw_e = f.bw_scale[e]
+            net = hosts.net
+            hosts = dataclasses.replace(hosts, net=dataclasses.replace(
+                net,
+                nic_tx=dataclasses.replace(
+                    net.nic_tx, rate=tmpl.net.nic_tx.rate * bw_e),
+                nic_rx=dataclasses.replace(
+                    net.nic_rx, rate=tmpl.net.nic_rx.rate * bw_e)))
+        return dataclasses.replace(
+            st, queues=q, hosts=hosts, stats=stats,
+            fault_epoch=torch.full((), e, dtype=torch.int32,
+                                   device=self.device))
+
+    def _advance(self, st: EngineState, nxt, stop, host0: int,
+                 epochs=None) -> EngineState:
+        """Open the window [nxt, min(nxt + lookahead, stop)) and drain it,
+        after applying the fault epoch it opens in if the watermark is
+        behind (`epochs` from `_opens`)."""
         window_end = torch.clamp(nxt + self.cfg.lookahead, max=stop)
+        if epochs is not None and epochs[0] != epochs[1]:
+            st = self._apply_fault_epoch(st, *epochs)
         st = self._drain_window(st, window_end, host0)
         return dataclasses.replace(st, now=window_end)
 
@@ -1074,15 +1245,18 @@ class Engine:
         remains, land on `stop`."""
         stop = self._stop(stop)
         nxt = self._next_time(st)
-        if self._read(nxt < stop):
-            return self._advance(st, nxt, stop, host0)
+        opens, epochs = self._opens(st, nxt, stop)
+        if opens:
+            return self._advance(st, nxt, stop, host0, epochs)
         return dataclasses.replace(st, now=stop.clone())
 
     def run(self, st: EngineState, stop, host0: int = 0) -> EngineState:
         """Run until no pending event is earlier than `stop`."""
         stop = self._stop(stop)
         nxt = self._next_time(st)
-        while self._read(nxt < stop):
-            st = self._advance(st, nxt, stop, host0)
+        opens, epochs = self._opens(st, nxt, stop)
+        while opens:
+            st = self._advance(st, nxt, stop, host0, epochs)
             nxt = self._next_time(st)
+            opens, epochs = self._opens(st, nxt, stop)
         return dataclasses.replace(st, now=stop.clone())

@@ -142,6 +142,39 @@ def tor_example(
     )
 
 
+
+def tor_churn_example(
+    n_relays_per_class: int = 10,
+    n_clients: int = 950,
+    n_servers: int = 10,
+    filesize: str = "320KiB",
+    count: int = 5,
+    stoptime: int = 60,
+    relay_cpu_ghz: float = 0.0,
+    churn_frac: float = 0.2,
+    churn_period: float = 20.0,
+    churn_downtime: float = 5.0,
+    churn_start: float = 10.0,
+    churn_end: float | None = None,
+) -> str:
+    """The Tor example under relay churn: a deterministic fraction of the
+    relays crash and restart on a cycle mid-run. Surviving circuits keep
+    their streams; streams through a crashed relay hit the RST and
+    retransmit teardown paths."""
+    base = tor_example(
+        n_relays_per_class=n_relays_per_class, n_clients=n_clients,
+        n_servers=n_servers, filesize=filesize, count=count,
+        stoptime=stoptime, relay_cpu_ghz=relay_cpu_ghz,
+    )
+    end = stoptime if churn_end is None else churn_end
+    fault = (
+        f'<fault type="churn" hosts="guard* middle* exit*" '
+        f'start="{churn_start}" end="{end}" period="{churn_period}" '
+        f'downtime="{churn_downtime}" frac="{churn_frac}"/>'
+    )
+    return base.replace("</shadow>", fault + "</shadow>")
+
+
 def bitcoin_example(
     n_nodes: int = 5000,
     blocks: int = 3,

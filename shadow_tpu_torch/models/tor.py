@@ -440,3 +440,29 @@ class TorModel:
         em_a = emit_concat(em_fwd, em_fc)
         em_b = emit_concat(em_srv, em_next)
         return hs, emit_concat(em_open, _select_rows(is_relay, em_a, em_b))
+
+
+def churn_scenario(
+    n_relays_per_class: int = 10,
+    n_clients: int = 100,
+    churn_frac: float = 0.2,
+    churn_period: float = 20.0,
+    churn_downtime: float = 5.0,
+    churn_start: float = 10.0,
+    stoptime: int = 60,
+    **kw,
+):
+    """Parsed relay-churn config: the Tor example with `churn_frac` of the
+    guard/middle/exit relays crashing and restarting on a cycle. Build
+    with `build_simulation(cfg)`; relay selection and cycle phases draw
+    from the named fault stream, so the same seed gives the same churn
+    timeline."""
+    from shadow_tpu_torch.config import parse_config
+    from shadow_tpu_torch.examples import tor_churn_example
+
+    return parse_config(tor_churn_example(
+        n_relays_per_class=n_relays_per_class, n_clients=n_clients,
+        churn_frac=churn_frac, churn_period=churn_period,
+        churn_downtime=churn_downtime, churn_start=churn_start,
+        stoptime=stoptime, **kw,
+    ))

@@ -14,10 +14,12 @@ per-host bandwidth, `cpufrequency`, `interfacebuffer`,
 `stoptime`, the three rx queue managers, both `fuse_rx` modes, both
 qdiscs, the TCP knobs (`tcp_in_order`, `tcp_wnd_words`,
 `tcp_child_slot_limit`), burst folding of TCP arrivals (`burst_rx`), the
-frontier drain (`frontier`) and lossless overflow (`overflow="spill"`,
-`spill_len`). Not ported, each raising NotImplementedError: CUBIC (F2),
-sharding (`mesh`, `locality`, `host_order`), tracing, the stats plane,
-a profiler, `overflow="grow"`, packet capture and fault schedules.
+frontier drain (`frontier`), lossless overflow (`overflow="spill"`,
+`spill_len`) and fault schedules (<fault>: crash, churn, bandwidth,
+loss, latency, partition; `Simulation.faults`). Not ported, each
+raising NotImplementedError: CUBIC (F2), sharding (`mesh`, `locality`,
+`host_order`), tracing, the stats plane, a profiler, `overflow="grow"`
+and packet capture.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from shadow_tpu_torch.core.engine import (
 )
 from shadow_tpu_torch.core.events import Events
 from shadow_tpu_torch.core.timebase import MILLISECOND, SECOND, TIME_INVALID
+from shadow_tpu_torch.faults import compile_faults
 from shadow_tpu_torch.net.dns import DNS
 from shadow_tpu_torch.net.topology import Topology, jax_index
 from shadow_tpu_torch.runtime.pressure import (
@@ -151,6 +154,7 @@ class Simulation:
     kind_names: tuple = ()  # handler-kind names
     overflow: str = "drop"
     pressure: Any = None  # PressureController in spill mode
+    faults: Any = None  # CompiledFaults when the config schedules any
     # queue overflow is loud by default: the reference's event heaps are
     # unbounded, so a counted drop would silently change the run
     strict_overflow: bool = True
@@ -469,8 +473,6 @@ def build_simulation(
     if qdisc not in ("fifo", "rr"):
         raise ValueError(f"unknown qdisc {qdisc!r}")
     dev = resolve_device(device)
-    if cfg.faults:
-        raise NotImplementedError("fault schedules are not ported")
     if registry is None:
         registry = default_registry()
     topo = Topology.from_graphml(cfg.topology_source())
@@ -569,6 +571,11 @@ def build_simulation(
     tcp = None
     if model.needs_tcp:
         tcp_kw = dict(tx_burst=1, inline_budget=1) if qdisc == "rr" else {}
+        # a restarted host has lost all connection state, so survivors'
+        # segments to it must draw an RST rather than blackhole until
+        # the RTO gives up
+        if any(f.type in ("crash", "churn") for f in cfg.faults):
+            tcp_kw["rst_on_unmatched"] = True
         tcp = tcpm.TCP(auto_close=False, cc=tcp_cc, in_order=tcp_in_order,
                        child_slot_limit=tcp_child_slot_limit, **tcp_kw)
     # fuse_rx folds each packet's ARRIVE -> RX event pair into one
@@ -676,9 +683,21 @@ def build_simulation(
                 cycles * 1_000_000 // np.maximum(cpu_khz[:, None], 1), 0)
             base = cost_arg if cost_arg.ndim == 2 else cpu_cost[:, None]
             cost_arg = base + extra_ns
+    hosts_state = SimHost(net=net, app=app_state)
+    faults = None
+    if cfg.faults:
+        name_by_gid = [""] * n_hosts
+        for h in hosts:
+            name_by_gid[h.gid] = h.name
+        faults = compile_faults(cfg.faults, name_by_gid, n_hosts, seed,
+                                device=dev)
     eng = Engine(
         ecfg, handlers, network,
         cpu_cost=torch.from_numpy(cost_arg) if cost_arg.any() else None,
+        faults=faults,
+        # the initial hosts state doubles as the restart template: a
+        # crashed-and-restarted host comes back with boot-fresh state
+        fault_reset=hosts_state if faults is not None else None,
         frontier_kinds=frontier_kinds, device=dev,
     )
 
@@ -702,7 +721,7 @@ def build_simulation(
     on = lambda a: torch.from_numpy(a).to(dev)
     init = Events(time=on(times), dst=on(dsts), src=on(dsts), seq=on(seqs),
                   kind=on(kinds), args=on(argw))
-    st0 = eng.init_state(SimHost(net=net, app=app_state), init)
+    st0 = eng.init_state(hosts_state, init)
     return Simulation(
         engine=eng, state0=st0, stop_ns=int(cfg.stoptime * SECOND),
         dns=dns, topo=topo, names=[h.name for h in hosts], app=model,
@@ -710,6 +729,7 @@ def build_simulation(
         pressure=(PressureController(n_hosts, capacity, lookahead,
                                      n_args=N_PKT_ARGS)
                   if overflow == "spill" else None),
+        faults=faults,
     )
 
 

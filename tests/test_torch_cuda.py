@@ -435,3 +435,68 @@ def test_kernel_matches_plain_on_every_grid(h, hc, w, nw, regime, warps):
     want = merge.merge_body(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# name: (config text, build_simulation keywords): phase 16's schedule at a
+# small width on both TGen drains, and Tor under relay churn
+FAULT_CONFIGS = {
+    "tgen_chained": (chip_smoke.tgen_faults_config(32), dict(
+        seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
+        capacity=chip_smoke.TGEN_CAPACITY)),
+    "tgen_frontier": (chip_smoke.tgen_faults_config(32), dict(
+        seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
+        capacity=chip_smoke.TGEN_CAPACITY,
+        frontier=chip_smoke.TGEN_FRONTIER)),
+    "tor_churn": (examples.tor_churn_example(**tcp_harness.TOR_CHURN),
+                  tcp_harness.TOR_CHURN_KW),
+}
+
+
+@pytest.mark.parametrize("name", list(FAULT_CONFIGS))
+def test_faults_on_cuda_match_cpu(name):
+    """A fault schedule on the card (quarantine in the drain, the link
+    overlay and the arrival-liveness check in the routing, the epoch
+    wipes and NIC rescales between windows) equals the CPU run, which
+    tests/test_torch_faults_tcp.py and tests/test_torch_faults_churn.py
+    hold against the JAX reference."""
+    _need_card()
+    cpu = _config_on_both(*FAULT_CONFIGS[name])
+    assert cpu["stats.n_fault_dropped"].sum() > 0
+    assert cpu["stats.n_quarantined"].sum() > 0
+    assert cpu["hosts.app.streams_done"].sum() > 0
+    assert int(cpu["fault_epoch"]) > 0
+
+
+def test_phold_crash_on_cuda_matches_cpu():
+    """The batched drain's quarantine (and the epoch wipe) on the card:
+    PHOLD at 32 hosts with tests/test_torch_faults.py's crash schedule
+    equals the CPU run."""
+    _need_card()
+    from shadow_tpu_torch.core import engine
+    from shadow_tpu_torch.faults import FaultSpec, compile_faults
+
+    specs = [FaultSpec(type="crash", hosts="h1 h2", start=0.15, end=0.48),
+             FaultSpec(type="churn", hosts="h1*", start=0.06, end=0.84,
+                       period=0.24, downtime=0.09, frac=0.5),
+             FaultSpec(type="loss", src="h2*", dst="*", loss=0.5,
+                       start=0.1, end=0.6)]
+    states = {}
+    for dev in ("cuda", "cpu"):
+        e0, init = phold.build(32, batched=True, msgs_per_host=4, seed=3,
+                               device=dev)
+        st = init()
+        f = compile_faults(specs, [f"h{i}" for i in range(32)], 32, 3,
+                           device=dev)
+        eng = engine.Engine(e0.cfg, e0.handlers, e0.network,
+                            batch_handler=e0.batch_handler, faults=f,
+                            fault_reset=st.hosts, device=dev)
+        before = merge.launches
+        states[dev] = convert.engine_state_to_numpy(
+            eng.run(st, chip_smoke.SECOND))
+        if dev == "cuda":
+            assert merge.launches - before >= int(
+                states[dev]["stats.n_sweeps"]) > 0
+    for key, a in states["cpu"].items():
+        np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
+    assert states["cpu"]["stats.n_quarantined"].sum() > 0
+    assert states["cpu"]["stats.n_fault_dropped"].sum() > 0

@@ -36,6 +36,7 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.models.phold_net\n"
         "import shadow_tpu_torch.models.tor, shadow_tpu_torch.models.bitcoin\n"
         "import shadow_tpu_torch.runtime.pressure\n"
+        "import shadow_tpu_torch.faults\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -19,6 +19,7 @@ import chip_smoke
 from shadow_tpu.core import engine as jengine
 from shadow_tpu.models import phold as jphold
 from shadow_tpu_torch import convert
+from shadow_tpu_torch import faults as tfaults
 from shadow_tpu_torch.core import engine as tengine
 from shadow_tpu_torch.core import events as tevents
 from shadow_tpu_torch.models import phold as tphold
@@ -167,8 +168,13 @@ def test_unported_knobs_raise():
             tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, **knob)
     cfg = tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1)
     net = tengine.ConstantNetwork(1)
-    with pytest.raises(NotImplementedError):
-        tengine.Engine(cfg, [None], net, faults=object(), device="cpu")
+    # fault schedules are ported (tests/test_torch_faults.py); a crash
+    # schedule without its restart template is refused
+    crash = tfaults.compile_faults([tfaults.FaultSpec(type="crash",
+                                                      start=1.0)],
+                                   ["a", "b", "c", "d"], 4, 0, device="cpu")
+    with pytest.raises(ValueError, match="fault_reset"):
+        tengine.Engine(cfg, [None], net, faults=crash, device="cpu")
     # the chained drain, the CPU model, burst folding, the spill ring and
     # the frontier drain are ported (tests/test_torch_pressure.py and
     # tests/test_torch_frontier.py)

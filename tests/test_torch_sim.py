@@ -88,10 +88,20 @@ def test_config_helpers_match_reference():
 
 
 def test_faults_are_not_ported():
+    """Fault schedules are ported now (tests/test_torch_faults*.py): a
+    malformed <fault> element is refused with the reference's error, and
+    a well-formed one parses as the reference's does."""
     text = tgen_config().replace(
         "</shadow>", '<fault type="crash" host="server" time="5"/></shadow>')
-    with pytest.raises(NotImplementedError):
-        tconfig.parse_config(text)
+    for cfg_mod in (jconfig, tconfig):
+        with pytest.raises(ValueError, match="unknown fault attribute"):
+            cfg_mod.parse_config(text)
+    text = tgen_config().replace(
+        "</shadow>",
+        '<fault type="crash" hosts="server" start="5"/></shadow>')
+    got, want = tconfig.parse_config(text), jconfig.parse_config(text)
+    assert [dataclasses.asdict(f) for f in got.faults] == \
+        [dataclasses.asdict(f) for f in want.faults]
 
 
 def test_dns_assigns_the_same_addresses():

@@ -249,3 +249,13 @@ def btc_config(n_nodes=8, blocks=3, blocksize="256KiB", interval=30):
         + "".join(hosts)
         + "</shadow>"
     )
+
+
+# Tor under relay churn at a small tier (4 relays per class, 20 clients,
+# 4 servers) with bench.py's tor_churn_worker knobs (TOR_CHURN_KW), the
+# churn moved to 3.5 s on a 3 s cycle so that a relay crashes and
+# restarts inside a 6 s run: keywords of `models.tor.churn_scenario`
+TOR_CHURN = dict(n_relays_per_class=4, n_clients=20, n_servers=4,
+                 filesize="64KiB", count=2, churn_frac=0.3, churn_period=3.0,
+                 churn_downtime=1.0, churn_start=3.5, stoptime=6)
+TOR_CHURN_KW = dict(seed=1, n_sockets=32, capacity=768)
