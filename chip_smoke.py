@@ -30,8 +30,9 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    less the scheduler counters, and to at least one merge launch per
    sweep;
 8. PHOLD 4096 on the chained drain with the CPU model, and over a
-   jittered, lossy four-PoI graph (GraphNetwork), each for 2 sim-s and
-   pinned to its JAX/CPU event count and state digest;
+   jittered, lossy four-PoI graph (GraphNetwork), each for
+   VARIANT_STOP_NS = 1 sim-s and pinned to its JAX/CPU event count and
+   state digest;
 9. PHOLD over the UDP stack (socket, tx NIC, route, CoDel, rx NIC,
    demux), built from a Shadow config by `sim.build_simulation` with
    its defaults: `phold_example(4096, 8)` run to NET_STOP_S = 3 sim-s
@@ -52,8 +53,8 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    queue width (hc 128, the hot region, or the full capacity 768); the
    merge kernel held to its plain version on the run's captured inputs
    (at hc = 768 too where the run reaches it) and timed on the last
-   captured input of each width; a profile of the first sim-second
-   of client traffic;
+   captured input of each width (no profile: phase 15 profiles the
+   same traffic, and the script keeps to its time limit);
 11. Tor (relay crypto on a virtual CPU, circuits over TCP), built from
    `tor_example` at bench.py's 1,020-host tier by `sim.build_simulation`
    with bench.py's Tor knobs and strict overflow, run once to TOR_STOP_S
@@ -92,15 +93,35 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    loss spike; latency inflation; throttled server NICs), run once to
    10 sim-s: held the same way as 11, and to its fault drops,
    quarantined events and retransmits, each > 0; its wall time, host
-   syncs and inner steps printed beside phase 10's run of this call.
+   syncs and inner steps printed beside phase 10's run of this call;
+17. CUBIC: (a) the cube-root kernel (`csrc/cbrt.cu`, the replay of
+   glibc's powf(|x|, 1/3f) that XLA's CPU cbrt calls) held to its plain
+   version on every f32 in [0, 2560], CUBIC's reachable domain, chunk by
+   chunk, with a sha256 over its outputs equal to the glibc pin
+   (PIN_CBRT_SHA256); (b) the same on edge inputs outside the domain
+   (negatives, subnormals, zeros, infinities, nans); its time at TGen's
+   width (4096 rows) and over the domain against its byte bound; (c)
+   phase 16's config with tcp_cc="cubic", held the same way as 16 to
+   PIN_TGEN_CUBIC, to a congestion-avoidance epoch on some rows, and to
+   a cube-root launch per inner step; its wall time, host syncs and
+   inner steps printed beside phase 16's run of this call;
+18. traces and histograms (obs.trace, obs.stats) on each drain, each
+   held to a JAX/CPU pin of trace_pin (records per op, records lost, a
+   sha256 over the drained records, one over the stats plane, the state
+   digest): (a) phase 8's jittered, lossy graph on the chained drain for
+   2 sim-s, drained at each second (EXEC, SEND, DROP records); (b) phase
+   14's spill run on the batched drain with the controller's SPILL and
+   REFILL rows; (c) phase 15's frontier run to 5 sim-s (the deferred
+   per-round append, the run-length family); each traced run's ms per
+   inner step printed beside the untraced run of phases 8 and 15.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
 package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
-without the result lines; `--only 11,12` runs phases 1-3 and then only
-the listed phases (9-16), without the result lines.
+without the result lines; `--only 17,18` runs phases 1-3 and then only
+the listed phases (9-18), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
@@ -110,8 +131,9 @@ the pins against the JAX leaves (`tests/test_torch_tgen.py -m slow -k
 for phases 11 and 12, `tests/test_torch_multimodel.py`,
 `tests/test_torch_pressure.py` and `tests/test_torch_frontier.py` with
 `-m slow` for phases 13, 14 and 15, `tests/test_torch_faults_tcp.py -m
-slow` for phase 16). The merge-input generator below is
-shared with tests/test_torch_merge.py.
+slow` for phase 16, `tests/test_torch_cubic.py -m slow` for phase 17,
+`tests/test_torch_trace.py -m slow` for phase 18). The merge-input
+generator below is shared with tests/test_torch_merge.py.
 """
 
 from __future__ import annotations
@@ -154,14 +176,15 @@ PIN_CHAINED_4096 = (
 SCHEDULER = ("stats.n_sweeps", "stats.n_inner_steps", "stats.n_xchg_rounds")
 # PHOLD 4096 on the chained drain with the CPU model, and over a jittered,
 # lossy graph, for VARIANT_STOP_NS: (events, digest of every leaf) each,
-# from JAX/CPU
-VARIANT_STOP_NS = 2 * SECOND
+# from JAX/CPU (1 sim-s keeps the script in its time limit; phase 18
+# runs the jittered graph to 2 s)
+VARIANT_STOP_NS = 1 * SECOND
 PIN_CPU_MODEL = (
-    1_103_038,
-    "cf8e1cd4936ccafab6d279497d7146d02118f069265803a5f4c19d79141365af")
+    557_181,
+    "bf33e70016cb023d9f295e16c8464204bd3f6ed41e78bfe532365176b991a69f")
 PIN_JITTER = (
-    591_783,
-    "6785189dc073ced7841100b84097499d3d4bc9d4397b4491d47b223284c0541d")
+    331_354,
+    "fbcef5e03103b6c60cc89656f6b8dd845ed4c7063e451261b81ef8eb930144e2")
 # four PoIs at the bench's latency scale: (vid, packet loss) per vertex,
 # (u, v, latency ms, packet loss, jitter ms) per edge; not complete, so
 # paths go through Dijkstra; hosts attach round-robin
@@ -178,14 +201,15 @@ def cpu_cost_table(n_hosts: int) -> np.ndarray:
 
 
 def phold_variant(phold, engine, topology, which: str, dev,
-                  n_hosts: int = 4096):
+                  n_hosts: int = 4096, **build_kw):
     """(engine, init) of PHOLD at the bench configuration on the chained
     drain, with the CPU model ("cpu") or over the JITTER_* graph
     ("jitter"). `phold`, `engine` and `topology` are a package's
     models.phold, core.engine and net.topology modules; `dev` is None
-    for a package without devices, else the device."""
+    for a package without devices, else the device; `build_kw` go to
+    phold.build (trace, stats)."""
     on = {} if dev is None else {"device": dev}
-    eng, init = phold.build(n_hosts, **on, **BENCH)
+    eng, init = phold.build(n_hosts, **on, **BENCH, **build_kw)
     if which == "cpu":
         return engine.Engine(eng.cfg, eng.handlers, eng.network,
                              cpu_cost=cpu_cost_table(n_hosts), **on), init
@@ -289,7 +313,7 @@ PIN_TGEN = (
 PIN_TGEN_BENCH = (
     25_462, 121, 121, 403, 666,
     "6e69cf8dc3908aa4d8db168709ae80f2747e51b9de9216686481cfd9121b66dd")
-# clients start at 3-7 s: the profile covers their first sim-second
+# clients start at 3-7 s: phase 15's profile covers their first sim-second
 TGEN_PROFILE_STOP_S = 4
 # the merge call whose input phase 10 times: mid-run, in steady traffic
 TGEN_TIMED_CALL = 61
@@ -420,6 +444,84 @@ TGEN_FAULTS = (
 PIN_TGEN_FAULTS = (
     188_361, 132, 132, 646, 0, 4_619, 2_392, 246, 1_290,
     "a41c65cbdebd12df08a54244e47a1384798bf5a402a2e6ba2b4e53fe90fbe6b0")
+
+
+# CUBIC (phase 17). (a) the cube root over every f32 in [0, 2560], CUBIC's
+# reachable domain: a sha256 over the u32 outputs in input order, from
+# glibc 2.36's powf under FTZ/DAZ (x86-64, FMA), as XLA's CPU cbrt runs
+# it. (c) phase 16's config with tcp_cc="cubic": the pin of
+# tgen_faults_pin from JAX/CPU.
+CBRT_DOMAIN_END = 0x45200000
+PIN_CBRT_SHA256 = (
+    "1a3c76c8cdf54d137017b0bf813b87ec2d9a7db0b1eba9a3c20374cdc9ee4b18")
+PIN_TGEN_CUBIC = (
+    187_043, 132, 132, 657, 0, 4_628, 2_451, 244, 1_285,
+    "b46e70b134b110a5fe7811b70d94e02a57eb75ae3547d1643d2bf550b60b2e0d")
+# (a) runs the domain in chunks of CBRT_CHUNK inputs; (b) the edge inputs
+# outside it, each against the plain version bit for bit: every subnormal
+# kind, both zeros, both infinities, quiet and signalling nans with
+# payloads, the largest finite f32, and negatives of domain values
+CBRT_CHUNK = 1 << 26
+CBRT_EDGES = (1, 2, 0x3FFFFF, 0x400000, 0x7FFFFF, 0x800000, 0x7F7FFFFF,
+              0x7F800000, 0x7F800001, 0x7FA00000, 0x7FC00000, 0x7FC00001,
+              0x7FFFFFFF, 0x3F800000, CBRT_DOMAIN_END)
+# FP64 outside the tensor cores, H100 SXM (NVIDIA data sheet): the rate
+# the cube root's double arithmetic runs at
+FP64_OPS_PER_S = 34e12
+# f64 operations per cube root: 8 FMAs (2 each), 5 multiplies, 4 adds
+CBRT_OPS = 25
+
+# Traces and histograms on each drain (phase 18), each with trace and
+# stats on and held to a pin of trace_pin from JAX/CPU:
+# (a) the chained drain: phase 8's jittered, lossy graph (PHOLD 4096),
+#     drained into a TraceDrain at each TRACE_SEGMENTS_S stop;
+# (b) the batched drain with spill: phase 14's spill run through
+#     run_with_spill, with the controller's OP_SPILL/OP_REFILL rows
+#     attached, drained at its stop;
+# (c) the frontier drain: phase 15's config to TRACE_FRONTIER_STOP_S,
+#     drained at its stop.
+TRACE_SEGMENTS_S = (1, 2)
+TRACE_CHAINED_CAP = 256
+TRACE_SPILL_CAP = 512
+TRACE_FRONTIER_CAP = 256
+TRACE_FRONTIER_STOP_S = 5
+PIN_TRACE_CHAINED = (
+    591_783, 591_783, 581_047, 10_736, 0, 0, 0, 0,
+    "f0a1a03806b5c955d90c0a8df2f61f2a451d83c3b0264216bd687ea7e9099df4",
+    "bfe59ca0c828f8418ba15e94075513e2c0ad587a63d20c0812af1cd3e26083ef",
+    "f949f8853dcb0bf7de6fea6f54832a4168e0402d27f19c0ecb4fd3c8109d9378")
+PIN_TRACE_SPILL = (
+    1_104_201, 787_175, 786_337, 0, 0, 1_915, 1_915, 634_890,
+    "f71801cfe747e51f134ab3f1cb8326dc53868faf979a8cbf48dedfe95fb02a61",
+    "ae439ab2354bd5bd57d6f2c6ee9224e62ab1902363324f072ecba6f7b0e67059",
+    "4e70aa704dad4c8fe8e70fe0e570d7523f2b15b4acfeaf8a139b95c86bc3b23a")
+PIN_TRACE_FRONTIER = (
+    45_508, 45_508, 85_280, 0, 0, 0, 0, 0,
+    "bd581b77fdbc0a7c5d590c6052592755cc1beec2d1984881c48017ed085550aa",
+    "fc95c7309d245e27e302d71ad196139adb5808097c139028cfce07d75c34d604",
+    "fb863dca7c7966c4e39868c761d0c09fcb49cd23d6a2f0fbcb065096cc2caacc")
+
+
+def trace_pin(leaves, drain) -> tuple:
+    """A phase-18 run's pin from its numpy leaves and its TraceDrain
+    (either package's): events, records per op (exec, send, drop,
+    fault_drop, spill, refill), records lost, a sha256 over the drained
+    records, one over the stats plane's leaves, and the state digest
+    (ring and plane included)."""
+    from shadow_tpu_torch.convert import leaves_digest
+
+    recs = drain.records()
+    ops = np.bincount(recs["op"], minlength=6)
+    h = hashlib.sha256()
+    for key in sorted(recs):
+        a = np.ascontiguousarray(recs[key])
+        h.update(f"{key}|{a.dtype.str}|{a.shape}|".encode())
+        h.update(a.tobytes())
+    plane = {k: v for k, v in leaves.items() if k.startswith("splane.")}
+    return ((int(leaves["stats.n_executed"].sum()),)
+            + tuple(int(n) for n in ops[:6])
+            + (int(drain.lost), h.hexdigest(), leaves_digest(plane),
+               leaves_digest(leaves)))
 
 
 def tgen_faults_config(n_pairs: int) -> str:
@@ -792,15 +894,22 @@ def phase_device():
     return line
 
 
-def phase_build(merge):
-    """Build the port's one kernel library, the merge, with nvcc."""
+def phase_build(*kernels):
+    """Build the port's kernel libraries (the merge, the cube root), one
+    nvcc per source, all started together; returns the seconds until
+    the last one was built."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    path, log = merge.build()
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        built = list(pool.map(lambda k: k.build(), kernels))
     secs = time.perf_counter() - t0
-    print(f"built {path.name} in {secs:.1f}s")
-    for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln or "smem" in ln:
-            print(f"  ptxas: {ln.strip()}")
+    for path, log in built:
+        print(f"built {path.name}")
+        for ln in log.splitlines():
+            if "registers" in ln or "spill" in ln or "smem" in ln:
+                print(f"  ptxas: {ln.strip()}")
+    print(f"  {len(kernels)} libraries in {secs:.1f}s")
     return secs
 
 
@@ -1343,14 +1452,8 @@ def phase_tgen(sim_mod, config_mod, merge, events, convert, dev,
 
     timing = check_and_time_captured(merge, dev, rec, smi_line, "TGen",
                                      TGEN_CAPACITY)
-    t0 = time.perf_counter()
-    prof = profile_run(sim.engine.run, sim.state0,
-                       TGEN_PROFILE_STOP_S * SECOND)
-    print(f"  profile of TGen 4096, first sim-second of client traffic "
-          f"({time.perf_counter() - t0:.1f} s with the trace's reading): "
-          f"{json.dumps(prof)}")
     print(json.dumps({"tgen_4096": run, "card": smi_line}))
-    return {"runs": [run], "timing": timing, "profile": prof,
+    return {"runs": [run], "timing": timing,
             "by_hc": run["launches_by_hc"], "build_s": build_s}
 
 
@@ -1505,14 +1608,19 @@ def app_phases() -> dict:
         "tgen_faults": (tgen_faults_config(TGEN_PAIRS), tgen_kw, TGEN_STOP_S,
                         TGEN_TIMED_CALL, None,
                         lambda lv, n: tgen_faults_pin(lv), PIN_TGEN_FAULTS),
+        "tgen_cubic": (tgen_faults_config(TGEN_PAIRS),
+                       dict(tgen_kw, tcp_cc="cubic"), TGEN_STOP_S,
+                       TGEN_TIMED_CALL, None,
+                       lambda lv, n: tgen_faults_pin(lv), PIN_TGEN_CUBIC),
     }
 
 
 def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
-              smi_line) -> dict:
+              smi_line, cbrt=None) -> dict:
     """A config-driven run at its bench shape through build_simulation
     (`app_phases`: Tor, phase 11; Bitcoin, 12; mixed TGen + PHOLD, 13;
-    TGen on the frontier drain, 15; TGen under faults, 16), run once to
+    TGen on the frontier drain, 15; TGen under faults, 16, and with
+    CUBIC, 17(c), whose cube-root launches `cbrt` counts), run once to
     its stop in one call:
     held to its JAX/CPU pin and to a merge launch per sweep, merge
     launches counted by queue width; the kernel held to its plain
@@ -1532,12 +1640,15 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
     syncs0 = sim.engine.host_syncs
     torch.cuda.synchronize()
     merge.launches = 0
+    if cbrt is not None:
+        cbrt.launches = 0
     t0 = time.perf_counter()
     with rec:
         st = sim.run(int(stop_s * SECOND))
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = merge.launches
+    cbrt_launches = cbrt.launches if cbrt is not None else None
     leaves = convert.engine_state_to_numpy(st)
     got = pin_fn(leaves, len(sim.names))
     names = {"tor": ("streams_done", "relayed_bytes"),
@@ -1546,7 +1657,9 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
                        "hosts_tgen", "hosts_phold"),
              "tgen_frontier": ("streams_done",),
              "tgen_faults": ("streams_done", "fault_dropped", "quarantined",
-                             "retransmits")}[model]
+                             "retransmits"),
+             "tgen_cubic": ("streams_done", "fault_dropped", "quarantined",
+                            "retransmits")}[model]
     run = {"events": got[0], "windows": got[1], "sweeps": got[2],
            "inner_steps": got[3], "queue_drops": got[4],
            **dict(zip(names, got[5:-1])),
@@ -1556,6 +1669,8 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
            "launches": launches,
            "launches_by_hc": dict(sorted(rec.by_hc.items())),
            "retransmits": int(leaves["hosts.net.tcb.n_retx"].sum())}
+    if cbrt_launches is not None:
+        run["cbrt_launches"] = cbrt_launches
     print(f"  {model} run: {json.dumps(run)} ({smi_line})")
     check(sum(rec.by_hc.values()) == launches,
           f"{model}: {sum(rec.by_hc.values())} merge calls by hc != "
@@ -1571,13 +1686,26 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
               f"tgen_frontier: digest less n_inner_steps {less_inner} != "
               f"phase 10's {TGEN_LESS_INNER}")
         run["state_less_inner_steps_equals_chained"] = True
-    if model == "tgen_faults":
+    if model in ("tgen_faults", "tgen_cubic"):
         # every overlay fired: drops to faulted links and dead hosts,
         # events voided by crashes, and TCP's loss paths at width
         check(min(run["fault_dropped"], run["quarantined"],
                   run["retransmits"]) > 0,
-              f"tgen_faults: an overlay did not fire: {run}")
+              f"{model}: an overlay did not fire: {run}")
         run["fault_epochs"] = sim.faults.n_epochs
+    if model == "tgen_cubic":
+        # CUBIC ran congestion avoidance on loss epochs (W_max above
+        # cwnd), and every inner step's ACK pass took the cube root
+        wmax, cwnd = (leaves[f"hosts.net.tcb.{f}"] for f in ("cc_wmax",
+                                                             "cwnd"))
+        run["rows_wmax_above_cwnd"] = int((wmax > cwnd).sum())
+        run["rows_in_epoch"] = int(
+            (leaves["hosts.net.tcb.cc_epoch"] != 0).sum())
+        check(run["rows_wmax_above_cwnd"] > 0 and run["rows_in_epoch"] > 0,
+              f"tgen_cubic: no congestion-avoidance epoch: {run}")
+        check(cbrt_launches >= got[3] > 0,
+              f"tgen_cubic: cbrt launches {cbrt_launches} < inner steps "
+              f"{got[3]}")
     del st, leaves
     timing = check_and_time_captured(merge, dev, rec, smi_line, model,
                                      kw["capacity"])
@@ -1594,6 +1722,180 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
             "by_hc": run["launches_by_hc"], "build_s": build_s}
 
 
+def cbrt_bound_ms(n: int) -> tuple[float, str]:
+    """(least time on the card in ms, what bounds it) for n cube roots:
+    4 bytes read and 4 written each, against CBRT_OPS f64 operations."""
+    bytes_ms = 8 * n / HBM_BYTES_PER_S * 1e3
+    ops_ms = CBRT_OPS * n / FP64_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def time_cbrt(cbrt, x, reps: int) -> dict:
+    """The cube root kernel's device time per launch on x, beside its
+    bound, the plain version's time and torch.pow's (a yardstick that
+    computes another cube root, rounded otherwise)."""
+    import torch
+
+    bound_ms, by = cbrt_bound_ms(x.numel())
+    k_ms = device_ms(lambda: cbrt.cbrt(x), reps, per_call=1)
+    plain_ms = device_ms(lambda: cbrt.cbrt_plain(x), max(2, reps // 20))
+    pow_ms = device_ms(lambda: torch.pow(x.abs(), 1.0 / 3.0), reps)
+    return {"n": x.numel(), "ms": k_ms, "us": k_ms * 1e3,
+            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3,
+            "bound_by": by, "share": bound_ms / k_ms,
+            "plain_ms": plain_ms, "pow_yardstick_ms": pow_ms}
+
+
+def phase_cbrt(cbrt, dev, smi_line) -> dict:
+    """Phase 17(a)-(b): the cube-root kernel equals its plain version on
+    every f32 of [0, 2560], chunk by chunk, and the sha256 over its
+    outputs equals the glibc pin; the same on the edge inputs outside
+    the domain; then its time at TGen's width and over the domain."""
+    import torch
+
+    i32 = torch.int32
+    h = hashlib.sha256()
+    t0 = time.perf_counter()
+    n_done = 0
+    for start in range(0, CBRT_DOMAIN_END + 1, CBRT_CHUNK):
+        n = min(CBRT_CHUNK, CBRT_DOMAIN_END + 1 - start)
+        x = torch.arange(start, start + n, dtype=i32, device=dev).view(
+            torch.float32)
+        got = cbrt.cbrt(x)
+        want = cbrt.cbrt_plain(x)
+        check(torch.equal(got.view(i32), want.view(i32)),
+              f"cbrt kernel != plain on [{start:#x}, {start + n:#x}): "
+              f"{int((got.view(i32) != want.view(i32)).sum())} differ")
+        h.update(got.cpu().numpy().tobytes())
+        n_done += n
+    sha = h.hexdigest()
+    check(n_done == CBRT_DOMAIN_END + 1, f"cbrt covered {n_done} inputs")
+    check(sha == PIN_CBRT_SHA256,
+          f"cbrt sha256 over [0, 2560] {sha} != glibc's {PIN_CBRT_SHA256}")
+    print(f"  cbrt == plain on all {n_done:,} f32 in [0, 2560]; sha256 "
+          f"{sha[:16]} == glibc 2.36 powf under DAZ "
+          f"({time.perf_counter() - t0:.1f} s)")
+    pos = torch.tensor(CBRT_EDGES, dtype=torch.int64)
+    rng = np.random.default_rng(17)
+    pos = torch.cat([pos, torch.from_numpy(
+        rng.integers(0, 0x7F800000, 4096))])
+    bits = torch.cat([pos, pos | 0x80000000])
+    bits = (bits - ((bits >> 31) << 32)).to(i32).to(dev)
+    x = bits.view(torch.float32)
+    got, want = cbrt.cbrt(x).view(i32), cbrt.cbrt_plain(x).view(i32)
+    check(torch.equal(got, want),
+          f"cbrt kernel != plain on {int((got != want).sum())} edge inputs")
+    print(f"  cbrt == plain on {x.numel()} edge inputs (negatives, "
+          "subnormals, zeros, infinities, nans)")
+    width = torch.arange(0x3F800000, 0x3F800000 + 4096, dtype=i32,
+                         device=dev).view(torch.float32)
+    check(torch.equal(cbrt.cbrt(width).view(i32),
+                      cbrt.cbrt_plain(width).view(i32)),
+          "cbrt kernel != plain at TGen's width (4096 rows)")
+    chunk = torch.arange(0, CBRT_CHUNK, dtype=i32, device=dev).view(
+        torch.float32)
+    timing = {"tgen_width": time_cbrt(cbrt, width, 400),
+              "domain_chunk": time_cbrt(cbrt, chunk, 20)}
+    per_input = timing["domain_chunk"]["ms"] / CBRT_CHUNK
+    timing["domain_ms"] = per_input * (CBRT_DOMAIN_END + 1)
+    timing["domain_bound_ms"] = cbrt_bound_ms(CBRT_DOMAIN_END + 1)[0]
+    print(json.dumps({"cbrt_timing": timing, "card": smi_line}))
+    return timing
+
+
+def phase_trace(phold, engine, topology, pressure, sim_mod, config_mod,
+                trace_mod, merge, convert, dev, smi_line) -> dict:
+    """Phase 18: a traced, stats-on run on each drain, held to its pin
+    (trace_pin): (a) the chained drain over phase 8's jittered, lossy
+    graph, drained at each TRACE_SEGMENTS_S stop; (b) the batched drain
+    with phase 14's spill ring and the controller's spill/refill rows;
+    (c) the frontier drain on phase 15's config to TRACE_FRONTIER_STOP_S.
+    Each also holds a merge launch per sweep."""
+    import torch
+
+    out = {}
+
+    def finish(label, st, drain, wall, pin, syncs, launches):
+        leaves = convert.engine_state_to_numpy(st)
+        got = trace_pin(leaves, drain)
+        run = {"events": got[0],
+               "records_by_op": dict(zip(trace_mod.OP_NAMES.values(),
+                                         got[1:7])),
+               "lost": got[7], "records": drain.n_records,
+               "truncated": drain.truncated,
+               "inner_steps": int(leaves["stats.n_inner_steps"]),
+               "sweeps": int(leaves["stats.n_sweeps"]),
+               "wall_s": wall,
+               "ms_per_inner_step": (1e3 * wall / int(
+                   leaves["stats.n_inner_steps"])
+                   if int(leaves["stats.n_inner_steps"]) else None),
+               "host_syncs": syncs, "launches": launches}
+        print(f"  traced {label}: {json.dumps(run)} ({smi_line})")
+        check(got == pin, f"traced {label}: pin {got} != JAX/CPU {pin}")
+        check(launches >= run["sweeps"] > 0,
+              f"traced {label}: merge launches {launches} < sweeps")
+        out[label] = run
+
+    # (a) the chained drain, drained per segment
+    eng, init = phold_variant(phold, engine, topology, "jitter", dev,
+                              trace=TRACE_CHAINED_CAP, stats=1)
+    drain = trace_mod.TraceDrain(TRACE_CHAINED_CAP)
+    st = init()
+    torch.cuda.synchronize()
+    merge.launches = 0
+    t0 = time.perf_counter()
+    for stop_s in TRACE_SEGMENTS_S:
+        st = drain.drain_state(eng.run(st, stop_s * SECOND))
+    torch.cuda.synchronize()
+    finish("chained", st, drain, time.perf_counter() - t0,
+           PIN_TRACE_CHAINED, eng.host_syncs, merge.launches)
+    check(out["chained"]["records_by_op"]["drop"] > 0,
+          "traced chained: the lossy graph dropped nothing")
+
+    # (b) the batched drain with the spill ring
+    eng, init = phold.build(4096, device=dev, batched=True, spill=SKEW_SPILL,
+                            trace=TRACE_SPILL_CAP, stats=1,
+                            **dict(SKEW, capacity=SKEW_CAPACITY))
+    ctrl = pressure.PressureController(4096, SKEW_CAPACITY,
+                                       eng.cfg.lookahead,
+                                       n_args=phold.N_PHOLD_ARGS)
+    drain = trace_mod.TraceDrain(TRACE_SPILL_CAP)
+    ctrl.attach_trace(drain, len_arg=eng.cfg.trace_len_arg)
+    st = init()
+    torch.cuda.synchronize()
+    merge.launches = 0
+    t0 = time.perf_counter()
+    st = drain.drain_state(pressure.run_with_spill(eng, st, SKEW_STOP_NS,
+                                                   ctrl))
+    torch.cuda.synchronize()
+    finish("spill", st, drain, time.perf_counter() - t0, PIN_TRACE_SPILL,
+           eng.host_syncs + ctrl.host_syncs, merge.launches)
+    ops = out["spill"]["records_by_op"]
+    check(ops["spill"] > 0 and ops["refill"] > 0,
+          f"traced spill: no spill/refill records: {ops}")
+
+    # (c) the frontier drain
+    sim = sim_mod.build_simulation(
+        config_mod.parse_config(tgen_config(TGEN_PAIRS)), device=dev,
+        seed=TGEN_SEED, n_sockets=TGEN_SOCKETS, capacity=TGEN_CAPACITY,
+        frontier=TGEN_FRONTIER, trace=TRACE_FRONTIER_CAP, stats=1)
+    drain = trace_mod.TraceDrain(TRACE_FRONTIER_CAP)
+    syncs0 = sim.engine.host_syncs
+    torch.cuda.synchronize()
+    merge.launches = 0
+    t0 = time.perf_counter()
+    st = drain.drain_state(sim.run(TRACE_FRONTIER_STOP_S * SECOND))
+    torch.cuda.synchronize()
+    finish("frontier", st, drain, time.perf_counter() - t0,
+           PIN_TRACE_FRONTIER, sim.engine.host_syncs - syncs0,
+           merge.launches)
+    check(int(convert.engine_state_to_numpy(st)["splane.runlen_n"].sum())
+          > 0, "traced frontier: no run-length samples")
+    print(json.dumps({"traced": out, "card": smi_line}))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1604,13 +1906,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (9-16) to run after "
+                    help="comma-separated phases (9-18) to run after "
                          "phases 1-3, skipping the others; prints no "
                          "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= set(range(9, 17)):
-        ap.error("--only takes phases 9 to 16")
+    if not only <= set(range(9, 19)):
+        ap.error("--only takes phases 9 to 18")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1620,7 +1922,9 @@ def main(argv=None) -> int:
         from shadow_tpu_torch.core.engine import state_summary
         from shadow_tpu_torch.models import phold
         from shadow_tpu_torch.net import topology
+        from shadow_tpu_torch.obs import trace as trace_mod
         from shadow_tpu_torch.runtime import pressure
+        from shadow_tpu_torch.transport import cbrt
     except ImportError as e:
         print(f"chip_smoke: shadow_tpu_torch not importable here: {e}",
               file=sys.stderr)
@@ -1636,7 +1940,7 @@ def main(argv=None) -> int:
     smi_line = phase_device()
 
     phase("2. build")
-    build_s = phase_build(merge)
+    build_s = phase_build(merge, cbrt)
 
     phase("3. kernels against their plain versions")
     phase_kernels_sweep(merge, dev)
@@ -1659,6 +1963,14 @@ def main(argv=None) -> int:
                 elif p == 14:
                     phase_skew(phold, pressure, merge, events, convert, dev,
                                smi_line)
+                elif p == 17:
+                    phase_cbrt(cbrt, dev, smi_line)
+                    phase_app("tgen_cubic", sim, config, merge, events,
+                              convert, dev, smi_line, cbrt=cbrt)
+                elif p == 18:
+                    phase_trace(phold, engine, topology, pressure, sim,
+                                config, trace_mod, merge, convert, dev,
+                                smi_line)
                 else:
                     phase_app({11: "tor", 12: "btc", 13: "mixed",
                                15: "tgen_frontier", 16: "tgen_faults"}[p],
@@ -1783,6 +2095,29 @@ def main(argv=None) -> int:
         for key in ("wall_s", "host_syncs", "inner_steps",
                     "ms_per_inner_step", "launches")}, "card": smi_line}))
 
+    phase("17. CUBIC: the cube root over [0, 2560], then TGen 4096 under "
+          "faults with CUBIC")
+    cbrt_timing = phase_cbrt(cbrt, dev, smi_line)
+    cubic = phase_app("tgen_cubic", sim, config, merge, events, convert,
+                      dev, smi_line, cbrt=cbrt)
+    cubic_hc = max(cubic["by_hc"], key=cubic["by_hc"].get)
+    print(json.dumps({"tgen_cubic_vs_tgen_faults": {
+        key: [cubic["run"][key], faults["run"][key]]
+        for key in ("wall_s", "host_syncs", "inner_steps",
+                    "ms_per_inner_step", "launches")}, "card": smi_line}))
+
+    phase("18. traces and histograms on the chained, batched (spill) and "
+          "frontier drains")
+    traced = phase_trace(phold, engine, topology, pressure, sim, config,
+                         trace_mod, merge, convert, dev, smi_line)
+    print(json.dumps({"traced_vs_untraced_ms_per_inner_step": {
+        "chained": [traced["chained"]["ms_per_inner_step"],
+                    1e3 * variants["jitter"]["wall_s"]
+                    / variants["jitter"]["inner_steps"]],
+        "frontier": [traced["frontier"]["ms_per_inner_step"],
+                     front["run"]["ms_per_inner_step"]]},
+        "card": smi_line}))
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -1795,7 +2130,9 @@ def main(argv=None) -> int:
                      + mixed["run"]["launches"]
                      + skew["spill"]["launches"]
                      + front["run"]["launches"]
-                     + faults["run"]["launches"]),
+                     + faults["run"]["launches"]
+                     + cubic["run"]["launches"]
+                     + sum(t["launches"] for t in traced.values())),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -1813,6 +2150,9 @@ def main(argv=None) -> int:
         "launches_frontier_by_hc": front["by_hc"],
         "launches_tgen_faults": faults["run"]["launches"],
         "launches_tgen_faults_by_hc": faults["by_hc"],
+        "launches_tgen_cubic": cubic["run"]["launches"],
+        "launches_tgen_cubic_by_hc": cubic["by_hc"],
+        "launches_traced": {k: t["launches"] for k, t in traced.items()},
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -1866,14 +2206,37 @@ def main(argv=None) -> int:
         "tgen_faults_bound_us": faults_merge["bound_us"],
         "tgen_faults_plain_ms": faults_merge["plain_ms"],
         "tgen_faults_yardstick_ms": faults_merge["yardstick_ms"],
+        "tgen_cubic_hc": cubic_hc,
+        "tgen_cubic_us": cubic["timing"][cubic_hc]["us"],
+        "tgen_cubic_bound_us": cubic["timing"][cubic_hc]["bound_us"],
         "shapes": [{key: row[key] for key in
                     ("hc", "w", "nw", "regime", "us", "warm_us",
                      "bound_us", "share", "warps_per_block")}
                    for row in timing["shapes"] + [chained_merge, net_merge]
                    + [run["timing"][hc] for run in (tgen, tor, btc, mixed,
-                                                    front, faults)
+                                                    front, faults, cubic)
                       for hc in sorted(run["timing"])]
                    + [skew["timing"]["loop"], skew["timing"]["refill"]]],
+        "build_s": build_s,
+    }, {
+        "name": "cbrt",
+        "route": "cuda",
+        "source": "shadow_tpu_torch/csrc/cbrt.cu",
+        "replaces": "none: XLA calls glibc's powf for jnp.cbrt "
+                    "(shadow_tpu/transport/tcp.py:586)",
+        "launches": cubic["run"]["cbrt_launches"],
+        "max_abs_err": 0,
+        "equal_to_plain": True,
+        "ms": cbrt_timing["tgen_width"]["ms"],
+        "plain_ms": cbrt_timing["tgen_width"]["plain_ms"],
+        "bound_ms": cbrt_timing["tgen_width"]["bound_ms"],
+        "bound_by": cbrt_timing["tgen_width"]["bound_by"],
+        "library_ms": None,
+        "yardstick": "torch.pow(|x|, 1/3), another cube root",
+        "yardstick_ms": cbrt_timing["tgen_width"]["pow_yardstick_ms"],
+        "domain_ms": cbrt_timing["domain_ms"],
+        "domain_bound_ms": cbrt_timing["domain_bound_ms"],
+        "domain_chunk": cbrt_timing["domain_chunk"],
         "build_s": build_s,
     }]
     print(json.dumps({"kernels": kernels}))

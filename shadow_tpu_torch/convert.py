@@ -3,8 +3,9 @@
 Leaves are keyed by field path ("now", "queues.time",
 "hosts.n_received", "stats.n_by_kind", "hosts.app.subs.0.gid", ...),
 the same paths the reference's EngineState pytree has (a tuple element
-is keyed by its index), with its trace, exchange and stats-plane
-subtrees off; a queue's spill ring appears as "queues.spill.*". So a state can move between the
+is keyed by its index), with no exchange subtree; a queue's spill ring
+appears as "queues.spill.*", the trace ring as "trace.*" and the stats
+plane as "splane.*" when they are on. So a state can move between the
 reference and this package leaf for leaf, and `leaves_digest` gives both
 the same fingerprint. A reference GraphNetwork's routing tables come over
 as numpy arrays through `GraphNetwork.from_numpy`.
@@ -21,6 +22,8 @@ import torch
 from shadow_tpu_torch.core.engine import EngineState, Stats
 from shadow_tpu_torch.core.events import EventQueue, SpillRing
 from shadow_tpu_torch.models.phold import PholdHost
+from shadow_tpu_torch.obs.stats import StatPlane
+from shadow_tpu_torch.obs.trace import TraceRing
 
 
 def _leaves(obj, prefix: str, out: dict) -> dict:
@@ -90,12 +93,22 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,
         f.name: tensor("queues." + f.name)
         for f in dataclasses.fields(EventQueue) if f.name != "spill"})
     nested = {"hosts": hosts, "stats": Stats}
-    state = EngineState(**{
-        f.name: (queues if f.name == "queues"
-                 else build(nested[f.name], f"{f.name}.")
-                 if f.name in nested else tensor(f.name))
-        for f in dataclasses.fields(EngineState)
-    })
+    # subtrees present only when the state has them
+    optional = {"trace": (TraceRing, "trace.time"),
+                "splane": (StatPlane, "splane.wait_n")}
+
+    def field(name):
+        if name == "queues":
+            return queues
+        if name in optional:
+            cls, probe = optional[name]
+            return build(cls, f"{name}.") if probe in leaves else None
+        if name in nested:
+            return build(nested[name], f"{name}.")
+        return tensor(name)
+
+    state = EngineState(**{f.name: field(f.name)
+                           for f in dataclasses.fields(EngineState)})
     extra = set(leaves) - used
     if extra:
         raise ValueError(f"leaves this package has no field for: "

@@ -45,8 +45,18 @@ a new epoch. The epoch test costs no read of its own: with faults on,
 the window loop's `nxt < stop` read becomes one fetch of (nxt, the
 epoch watermark, stop), and the epoch is looked up on the host.
 
-Not ported (each raises NotImplementedError): tracing, the stats plane
-and sharding.
+Observability (`EngineConfig.trace`, `EngineConfig.stats`), on all
+three drains: a per-host trace ring (`obs.trace`) takes one record per
+executed event and one per routed non-local emit (SEND, or DROP/FDROP
+with the loss attributed), appended once per inner step on the chained
+drain, once per sweep on the batched one and once per round, in chained
+record order, on the frontier one; a stats plane (`obs.stats`) takes
+log2 histograms of event wait, network latency, per-window occupancy,
+queue fill at the dump and frontier run length. With both knobs at 0
+`EngineState.trace` and `splane` are None and the drains run exactly the
+operations and reads they run without them.
+
+Not ported (each raises NotImplementedError): sharding.
 """
 
 from __future__ import annotations
@@ -66,6 +76,15 @@ from shadow_tpu_torch.core.events import (
     queue_push,
 )
 from shadow_tpu_torch.core.timebase import TIME_INVALID
+from shadow_tpu_torch.obs.stats import StatPlane
+from shadow_tpu_torch.obs.trace import (
+    OP_DROP,
+    OP_EXEC,
+    OP_FDROP,
+    OP_SEND,
+    TraceRing,
+    trace_append,
+)
 
 _I64MAX = (1 << 63) - 1
 
@@ -179,8 +198,8 @@ class Stats:
 
 @dataclasses.dataclass(frozen=True)
 class EngineState:
-    """Complete simulation state: tensors only, the leaves of the
-    reference's EngineState with no trace, exchange or stats plane."""
+    """Complete simulation state: the leaves of the reference's
+    EngineState, with no exchange buffer (sharding is not ported)."""
 
     now: torch.Tensor  # i64[] current window start
     queues: EventQueue
@@ -190,6 +209,8 @@ class EngineState:
     stats: Stats
     cpu_free: torch.Tensor  # i64[H] virtual-CPU available-from time
     fault_epoch: torch.Tensor  # i32[] last fault epoch applied (0 without)
+    trace: Any = None  # obs.trace.TraceRing, or None (EngineConfig.trace 0)
+    splane: Any = None  # obs.stats.StatPlane, or None (EngineConfig.stats 0)
 
 
 def state_summary(state: EngineState) -> dict:
@@ -232,11 +253,17 @@ class EngineConfig:
     # Frontier run batching (`_drain_window_frontier`): the most positions
     # of a run per round; 0 keeps the chained drain
     frontier: int = 0
+    # Event tracing (obs.trace): records per host the ring holds between
+    # drains; 0 leaves EngineState.trace None and runs no trace op
+    trace: int = 0
+    # args column holding the payload-length word of trace records
+    trace_len_arg: int = 0
+    # Sim-time histograms (obs.stats): > 0 keeps a StatPlane in
+    # EngineState.splane; 0 leaves it None and runs no stats op
+    stats: int = 0
     # knobs of paths this package does not port; any other value raises
     axis_name: str | None = None
     n_shards: int = 1
-    trace: int = 0
-    stats: int = 0
 
     def __post_init__(self):
         if self.lookahead < 1:
@@ -246,11 +273,16 @@ class EngineConfig:
             raise ValueError(f"spill must be >= 0, got {self.spill}")
         if self.frontier < 0:
             raise ValueError(f"frontier must be >= 0, got {self.frontier}")
+        if self.trace < 0:
+            raise ValueError(f"trace must be >= 0, got {self.trace}")
+        if self.stats < 0:
+            raise ValueError(f"stats must be >= 0, got {self.stats}")
+        if not 0 <= self.trace_len_arg < self.n_args:
+            raise ValueError(f"trace_len_arg {self.trace_len_arg} outside "
+                             f"[0, {self.n_args})")
         unported = {
             "axis_name": self.axis_name is not None,
             "n_shards": self.n_shards != 1,
-            "trace": self.trace != 0,
-            "stats": self.stats != 0,
         }
         for name, set_ in unported.items():
             if set_:
@@ -463,6 +495,8 @@ class Engine:
         self._alive_ht = (faults.alive.T.contiguous() if self._f_crash
                           else None)
         self._fgrp = faults.fgrp.long() if self._f_link else None
+        self._trace = cfg.trace > 0
+        self._stats = cfg.stats > 0
         self.host_syncs = 0
 
     def _read(self, flag: torch.Tensor) -> bool:
@@ -475,6 +509,19 @@ class Engine:
         """A counted device-to-host copy of a tensor, as numpy."""
         self.host_syncs += 1
         return t.cpu().numpy()
+
+    def _trace_slack(self) -> int:
+        """Scratch columns past the trace ring's capacity: the widest
+        single append of this engine's drain, so a full row's writes
+        land in the never-read zone."""
+        k = self.cfg.max_emit
+        if self.batch_handler is not None:
+            return self.cfg.eff_drain_batch * (1 + k)
+        if self.cfg.frontier > 0:
+            # one append per round: up to u positions of 1 + K records
+            return max(1, min(self.cfg.frontier,
+                              self.cfg.eff_stage_width)) * (1 + k)
+        return 1 + k
 
     def init_state(self, hosts: Any, initial: Events,
                    host0: int = 0) -> EngineState:
@@ -493,6 +540,9 @@ class Engine:
                            local_src, h).long()
         seq0 = torch.zeros((h + 1,), dtype=torch.int32, device=dev)
         seq0 = seq0.scatter_reduce(0, rows, flat.seq + 1, reduce="amax")[:h]
+        trace = (TraceRing.create(h, cfg.trace, self._trace_slack(),
+                                  device=dev) if self._trace else None)
+        splane = StatPlane.create(h, device=dev) if self._stats else None
         return EngineState(
             now=torch.zeros((), dtype=torch.int64, device=dev),
             queues=q,
@@ -502,6 +552,8 @@ class Engine:
             stats=Stats.create(h, self.n_kinds, device=dev),
             cpu_free=torch.zeros((h,), dtype=torch.int64, device=dev),
             fault_epoch=torch.zeros((), dtype=torch.int32, device=dev),
+            trace=trace,
+            splane=splane,
         )
 
     # -- fault-schedule helpers ---------------------------------------------
@@ -539,8 +591,8 @@ class Engine:
         and the barrier clamp; an extra pass-probability roll (lane offset
         2K) and a destination-liveness check at the arrival epoch drop
         packets with their own attribution.
-        Returns (Events[N, K], final_mask, dropped, fdropped), fdropped
-        None when no overlay is compiled in."""
+        Returns (Events[N, K], final_mask, dropped, fdropped, routed time
+        t, is_local), fdropped None when no overlay is compiled in."""
         n, k = emit.dst.shape
         self_gid = gids[:, None]
         is_local = emit.local
@@ -587,7 +639,7 @@ class Engine:
             kind=emit.kind,
             args=emit.args,
         )
-        return out, final_mask, dropped, fdropped
+        return out, final_mask, dropped, fdropped, t, is_local
 
     def _drain_flag(self, q: EventQueue, cpu_free, window_end
                     ) -> torch.Tensor:
@@ -599,11 +651,38 @@ class Engine:
         return torch.any(nxt < window_end)
 
     # -- the chained drain: one event per host per inner step ----------------
+    def _trace_rec(self, ev: Events, out: Events, run, emask, dropped,
+                   fdropped, is_local) -> dict:
+        """Trace records of E executed lanes per host (ev fields [H, E],
+        `run` their mask) and their routed emits ([H*E, K] or [H, K]
+        batches): E EXEC records, then E*K SEND/DROP/FDROP records of the
+        non-local emits, as `trace_append` keywords of width E + E*K."""
+        h, e = run.shape
+        k, la = self.cfg.max_emit, self.cfg.trace_len_arg
+        wide = lambda a: a.reshape(h, e * k)
+        op = OP_SEND if fdropped is None else torch.where(
+            fdropped, OP_FDROP, OP_SEND)
+        op = torch.where(dropped, OP_DROP, op).to(torch.int32)
+        cat = lambda a, b: torch.cat([a, b], dim=1)
+        return dict(
+            time=cat(ev.time, wide(ev.time[:, :, None].expand(h, e, k))),
+            src=cat(ev.src, wide(out.src)),
+            dst=cat(ev.dst, wide(out.dst)),
+            kind=cat(ev.kind, wide(out.kind)),
+            plen=cat(ev.args[:, :, la], wide(out.args[..., la])),
+            seq=cat(ev.seq, wide(out.seq)),
+            op=cat(torch.full((h, e), OP_EXEC, dtype=torch.int32,
+                              device=run.device), wide(op)),
+            mask=cat(run, wide(emask & ~is_local)))
+
     def _execute_step(self, hosts, src_seq, exec_cnt, stats, ev: Events,
-                      active: torch.Tensor, window_end, gids):
+                      active: torch.Tensor, window_end, gids, splane=None):
         """Run the handler table for one event per host (rows masked by
         `active`) and route the emits. Returns (hosts', src_seq',
-        exec_cnt', stats', routed Events[H, K], final_mask[H, K])."""
+        exec_cnt', stats', routed Events[H, K], final_mask[H, K],
+        splane', rec): the stats plane takes the wait and network-latency
+        samples when it is on, and `rec` is the step's width-(1+K) trace
+        batch when tracing is on (else None)."""
         k = self.cfg.max_emit
         hkeys, rkeys = srng.event_keys(self._base_key, gids, exec_cnt)
         idx = torch.clamp(ev.kind, 0, self.n_kinds - 1)
@@ -625,8 +704,20 @@ class Engine:
         seq = src_seq[:, None] + within
         src_seq = src_seq + torch.sum(inc, dim=1, dtype=torch.int32)
 
-        out, final_mask, dropped, fdropped = self._route(
+        out, final_mask, dropped, fdropped, t_r, is_local = self._route(
             emit, ev.time, gids, window_end, rkeys, emask, seq)
+        if splane is not None:
+            # a delivered emit runs at its routed time: t_r - now is its
+            # wait, and on the non-local lanes its network latency
+            delta = t_r - ev.time[:, None]
+            splane = splane.observe("wait", delta, final_mask)
+            splane = splane.observe("net", delta, final_mask & ~is_local)
+        rec = None
+        if self._trace:
+            one = Events(**{f.name: getattr(ev, f.name)[:, None]
+                            for f in dataclasses.fields(Events)})
+            rec = self._trace_rec(one, out, active[:, None], emask, dropped,
+                                  fdropped, is_local)
         exec_cnt = exec_cnt + active.to(torch.int32)
         stats = dataclasses.replace(
             stats,
@@ -642,7 +733,7 @@ class Engine:
             stats = dataclasses.replace(
                 stats, n_fault_dropped=stats.n_fault_dropped + torch.sum(
                     fdropped, dim=1, dtype=torch.int64))
-        return hosts, src_seq, exec_cnt, stats, out, final_mask
+        return hosts, src_seq, exec_cnt, stats, out, final_mask, splane, rec
 
     def _burst_fold(self, stage: Events) -> Events:
         """Collapse contiguous same-flow arrival runs in [H, SW] staging.
@@ -896,9 +987,11 @@ class Engine:
         al_sh = self._alive_ht
         q, hosts, stats = st.queues, st.hosts, st.stats
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
+        trace, splane = st.trace, st.splane
 
         while self._read(self._drain_flag(q, cpu_free, window_end)):
             # 1. dump each host's earliest-b below-barrier prefix
+            splane = self._observe_qfill(splane, q, window_end, b)
             q, stage, qh_t, qh_ss = self._dump(q, window_end, gids, b, sw)
 
             # 2. chained execution, one staged event per host per step
@@ -913,9 +1006,11 @@ class Engine:
                 ev = dataclasses.replace(
                     ev, time=torch.where(runm, eff_t, TIME_INVALID),
                     dst=gids)
-                hosts, src_seq, exec_cnt, stats, out, _ = \
+                hosts, src_seq, exec_cnt, stats, out, _, splane, rec = \
                     self._execute_step(hosts, src_seq, exec_cnt, stats, ev,
-                                       runm, window_end, gids)
+                                       runm, window_end, gids, splane)
+                if rec is not None:
+                    trace = trace_append(trace, cfg.trace, **rec)
                 if self._cpu_enabled:
                     cpu_free = self._charge_cpu(cpu_cost, ev, runm, eff_t,
                                                 cpu_free)
@@ -931,11 +1026,31 @@ class Engine:
             stats = dataclasses.replace(stats,
                                         n_sweeps=stats.n_sweeps + 1)
 
+        return self._end_window(st, q, hosts, src_seq, exec_cnt, stats,
+                                cpu_free, trace, splane)
+
+    def _observe_qfill(self, splane, q: EventQueue, window_end, b: int):
+        """Queue fill at the dump (before the prefix clears), over the
+        hosts that dump at least one event."""
+        if splane is None:
+            return None
+        return splane.observe(
+            "qfill", torch.sum(q.time != TIME_INVALID, dim=1,
+                               dtype=torch.int64),
+            torch.any(q.time[:, :b] < window_end, dim=1))
+
+    def _end_window(self, st: EngineState, q, hosts, src_seq, exec_cnt,
+                    stats, cpu_free, trace, splane) -> EngineState:
+        """The drained window's state: n_windows counted, and the
+        per-window occupancy sampled (hosts that ran something)."""
+        if splane is not None:
+            occ = stats.n_executed - st.stats.n_executed
+            splane = splane.observe("occ", occ, occ > 0)
         return dataclasses.replace(
             st, queues=q, hosts=hosts, src_seq=src_seq, exec_cnt=exec_cnt,
             stats=dataclasses.replace(stats,
                                       n_windows=stats.n_windows + 1),
-            cpu_free=cpu_free,
+            cpu_free=cpu_free, trace=trace, splane=splane,
         )
 
     # -- the frontier drain: runs of equal-time, same-kind events -----------
@@ -958,8 +1073,11 @@ class Engine:
         reference) or after `cfg.frontier` positions; then the executed
         columns clear as a prefix and every position's emits append in
         one `_stage_append`. A dead host's members clear without running
-        (quarantine), as on the chained drain. The reference's trace and
-        stats-plane branches are not ported.
+        (quarantine), as on the chained drain. Tracing appends once per
+        round: every position's 1 + K records in position order (the
+        chained drain's record order), padded with masked lanes to
+        `cfg.frontier` positions as the reference's round buffer is; the
+        stats plane samples each round's run length per host.
         """
         cfg, dev = self.cfg, self.device
         h, k = cfg.n_hosts, cfg.max_emit
@@ -972,9 +1090,11 @@ class Engine:
         slot = torch.arange(sw, dtype=torch.int32, device=dev)[None, :]
         q, hosts, stats = st.queues, st.hosts, st.stats
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
+        trace, splane = st.trace, st.splane
 
         while self._read(self._drain_flag(q, cpu_free, window_end)):
             # 1. the frontier dump, as on the chained drain
+            splane = self._observe_qfill(splane, q, window_end, b)
             q, stage, qh_t, qh_ss = self._dump(q, window_end, gids, b, sw)
 
             # 2. rounds: sort once, execute a run, bookkeep once
@@ -990,7 +1110,7 @@ class Engine:
                             if self._fk is not None else None)
                 still = torch.ones((h,), dtype=torch.bool, device=dev)
                 nact = torch.zeros((h,), dtype=torch.int32, device=dev)
-                outs = []
+                outs, recs = [], []
                 j = 0
                 while j < u:
                     ev_t = stage.time[:, j]
@@ -1014,9 +1134,12 @@ class Engine:
                                 seq=stage.seq[:, j - 1],
                                 kind=stage.kind[:, j - 1],
                                 args=stage.args[:, j - 1])
-                    hosts, src_seq, exec_cnt, stats, out, fmask = \
-                        self._execute_step(hosts, src_seq, exec_cnt, stats,
-                                           ev, runm, window_end, gids)
+                    hosts, src_seq, exec_cnt, stats, out, fmask, splane, \
+                        rec = self._execute_step(hosts, src_seq, exec_cnt,
+                                                 stats, ev, runm, window_end,
+                                                 gids, splane)
+                    if rec is not None:
+                        recs.append(rec)
                     if self._cpu_enabled:
                         cpu_free = self._charge_cpu(cpu_cost, ev, runm,
                                                     eff_t, cpu_free)
@@ -1025,6 +1148,9 @@ class Engine:
                     nact = nact + active.to(torch.int32)
                     outs.append(out)
                     still = active
+
+                if splane is not None:
+                    splane = splane.observe("runlen", nact, nact > 0)
 
                 # 3. the round's bookkeeping: clear the executed prefix,
                 # append every position's routed emits (headroom held by
@@ -1036,6 +1162,15 @@ class Engine:
                         f.name: torch.cat([getattr(o, f.name) for o in outs],
                                           dim=1)
                         for f in dataclasses.fields(Events)}))
+                if self._trace:
+                    # positions that did not run are masked lanes
+                    pad = (u - len(recs)) * (1 + k)
+                    if pad:
+                        recs.append({key: v.new_zeros((h, pad))
+                                     for key, v in recs[0].items()})
+                    trace = trace_append(trace, cfg.trace, **{
+                        key: torch.cat([r[key] for r in recs], dim=1)
+                        for key in recs[0]})
                 stats = dataclasses.replace(
                     stats, n_inner_steps=stats.n_inner_steps + j)
                 sm = self._stage_min(stage)
@@ -1045,12 +1180,8 @@ class Engine:
             stats = dataclasses.replace(stats,
                                         n_sweeps=stats.n_sweeps + 1)
 
-        return dataclasses.replace(
-            st, queues=q, hosts=hosts, src_seq=src_seq, exec_cnt=exec_cnt,
-            stats=dataclasses.replace(stats,
-                                      n_windows=stats.n_windows + 1),
-            cpu_free=cpu_free,
-        )
+        return self._end_window(st, q, hosts, src_seq, exec_cnt, stats,
+                                cpu_free, trace, splane)
 
     # -- the batched drain ---------------------------------------------------
     def _sweep(self, st: EngineState, window_end, host0: int) -> EngineState:
@@ -1071,6 +1202,13 @@ class Engine:
             # a host whose virtual CPU is busy past the barrier runs
             # nothing this window
             bvalid = bvalid & (cpu_free[:, None] < window_end)
+        splane = st.splane
+        if splane is not None:
+            # queue fill at the pop, before the prefix clears
+            splane = splane.observe(
+                "qfill", torch.sum(q.time != TIME_INVALID, dim=1,
+                                   dtype=torch.int64),
+                torch.any(bvalid, dim=1))
         run = bvalid
         if self._f_crash:
             run = bvalid & self._alive_at(self._alive_ht,
@@ -1104,7 +1242,7 @@ class Engine:
         src_seq = st.src_seq + torch.sum(inc, dim=1, dtype=torch.int32)
 
         flat = lambda a: a.reshape((h * b,) + tuple(a.shape[2:]))
-        out, final_mask, dropped, fdropped = self._route(
+        out, final_mask, dropped, fdropped, t_r, is_local = self._route(
             Emit(**{f.name: flat(getattr(emit, f.name))
                     for f in dataclasses.fields(emit)}),
             evs.time.reshape(-1),
@@ -1114,6 +1252,17 @@ class Engine:
             flat(emask),
             flat(seq),
         )
+        if splane is not None:
+            delta = (t_r - evs.time.reshape(-1)[:, None]).reshape(h, b * k)
+            fm = final_mask.reshape(h, b * k)
+            splane = splane.observe("wait", delta, fm)
+            splane = splane.observe("net", delta,
+                                    fm & ~is_local.reshape(h, b * k))
+        trace = st.trace
+        if self._trace:
+            # one width-(B + B*K) append per sweep
+            trace = trace_append(trace, cfg.trace, **self._trace_rec(
+                evs, out, run, flat(emask), dropped, fdropped, is_local))
         s = st.stats
         stats = dataclasses.replace(
             s,
@@ -1153,17 +1302,20 @@ class Engine:
         return dataclasses.replace(
             st, queues=q, hosts=hosts, src_seq=src_seq,
             exec_cnt=st.exec_cnt + n_exec, stats=stats, cpu_free=cpu_free,
+            trace=trace, splane=splane,
         )
 
     def _drain_window_batched(self, st: EngineState, window_end,
                               host0: int) -> EngineState:
         """Sweep until no host has an executable event below
         `window_end`."""
+        st0 = st
         while self._read(self._drain_flag(st.queues, st.cpu_free,
                                           window_end)):
             st = self._sweep(st, window_end, host0)
-        return dataclasses.replace(st, stats=dataclasses.replace(
-            st.stats, n_windows=st.stats.n_windows + 1))
+        return self._end_window(st0, st.queues, st.hosts, st.src_seq,
+                                st.exec_cnt, st.stats, st.cpu_free,
+                                st.trace, st.splane)
 
     # -- windows -------------------------------------------------------------
     def _next_time(self, st: EngineState) -> torch.Tensor:

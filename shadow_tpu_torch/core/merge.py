@@ -20,15 +20,12 @@ source and flags, and loaded with ctypes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from dataclasses import dataclass
 from pathlib import Path
 
 import torch
 
+from shadow_tpu_torch.core import nvcc
 from shadow_tpu_torch.core.timebase import TIME_INVALID
 
 _I64MAX = (1 << 63) - 1
@@ -37,10 +34,8 @@ _I64MAX = (1 << 63) - 1
 # read or reset it as `merge.launches`
 launches = 0
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "merge.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "shadow_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = nvcc.CSRC / "merge.cu"
+NVCC_FLAGS = nvcc.BASE_FLAGS
 # dynamic shared memory a Hopper block may use
 _SMEM_LIMIT = 232_448
 # rows (one warp each) per block, when shared memory and h allow
@@ -137,30 +132,10 @@ def launch_plan(h: int, hc: int, w: int, *,
                       blocks=-(-h // warps))
 
 
-def _library_path() -> Path:
-    tag = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"libshadow_merge_{tag}.so"
-
-
 def build() -> tuple[Path, str]:
     """Compile `csrc/merge.cu` for sm_90a unless a library built from
     the same source and flags exists. Returns (path, compiler output)."""
-    out = _library_path()
-    if out.exists():
-        return out, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stderr
+    return nvcc.build(SOURCE, "shadow_merge", NVCC_FLAGS)
 
 
 _lib: ctypes.CDLL | None = None

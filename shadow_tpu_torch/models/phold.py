@@ -126,6 +126,8 @@ def build(
     seed: int = 0,
     drain_batch: int = 24,
     batched: bool = False,
+    trace: int = 0,
+    stats: int = 0,
     spill: int = 0,
     device=None,
 ):
@@ -136,7 +138,9 @@ def build(
     `batched` selects the batched drain (whole frontiers per handler
     call); the state is bit-identical either way, apart from the
     scheduler counters. `spill` gives every queue an overflow ring of
-    that many slots (runtime.pressure). `device=None` runs on CUDA.
+    that many slots (runtime.pressure); `trace` a trace ring of that many
+    records per host (obs.trace), `stats` the sim-time histograms
+    (obs.stats). `device=None` runs on CUDA.
     """
     dev = resolve_device(device)
     cfg = EngineConfig(
@@ -147,6 +151,8 @@ def build(
         n_args=N_PHOLD_ARGS,
         seed=seed,
         drain_batch=drain_batch,
+        trace=trace,
+        stats=stats,
         spill=spill,
     )
     eng = Engine(

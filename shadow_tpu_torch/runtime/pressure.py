@@ -25,10 +25,14 @@ evicts any displaced larger keys back into the ring for immediate
 re-harvest, so a capacity-C run with spill ends in the same state as a
 capacity-2C run without it.
 
+With a `TraceDrain` attached (`attach_trace`), every harvested record
+becomes an OP_SPILL row and every refilled one an OP_REFILL row of the
+trace, injected on the host (the moments happen there); rows are local
+host ids, since the controller works on one unsharded queue.
+
 Not ported, each raising NotImplementedError: `pressure_bundle` (it
-needs runtime/supervisor.py), the reservoir's checkpoint extras
-(`serialize`/`restore`, which ride utils/checkpoint.py) and the trace
-records OP_SPILL/OP_REFILL (`attach_trace`, which needs obs/trace.py).
+needs runtime/supervisor.py) and the reservoir's checkpoint extras
+(`serialize`/`restore`, which ride utils/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import torch
 
 from shadow_tpu_torch.core.events import Events, pack_srcseq, queue_push
 from shadow_tpu_torch.core.timebase import TIME_INVALID
+from shadow_tpu_torch.obs.trace import OP_REFILL, OP_SPILL
 
 OVERFLOW_MODES = ("spill", "strict", "grow", "drop")
 
@@ -129,11 +134,30 @@ class PressureController:
         self.host_syncs = 0
         self._warned_overdue = False
         self._n_args = int(n_args)
+        # an obs.trace.TraceDrain that OP_SPILL / OP_REFILL rows go to
+        self.trace_drain = None
+        self._trace_len_arg = 0
 
     def attach_trace(self, drain, len_arg: int = 0) -> None:
-        raise NotImplementedError(
-            "spill/refill trace records need obs/trace.py, which is not "
-            "ported")
+        """Emit OP_SPILL / OP_REFILL records into an obs.trace.TraceDrain
+        (len_arg = EngineConfig.trace_len_arg, for the plen column)."""
+        self.trace_drain = drain
+        self._trace_len_arg = int(len_arg)
+
+    def _inject(self, op: int, t, ss, pay, owner) -> None:
+        """Trace rows for a batch of (time, srcseq, payload) records
+        owned by rows `owner`."""
+        pay = np.asarray(pay, np.int64).reshape(len(t), -1)
+        words = _unpack_words(pay, 1 + self._n_args)
+        la = 1 + self._trace_len_arg
+        ss = np.asarray(ss, np.int64)
+        self.trace_drain.inject(
+            time=t, src=(ss >> 32).astype(np.int32),
+            dst=np.asarray(owner, np.int32), kind=words[0],
+            plen=words[la] if la < len(words) else np.zeros(len(t),
+                                                            np.int32),
+            seq=(ss & 0xFFFFFFFF).astype(np.uint32).astype(np.int32),
+            op=op, owner=owner, n_hosts=self.n_hosts)
 
     def serialize(self) -> dict:
         raise NotImplementedError(
@@ -194,6 +218,12 @@ class PressureController:
                                   pay[g, :n].tolist()):
                 heapq.heappush(heap, (tt, sv, tuple(pv)))
             self.n_harvested[g] += n
+        if self.trace_drain is not None:
+            hs = np.nonzero(kept > 0)[0]
+            sel = lambda a: np.concatenate([a[g, :kept[g]] for g in hs])
+            owner = np.concatenate([np.full((int(kept[g]),), g, np.int32)
+                                    for g in hs])
+            self._inject(OP_SPILL, sel(t), sel(ss), sel(pay), owner)
         return self._reset(state)
 
     # ------------------------------------------------------------ refill
@@ -280,6 +310,11 @@ class PressureController:
                                              now + self.lookahead)
             if not picked:
                 break
+            if self.trace_drain is not None:
+                owner = np.array([g for g, _ in picked], np.int32)
+                self._inject(OP_REFILL, [rec[0] for _, rec in picked],
+                             [rec[1] for _, rec in picked],
+                             [rec[2] for _, rec in picked], owner)
             state = self._push(state, picked, read)
             self.n_refilled += per_host
             # a refill may evict displaced larger keys back into the

@@ -6,8 +6,8 @@ sizes their NICs, lets the app model bind its sockets and schedule its
 process starts, and compiles everything into one chained-drain Engine
 whose handler table is [stack pipeline | TCP timer and tx | app kinds].
 
-Ported: `phold` over UDP, `tgen` and `tor` over TCP (NewReno or AIMD,
-`tcp_cc`), `bitcoin` over both, several app models in one simulation
+Ported: `phold` over UDP, `tgen` and `tor` over TCP (NewReno, AIMD or
+CUBIC, `tcp_cc`), `bitcoin` over both, several app models in one simulation
 (`FusedModel`), a model's per-kind CPU charges, shape bucketing,
 per-host bandwidth, `cpufrequency`, `interfacebuffer`,
 `socketsendbuffer`, `socketrecvbuffer`, `bootstraptime`, process
@@ -16,14 +16,18 @@ qdiscs, the TCP knobs (`tcp_in_order`, `tcp_wnd_words`,
 `tcp_child_slot_limit`), burst folding of TCP arrivals (`burst_rx`), the
 frontier drain (`frontier`), lossless overflow (`overflow="spill"`,
 `spill_len`) and fault schedules (<fault>: crash, churn, bandwidth,
-loss, latency, partition; `Simulation.faults`). Not ported, each
-raising NotImplementedError: CUBIC (F2), sharding (`mesh`, `locality`,
-`host_order`), tracing, the stats plane, a profiler, `overflow="grow"`
-and packet capture.
+loss, latency, partition; `Simulation.faults`), the event trace ring
+(`trace`, records per host between drains), the sim-time histograms
+(`stats`) and a wall-clock phase profiler (`profiler`, an
+`obs.profiler.WindowProfiler`: `run` and `step_window` time their
+"step" phase, `summary` gains a "profile" key). Not ported, each raising
+NotImplementedError: sharding (`mesh`, `locality`, `host_order`),
+`overflow="grow"` and packet capture.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Any, Callable, Protocol
@@ -155,6 +159,7 @@ class Simulation:
     overflow: str = "drop"
     pressure: Any = None  # PressureController in spill mode
     faults: Any = None  # CompiledFaults when the config schedules any
+    profiler: Any = None  # obs.profiler.WindowProfiler, timing "step"
     # queue overflow is loud by default: the reference's event heaps are
     # unbounded, so a counted drop would silently change the run
     strict_overflow: bool = True
@@ -180,7 +185,8 @@ class Simulation:
                 now = int(got[0])
                 st = self.pressure.boundary(st, wr=got[1:], read=eng._read)
             return st
-        out = self.engine.run(st, stop)
+        with self._phase():
+            out = self.engine.run(st, stop)
         if self.overflow == "strict" or self.strict_overflow:
             drops = int(out.queues.drops.sum())
             if drops > 0:
@@ -208,14 +214,30 @@ class Simulation:
         if window_ns is not None:
             raise NotImplementedError("traced window widths are not ported")
         st = self.state0 if state is None else state
-        return self.engine.step_window(
-            st, self.stop_ns if stop_ns is None else stop_ns)
+        with self._phase():
+            return self.engine.step_window(
+                st, self.stop_ns if stop_ns is None else stop_ns)
+
+    @contextlib.contextmanager
+    def _phase(self):
+        """The profiler's "step" phase around one engine call, ended when
+        the device has finished its work; nothing without a profiler."""
+        if self.profiler is None:
+            yield
+            return
+        with self.profiler.phase("step"):
+            yield
+            if self.engine.device.type == "cuda":
+                torch.cuda.synchronize(self.engine.device)
 
     def summary(self, state) -> dict:
         """Host-side progress snapshot (frontier time, window count,
         executed events, sweeps, queue drops; the reservoir's counters
-        in spill mode)."""
+        in spill mode; the profiler's wall-clock aggregates under
+        "profile" when one is attached)."""
         out = state_summary(state)
+        if self.profiler is not None:
+            out["profile"] = self.profiler.summary()
         if self.pressure is not None:
             snap = self.pressure.snapshot(state)
             out["refilled"] = snap["refilled"]
@@ -393,8 +415,7 @@ def default_registry() -> dict[str, Callable]:
     }
 
 
-def _refuse_unported(*, mesh, locality, host_order, trace, stats,
-                     profiler, overflow):
+def _refuse_unported(*, mesh, locality, host_order, overflow):
     if overflow not in OVERFLOW_MODES:
         raise ValueError(
             f"overflow must be one of {OVERFLOW_MODES}, got {overflow!r}")
@@ -402,9 +423,6 @@ def _refuse_unported(*, mesh, locality, host_order, trace, stats,
         "mesh (sharding)": mesh is not None,
         "locality": bool(locality),
         "host_order": host_order is not None,
-        "trace": bool(trace),
-        "stats": bool(stats),
-        "profiler": profiler is not None,
         "overflow='grow' (it needs utils/checkpoint.py)": overflow == "grow",
     }
     for name, set_ in unported.items():
@@ -456,7 +474,7 @@ def build_simulation(
 
     The keywords are the reference's, less those that act only on
     meshes or an app model passed in whole, which come with the code
-    that reads them. `tcp_cc="cubic"` raises (F2).
+    that reads them.
 
     `overflow="spill"` gives every queue an overflow ring of `spill_len`
     slots (4 x capacity by default) and a PressureController, and `run`
@@ -466,10 +484,7 @@ def build_simulation(
     declares `frontier_safe` (every local emit at dt >= 1).
     """
     _refuse_unported(mesh=mesh, locality=locality, host_order=host_order,
-                     trace=trace, stats=stats, profiler=profiler,
                      overflow=overflow)
-    if tcp_cc == "cubic":
-        raise NotImplementedError(tcpm.F2_MESSAGE)
     if qdisc not in ("fifo", "rr"):
         raise ValueError(f"unknown qdisc {qdisc!r}")
     dev = resolve_device(device)
@@ -654,7 +669,8 @@ def build_simulation(
     ecfg = EngineConfig(
         n_hosts=n_hosts, capacity=capacity, lookahead=lookahead,
         max_emit=max_emit, n_args=N_PKT_ARGS, seed=seed, burst=burst,
-        spill=spill, frontier=int(frontier),
+        spill=spill, frontier=int(frontier), trace=int(trace),
+        trace_len_arg=A_LEN, stats=int(stats),
     )
     network = topo.build_network(host_vertex, device=dev)
     cost_arg = cpu_cost
@@ -729,7 +745,7 @@ def build_simulation(
         pressure=(PressureController(n_hosts, capacity, lookahead,
                                      n_args=N_PKT_ARGS)
                   if overflow == "spill" else None),
-        faults=faults,
+        faults=faults, profiler=profiler,
     )
 
 

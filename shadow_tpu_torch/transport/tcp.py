@@ -1,7 +1,7 @@
 """TCP as a connection-state table over [H, S] tensors.
 
-The counterpart of `shadow_tpu.transport.tcp`, with NewReno and AIMD
-congestion control. Sequence space is MSS-sized segments; the receive
+The counterpart of `shadow_tpu.transport.tcp`, with NewReno, AIMD and
+CUBIC congestion control. Sequence space is MSS-sized segments; the receive
 reassembly buffer is a bitmap of W 64-bit words per connection, and the
 in-order advance is the bitmap's run of trailing ones. Timers are events
 carrying (slot, generation, kind); a timer whose generation no longer
@@ -21,20 +21,22 @@ int64 tensors holding the same bits. Right shifts that the reference
 does on u64 are logical here (`_shr`), the population count is a SWAR
 sum, and every shift amount is kept inside [0, 63].
 
-CUBIC is not ported: its window needs XLA's CPU `cbrt`, which is glibc's
-`powf(|x|, f32(1/3))` (F2), and `TCP(cc="cubic")` raises.
+CUBIC's cube root is XLA's CPU `cbrt`, glibc's `powf(|x|, f32(1/3))`,
+replayed bit for bit by `transport/cbrt.py` (a CUDA kernel on the card).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from shadow_tpu_torch.core.engine import BURST_NSEG_SHIFT, Emit, _select_rows
 from shadow_tpu_torch.core.timebase import MILLISECOND, SECOND
 from shadow_tpu_torch.host.nic import HEADER_TCP, MTU
 from shadow_tpu_torch.host.sockets import PROTO_NONE, PROTO_TCP, PROTO_UDP
+from shadow_tpu_torch.transport.cbrt import cbrt, fma_f32
 from shadow_tpu_torch.transport.stack import (
     F_ACK,
     F_FIN,
@@ -90,11 +92,6 @@ T_KIND = 2
 TK_RTO = 0
 TK_TIMEWAIT = 1
 TK_DELACK = 2
-
-F2_MESSAGE = (
-    "CUBIC is not ported (F2): its window takes the cube root that XLA "
-    "compiles on the CPU to glibc's powf(|x|, f32(1/3)), which the port "
-    "does not replay yet; use cc='reno' or 'aimd'")
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -448,14 +445,67 @@ class AimdCC:
 
 
 class CubicCC:
-    """CUBIC (RFC 8312), `shadow_tpu/transport/tcp.py`'s `CubicCC`: not
-    ported (F2), so it has no hooks and `TCP(cc="cubic")` refuses it.
-    Bit-identity needs its exact cube root: XLA compiles `jnp.cbrt` on
-    the CPU to `copysign(powf(|x|, f32(1/3)), x)` through glibc's
-    `powf`, folds `/ C` into `* 2.5`, and computes `(t - k)**3` as
-    `(t-k)*((t-k)*(t-k))` with no contraction."""
+    """CUBIC (RFC 8312, the Linux bictcp shape): window growth
+    W(t) = C*(t-K)^3 + origin with K = cbrt((origin - cwnd0)/C), cwnd0
+    the cwnd when the epoch starts; a no-loss epoch (cwnd0 >= W_max) has
+    K = 0 and origin = cwnd0. A TCP-friendly floor tracks what Reno
+    would have reached since the epoch. cc_wmax doubles as the epoch
+    origin; cc_epoch == 0 means "epoch not started".
+
+    The f32 arithmetic is the reference's as XLA compiles it on the CPU:
+    `/ C` is folded into `* 2.5` (the one multiply where the reference's
+    source divides); `(t-K)**3` is `(t-K) * ((t-K)*(t-K))`; the backend
+    fuses three multiply-adds into FMAs (t, the cubic target and the
+    friendly window; `cbrt.fma_f32`); and the cube root is `cbrt.cbrt`,
+    the replay of glibc's powf(|x|, f32(1/3)) (F2)."""
 
     name = "cubic"
+    C = 0.4
+    BETA = 0.7
+    # 1 / C as XLA folds it
+    INV_C = 2.5
+    # the f32 constants the FMAs take: ns to s, C, and Reno's additive
+    # increase per RTT for BETA (a weak f32 in the reference)
+    NS_F32 = float(np.float32(1e-9))
+    C_F32 = float(np.float32(C))
+    FRIENDLY_F32 = float(np.float32(3.0 * (1.0 - BETA) / (1.0 + BETA)))
+
+    @classmethod
+    def on_ack(cls, row, n_acked, now):
+        n = n_acked.to(_F32)
+        in_ss = row.cwnd < row.ssthresh
+        fresh_epoch = row.cc_epoch == 0
+        epoch = torch.where(fresh_epoch, now, row.cc_epoch)
+        origin = torch.where(fresh_epoch,
+                             torch.maximum(row.cc_wmax, row.cwnd),
+                             row.cc_wmax)
+        cwnd0 = torch.minimum(row.cwnd, origin)
+        k = cbrt(torch.clamp(origin - cwnd0, min=0.0) * cls.INV_C)
+        srtt_s = torch.clamp(row.srtt, min=MILLISECOND).to(_F32) * 1e-9
+        t = fma_f32((now - epoch).to(_F32), cls.NS_F32, srtt_s)
+        d = t - k
+        target = fma_f32(d * (d * d), cls.C_F32, origin)
+        friendly = fma_f32(t / srtt_s, cls.FRIENDLY_F32, cwnd0)
+        target = torch.maximum(target, friendly)
+        inc = torch.minimum(
+            torch.clamp(target - row.cwnd, min=0.0)
+            / torch.clamp(row.cwnd, min=1.0) * n, n)
+        cwnd = torch.where(in_ss, row.cwnd + n, row.cwnd + inc)
+        return (cwnd, torch.where(in_ss, row.cc_wmax, origin),
+                torch.where(in_ss, row.cc_epoch, epoch))
+
+    @classmethod
+    def on_loss(cls, row, flight, now):
+        # fast convergence: below the previous W_max, remember less
+        wmax = torch.where(row.cwnd < row.cc_wmax,
+                           row.cwnd * (2.0 - cls.BETA) / 2.0, row.cwnd)
+        ss = torch.clamp(row.cwnd * cls.BETA, min=2.0)
+        return ss + 3, ss, wmax, torch.zeros_like(row.cc_epoch)
+
+    @classmethod
+    def on_timeout(cls, row, flight, now):
+        ss = torch.clamp(row.cwnd * cls.BETA, min=2.0)
+        return ss, row.cwnd, torch.zeros_like(row.cc_epoch)
 
 
 CC_ALGOS = {c.name: c for c in (RenoCC, AimdCC, CubicCC)}
@@ -509,7 +559,7 @@ class TCP:
     tx_burst: segments sent per KIND_TCP_TX kick.
     inline_budget: segments sent inline from the ACK-processing path.
     auto_close: a connection reaching CLOSE_WAIT closes itself.
-    cc: 'reno' or 'aimd' (or a hook class); 'cubic' raises (F2).
+    cc: 'reno', 'aimd' or 'cubic' (or a hook class).
     delack: delayed ACKs. in_order: app deliveries surface bytes only as
       rcv_nxt advances. autotune: receive-window autotuning.
     child_slot_limit: passive-open children take only slots below it.
@@ -526,8 +576,6 @@ class TCP:
                  child_slot_limit: int | None = None,
                  rst_on_unmatched: bool = False):
         self.cc = CC_ALGOS[cc] if isinstance(cc, str) else cc
-        if self.cc is CubicCC:
-            raise NotImplementedError(F2_MESSAGE)
         self.tx_burst = tx_burst
         self.inline_budget = inline_budget
         self.auto_close = auto_close

@@ -500,3 +500,122 @@ def test_phold_crash_on_cuda_matches_cpu():
         np.testing.assert_array_equal(states["cuda"][key], a, err_msg=key)
     assert states["cpu"]["stats.n_quarantined"].sum() > 0
     assert states["cpu"]["stats.n_fault_dropped"].sum() > 0
+
+
+def test_cbrt_kernel_matches_plain():
+    """The cube-root kernel equals its plain version bit for bit on three
+    spans of CUBIC's domain (the subnormals, around 1.0, up to 2560), on
+    edge inputs outside it, on the CPU's plain version too, and counts
+    one launch per call."""
+    _need_card()
+    from shadow_tpu_torch.transport import cbrt
+
+    i32 = torch.int32
+    end = chip_smoke.CBRT_DOMAIN_END
+    for start in (0, 0x3F800000 - (1 << 19), end - (1 << 20) + 1):
+        x = torch.arange(start, start + (1 << 20), dtype=i32,
+                         device="cuda").view(torch.float32)
+        before = cbrt.launches
+        got = cbrt.cbrt(x)
+        want = cbrt.cbrt_plain(x)
+        torch.cuda.synchronize()
+        assert cbrt.launches == before + 1
+        assert torch.equal(got.view(i32), want.view(i32))
+        assert torch.equal(got.cpu().view(i32),
+                           cbrt.cbrt(x.cpu()).view(i32))
+    pos = torch.tensor(chip_smoke.CBRT_EDGES, dtype=torch.int64)
+    bits = torch.cat([pos, pos | 0x80000000])
+    x = (bits - ((bits >> 31) << 32)).to(i32).view(torch.float32)
+    got = cbrt.cbrt(x.cuda()).cpu().view(i32)
+    assert torch.equal(got, cbrt.cbrt(x).view(i32))
+    with pytest.raises(TypeError):
+        cbrt.cbrt(torch.zeros(4, dtype=torch.float64, device="cuda"))
+
+
+def test_tgen_cubic_faults_on_cuda_matches_cpu():
+    """Phase 17(c)'s config at 32 pairs (TGen under every fault type with
+    CUBIC) on the card equals the CPU run, which
+    tests/test_torch_cubic.py holds against the JAX reference, and takes
+    the cube root through the kernel."""
+    _need_card()
+    from shadow_tpu_torch.transport import cbrt
+
+    before = cbrt.launches
+    cpu = _config_on_both(chip_smoke.tgen_faults_config(32), dict(
+        seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
+        capacity=chip_smoke.TGEN_CAPACITY, tcp_cc="cubic"))
+    assert cbrt.launches > before
+    assert (cpu["hosts.net.tcb.cc_wmax"] > cpu["hosts.net.tcb.cwnd"]).any()
+    assert cpu["hosts.net.tcb.n_retx"].sum() > 0
+
+
+def _traced_run(name, dev):
+    """(leaves, TraceDrain) of a traced, stats-on run on `dev`, drained at
+    each of its stops: PHOLD on the batched drain, the jittered lossy
+    graph on the chained drain, TGen under faults on the frontier drain,
+    and the spilling PHOLD with the controller's records."""
+    from shadow_tpu_torch import config, sim
+    from shadow_tpu_torch.core import engine
+    from shadow_tpu_torch.net import topology
+    from shadow_tpu_torch.obs.trace import TraceDrain
+    from shadow_tpu_torch.runtime import pressure
+
+    sec = chip_smoke.SECOND
+    if name == "frontier":
+        s = sim.build_simulation(
+            config.parse_config(chip_smoke.tgen_faults_config(4)),
+            device=dev, seed=chip_smoke.TGEN_SEED,
+            n_sockets=chip_smoke.TGEN_SOCKETS,
+            capacity=chip_smoke.TGEN_CAPACITY, frontier=16, trace=256,
+            stats=1)
+        drain = TraceDrain(256)
+        st = s.state0
+        for stop in (5, 8):
+            st = drain.drain_state(s.run(stop * sec, state=st))
+        return convert.engine_state_to_numpy(st), drain
+    if name == "spill":
+        eng, init = phold.build(16, capacity=8, spill=32, batched=True,
+                                device=dev, hot_hosts=4, hot_weight=0.6,
+                                msgs_per_host=2, trace=64, stats=1)
+        ctrl = pressure.PressureController(16, 8, eng.cfg.lookahead,
+                                           n_args=phold.N_PHOLD_ARGS)
+        drain = TraceDrain(64)
+        ctrl.attach_trace(drain, len_arg=eng.cfg.trace_len_arg)
+        st = pressure.run_with_spill(eng, init(), 400 * chip_smoke.MS, ctrl)
+        return convert.engine_state_to_numpy(drain.drain_state(st)), drain
+    if name == "batched":
+        eng, init = phold.build(32, batched=True, device=dev,
+                                msgs_per_host=4, seed=3, trace=64, stats=1)
+        cap = 64
+    else:
+        eng, init = chip_smoke.phold_variant(
+            phold, engine, topology, "jitter", dev, n_hosts=64, trace=128,
+            stats=1)
+        cap = 128
+    drain = TraceDrain(cap)
+    st = init()
+    for stop in (sec // 2, sec):
+        st = drain.drain_state(eng.run(st, stop))
+    return convert.engine_state_to_numpy(st), drain
+
+
+@pytest.mark.parametrize("name", ["batched", "chained", "frontier", "spill"])
+def test_traced_on_cuda_matches_cpu(name):
+    """Tracing and the stats plane on the card (the ring appends, the
+    histogram updates, the frontier's per-round append, the
+    controller's spill and refill rows) equal the CPU run, which
+    tests/test_torch_trace.py and tests/test_torch_stats.py hold against
+    the JAX reference: every leaf, the ring and the plane included, and
+    every drained record."""
+    _need_card()
+    before = merge.launches
+    (lc, dc), (lp, dp) = _traced_run(name, "cuda"), _traced_run(name, "cpu")
+    assert merge.launches > before
+    assert lc.keys() == lp.keys()
+    for key, a in lp.items():
+        np.testing.assert_array_equal(lc[key], a, err_msg=key)
+    rc, rp = dc.records(), dp.records()
+    for key, a in rp.items():
+        np.testing.assert_array_equal(rc[key], a, err_msg=key)
+    assert (dc.lost, dc.n_records) == (dp.lost, dp.n_records)
+    assert dp.n_records > 0 and lp["splane.wait_n"].sum() > 0

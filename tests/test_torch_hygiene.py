@@ -37,6 +37,12 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.models.tor, shadow_tpu_torch.models.bitcoin\n"
         "import shadow_tpu_torch.runtime.pressure\n"
         "import shadow_tpu_torch.faults\n"
+        "import shadow_tpu_torch.obs.trace, shadow_tpu_torch.obs.stats\n"
+        "import shadow_tpu_torch.obs.profiler\n"
+        "import shadow_tpu_torch.runtime.invariants\n"
+        "import shadow_tpu_torch.tools.export_trace\n"
+        "import shadow_tpu_torch.tools.critical_path\n"
+        "import shadow_tpu_torch.transport.cbrt\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -162,10 +162,18 @@ def test_state_summary_matches_reference():
 
 
 def test_unported_knobs_raise():
-    for knob in (dict(trace=4), dict(stats=1), dict(n_shards=2),
-                 dict(axis_name="x")):
+    for knob in (dict(n_shards=2), dict(axis_name="x")):
         with pytest.raises(NotImplementedError):
             tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, **knob)
+    # tracing and the stats plane are ported (tests/test_torch_trace.py,
+    # tests/test_torch_stats.py); their knobs are range-checked as in the
+    # reference
+    for knob in (dict(trace=-1), dict(stats=-1), dict(trace_len_arg=9)):
+        with pytest.raises(ValueError):
+            tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, **knob)
+    eng, init = tphold.build(4, trace=4, stats=1, device="cpu")
+    st = init()
+    assert st.trace.time.shape == (4, 4 + 2) and st.splane is not None
     cfg = tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1)
     net = tengine.ConstantNetwork(1)
     # fault schedules are ported (tests/test_torch_faults.py); a crash

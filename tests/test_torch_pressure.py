@@ -16,8 +16,9 @@ At tests/test_pressure.py's size (H = 16, capacity 8, a skewed PHOLD):
 - build_simulation's spill mode equals the reference's, summary
   included, on PHOLD over UDP and on TGen over TCP; the strict mode
   raises with the same accounting;
-- spill=0 leaves no ring; "grow", the diagnostic bundle, the reservoir's
-  checkpoint extras and its trace records raise NotImplementedError.
+- spill=0 leaves no ring; "grow", the diagnostic bundle and the
+  reservoir's checkpoint extras raise NotImplementedError; a TraceDrain
+  attaches (its records: tests/test_torch_trace.py).
 
 With the slow tests also chip_smoke.py's phase 14 (bench.py's skew
 shape, 4096 hosts to 2 sim-s) in both packages, against its pins.
@@ -43,6 +44,7 @@ from shadow_tpu_torch import convert
 from shadow_tpu_torch import sim as tsim
 from shadow_tpu_torch.core import events as te
 from shadow_tpu_torch.models import phold as tphold
+from shadow_tpu_torch.obs.trace import TraceDrain
 from shadow_tpu_torch.runtime import pressure as tp
 from test_torch_phold import assert_leaves_equal, jax_leaves
 from test_torch_tcp import one_torch_thread  # noqa: F401 (autouse)
@@ -362,10 +364,13 @@ def test_grow_and_unported_extras_raise():
     with pytest.raises(NotImplementedError, match="supervisor"):
         tp.pressure_bundle(tp.QueuePressureError(1, 8, {}), diag_dir=".",
                            label="x")
-    for call in (ctrl.serialize, lambda: ctrl.restore({}),
-                 lambda: ctrl.attach_trace(None)):
+    for call in (ctrl.serialize, lambda: ctrl.restore({})):
         with pytest.raises(NotImplementedError):
             call()
+    # spill/refill trace records are ported (tests/test_torch_trace.py)
+    drain = TraceDrain(8)
+    ctrl.attach_trace(drain, len_arg=1)
+    assert ctrl.trace_drain is drain and ctrl._trace_len_arg == 1
     assert tp.OVERFLOW_MODES == jp.OVERFLOW_MODES
 
 

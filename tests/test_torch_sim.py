@@ -33,7 +33,10 @@ from shadow_tpu_torch import convert
 from shadow_tpu_torch import examples as texamples
 from shadow_tpu_torch import sim as tsim
 from shadow_tpu_torch.net import dns as tdns
+from shadow_tpu_torch.obs.profiler import WindowProfiler
 from shadow_tpu_torch.transport import stack as tstack
+from shadow_tpu_torch.transport import tcp as ttcp
+from shadow_tpu_torch.transport.stack import A_LEN
 from test_config_sim import PHOLD_CONFIG, TOPO_1POI, tgen_config
 from test_torch_phold import assert_leaves_equal, jax_leaves
 from test_torch_udp_stack import REFERENCE_AVX512
@@ -247,11 +250,17 @@ def test_step_window_and_state_carry(sim_dir):
 def test_unported_knobs_raise():
     cfg = tconfig.parse_config(texamples.phold_example(8, 1, 2))
     for kw in (dict(mesh=object()), dict(locality=True),
-               dict(host_order=[0]), dict(trace=8),
-               dict(stats=1), dict(profiler=object()),
-               dict(overflow="grow")):
+               dict(host_order=[0]), dict(overflow="grow")):
         with pytest.raises(NotImplementedError):
             tsim.build_simulation(cfg, device="cpu", **kw)
+    # tracing, the stats plane and the profiler are ported
+    # (tests/test_torch_trace.py, tests/test_torch_stats.py)
+    prof = WindowProfiler()
+    ts = tsim.build_simulation(cfg, device="cpu", trace=8, stats=1,
+                               profiler=prof)
+    assert ts.engine.cfg.trace == 8 and ts.engine.cfg.stats == 1
+    assert ts.engine.cfg.trace_len_arg == A_LEN
+    assert "profile" in ts.summary(ts.run(1))
     # spill and the frontier drain are ported (tests/test_torch_pressure.py,
     # tests/test_torch_frontier.py); PHOLD over UDP is not frontier-safe,
     # in both packages
@@ -283,10 +292,11 @@ def test_unported_knobs_raise():
             jsim.build_simulation(jconfig.parse_config(text))
         with pytest.raises(ValueError, match=why):
             tsim.build_simulation(tconfig.parse_config(text), device="cpu")
-    # tgen is ported (tests/test_torch_tgen.py); its CUBIC is not (F2)
-    with pytest.raises(NotImplementedError, match="F2"):
-        tsim.build_simulation(tconfig.parse_config(tgen_config()),
-                              tcp_cc="cubic", device="cpu")
+    # tgen is ported (tests/test_torch_tgen.py), CUBIC too
+    # (tests/test_torch_cubic.py)
+    ts = tsim.build_simulation(tconfig.parse_config(tgen_config()),
+                               tcp_cc="cubic", device="cpu")
+    assert ts.stack.tcp.cc is ttcp.CubicCC
 
 
 def test_strict_overflow_raises():

@@ -14,7 +14,8 @@
 - `rst_on_unmatched`: a SYN that no socket claims, and data that lands
   on the bare listener after the server lost its connection, each draw
   an RST that closes the client;
-- CUBIC refused (F2).
+- `TCP(cc="cubic")` takes CUBIC (F2 solved; tests/test_torch_cubic.py
+  runs it).
 
 Every comparison is exact, dtypes included.
 """
@@ -214,8 +215,8 @@ def test_tcb_create_and_convert():
 
 
 def test_cubic_is_refused():
-    with pytest.raises(NotImplementedError, match="F2"):
-        ttcp.TCP(cc="cubic")
+    # CUBIC is ported (F2 solved, tests/test_torch_cubic.py)
+    assert ttcp.TCP(cc="cubic").cc is ttcp.CubicCC
     with pytest.raises(KeyError):
         ttcp.TCP(cc="vegas")
     assert ttcp.TCP(cc="aimd").cc is ttcp.AimdCC

@@ -1,7 +1,8 @@
 """The TCP matrix of tests/test_tcp_matrix.py in shadow_tpu_torch against
 shadow_tpu, leaf for leaf.
 
-{loopback, lossless, lossy} x {reno, aimd} (CUBIC is F2, not ported),
+{loopback, lossless, lossy} x {reno, aimd} (CUBIC's cells are in
+tests/test_torch_cubic.py),
 then the fidelity features: delayed ACK against none, receive-window
 autotuning on a high-BDP path, SACK under loss, and in-order delivery
 under loss. The reference side is tests/test_tcp_matrix.py's `build`

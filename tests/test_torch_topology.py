@@ -158,11 +158,11 @@ def test_route_with_jitter_matches_reference():
                              jnp.asarray(cnt))
     _, rkt = trng.event_keys(et._base_key, torch.from_numpy(gids),
                              torch.from_numpy(cnt))
-    outj, fmj, drj, *_ = jax.jit(ej._route)(
+    outj, fmj, drj, _fdj, tj, locj = jax.jit(ej._route)(
         jengine.Emit(**{f: jnp.asarray(v) for f, v in emit.items()}),
         jnp.asarray(base), jnp.asarray(gids), jnp.int64(window_end), rkj,
         jnp.asarray(emit["mask"]), jnp.asarray(seq))
-    outt, fmt, drt, fdt = et._route(
+    outt, fmt, drt, fdt, tt, loct = et._route(
         tengine.Emit(**{f: torch.from_numpy(v) for f, v in emit.items()}),
         torch.from_numpy(base), torch.from_numpy(gids),
         torch.tensor(window_end), rkt, torch.from_numpy(emit["mask"]),
@@ -173,6 +173,9 @@ def test_route_with_jitter_matches_reference():
         np.testing.assert_array_equal(a, b, err_msg=f)
     np.testing.assert_array_equal(np.asarray(fmj), fmt.numpy())
     np.testing.assert_array_equal(np.asarray(drj), drt.numpy())
+    # the routed times and locality the trace and stats branches read
+    np.testing.assert_array_equal(np.asarray(tj), tt.numpy())
+    np.testing.assert_array_equal(np.asarray(locj), loct.numpy())
     assert fdt is None  # no fault overlay compiled in
     assert drt.any() and fmt.any()
 

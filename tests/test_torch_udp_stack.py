@@ -621,8 +621,8 @@ def test_stack_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="capture"):
         tstack.Stack().send_udp(hs, torch.zeros(2, dtype=torch.int64), 0, 1,
                                 80, 100)
-    with pytest.raises(NotImplementedError, match="F2"):
-        ttcp.TCP(cc="cubic")  # the TCP stack is ported; CUBIC is not
+    # the TCP stack is ported, CUBIC too (F2 solved)
+    assert ttcp.TCP(cc="cubic").cc is ttcp.CubicCC
     with pytest.raises(ValueError):
         tstack.Stack(rx_queue="red")
     net = dataclasses.replace(
