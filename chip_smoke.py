@@ -71,7 +71,7 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    adoption time;
 13. several app models in one config (`sim.FusedModel`): TGen at 1,024
    pairs beside 2,048 PHOLD peers (4096 hosts), with bench.py's TCP
-   knobs, run once to MIXED_STOP_S = 5 sim-s: held the same way as 11,
+   knobs, run once to MIXED_STOP_S = 4 sim-s: held the same way as 11,
    and to its TGen streams done, PHOLD messages sent and received and
    hosts per model; a profile of 1.00-1.25 s;
 14. lossless overflow (`runtime.pressure`): bench.py's skew shape
@@ -113,7 +113,18 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    14's spill run on the batched drain with the controller's SPILL and
    REFILL rows; (c) phase 15's frontier run to 5 sim-s (the deferred
    per-round append, the run-length family); each traced run's ms per
-   inner step printed beside the untraced run of phases 8 and 15.
+   inner step printed beside the untraced run of phases 8 and 15;
+19. the command line: `shadow_tpu_torch.cli.main`, in-process, on
+   phase 10's config with the CLI's default --overflow spill and
+   --metrics, heartbeats every 2 sim-s and a checkpoint every 4, to
+   CLI_STOP_S = 8 sim-s (the 4 s checkpoint lands while the first TCP
+   streams are in flight), then a second `main` resuming from that
+   checkpoint to the same stop: each held to PIN_CLI_TGEN (the
+   summary's deterministic fields, the sha256 of the stripped stdout,
+   of the mid-run checkpoint's leaf table and the final leaves' digest),
+   the two final states equal, merge launches counted from zero and
+   required; its host reads per segment, harvest share of the loop's
+   wall time and wall time printed beside phase 10's.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -121,7 +132,7 @@ package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines; `--only 17,18` runs phases 1-3 and then only
-the listed phases (9-18), without the result lines.
+the listed phases (9-19), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
@@ -132,7 +143,8 @@ for phases 11 and 12, `tests/test_torch_multimodel.py`,
 `tests/test_torch_pressure.py` and `tests/test_torch_frontier.py` with
 `-m slow` for phases 13, 14 and 15, `tests/test_torch_faults_tcp.py -m
 slow` for phase 16, `tests/test_torch_cubic.py -m slow` for phase 17,
-`tests/test_torch_trace.py -m slow` for phase 18). The merge-input
+`tests/test_torch_trace.py -m slow` for phase 18,
+`tests/test_torch_cli.py -m slow` for phase 19). The merge-input
 generator below is shared with tests/test_torch_merge.py.
 """
 
@@ -356,15 +368,16 @@ TGEN_LESS_INNER = (
 # windows, sweeps, inner steps, queue drops, TGen streams done, PHOLD
 # messages sent and received, hosts of model 0 and of model 1, digest).
 MIXED_PAIRS, MIXED_PEERS, MIXED_LOAD = 1024, 2048, 2
-# cut to 5 sim-s, where JAX/CPU counts 652 inner steps (825 at 6 s, 1,164
-# at 8 s); the clients starting at 3 s and 4 s have run by then
-MIXED_STOP_S = 5
+# cut to 4 sim-s (from 5 when phase 19 came), where JAX/CPU counts 491
+# inner steps (652 at 5 s, 825 at 6 s, 1,164 at 8 s); the clients
+# starting at 3 s have run by then, and the PHOLD peers for 3 s
+MIXED_STOP_S = 4
 PIN_MIXED = (
-    351_459, 80, 80, 652, 0, 410, 327_680, 323_584, 2_048, 2_048,
-    "1f84b1a2f5af122ed6cd235f1b976452a6da5978ece605e03c88ea0e48b561f0")
+    254_574, 60, 60, 491, 0, 205, 245_760, 241_664, 2_048, 2_048,
+    "c4bc2b79937d5128b34264f78d541cd6977ae9f9e50382607402f4220ceeb42b")
 # PHOLD's messages start at 1 s: the profile covers 1.00-1.25 s
 MIXED_PROFILE_S = (1.0, 1.25)
-MIXED_TIMED_CALL = 61
+MIXED_TIMED_CALL = 45
 # Lossless overflow (phase 14): bench.py's `skew_worker` (bench.py:
 # 689-703: PHOLD 4096 x 8, seed 1234, batched drain, 64 hot hosts taking
 # 30% of the traffic), cut from 10 to SKEW_STOP_NS, at capacity
@@ -522,6 +535,114 @@ def trace_pin(leaves, drain) -> tuple:
             + tuple(int(n) for n in ops[:6])
             + (int(drain.lost), h.hexdigest(), leaves_digest(plane),
                leaves_digest(leaves)))
+
+
+# The command line (phase 19): `shadow_tpu_torch.cli.main` on phase 10's
+# TGen config (2,048 pairs, 4096 hosts) with the CLI's default --overflow
+# spill, --metrics, heartbeats every 2 sim-s and a checkpoint every 4, to
+# CLI_STOP_S: the 4 s checkpoint lands while the first clients' TCP
+# streams are in flight (they start at 3-7 s). Then a second `main`
+# resumes from that checkpoint (copied alone into a fresh directory) to
+# the same stop. Pins from the reference's CLI on the CPU (the slow test
+# of tests/test_torch_cli.py): per run the summary's deterministic fields,
+# the sha256 of the stripped stdout (heartbeat rows and summary), the
+# sha256 of the mid-run checkpoint's leaf table and the final state's
+# leaves_digest (read from the stop's checkpoint).
+CLI_STOP_S = 8
+CLI_CKPT = "cli.ckpt.npz"
+CLI_MID_CKPT = CLI_CKPT + ".1"
+CLI_ARGV = ["tgen.xml", "--seed", str(TGEN_SEED), "--sockets",
+            str(TGEN_SOCKETS), "--capacity", str(TGEN_CAPACITY),
+            "--stoptime", str(CLI_STOP_S), "--heartbeat-frequency", "2",
+            "--checkpoint-interval", "4", "--checkpoint-keep", "2",
+            "--checkpoint-path", CLI_CKPT, "--metrics"]
+CLI_SUMMARY_KEYS = ("events", "windows", "sweeps", "queue_drops",
+                    "net_dropped", "rx_bytes", "tx_bytes", "events_by_kind",
+                    "pressure", "capacity")
+_CLI_SUMMARY = {
+    "events": 153642, "windows": 91, "sweeps": 91, "queue_drops": 0,
+    "net_dropped": 0, "rx_bytes": 326417196, "tx_bytes": 335626240,
+    "events_by_kind": {"pkt_arrive": 68013, "pkt_rx": 0, "tcp_timer": 5738,
+                       "tcp_tx": 73746, "tgen.0": 6145},
+    "pressure": {"spilled": 0, "spill_lost": 0, "fill_hwm": 23,
+                 "pending": 0, "refilled": 0, "resident": 0,
+                 "overdue": 0},
+    "capacity": 768}
+PIN_CLI_TGEN = {
+    "run": {
+        "summary": _CLI_SUMMARY,
+        "log_sha256": (
+            "c3896eaa03a99af583e58dd590cf7cfa"
+            "851bc4f623fb3d84c1d883abb030b0ac"),
+        "mid_leaf_table_sha256": (
+            "d9d96e141130d37b73bed1172ce71ed4"
+            "3365f1fdaa87bd84a6aefe602faa9fd8"),
+        "final_digest": (
+            "1ebd9129305d09c843e7f8591f71021e"
+            "166e33d043fca224ee4c00621f18e947")},
+    "resumed": {
+        "summary": _CLI_SUMMARY,
+        "log_sha256": (
+            "2f9fcaf768a137fbeac48bc107d34fa8"
+            "282ff9bf96bfcb684668b08d5cce0baf"),
+        "mid_leaf_table_sha256": (
+            "d9d96e141130d37b73bed1172ce71ed4"
+            "3365f1fdaa87bd84a6aefe602faa9fd8"),
+        "final_digest": (
+            "1ebd9129305d09c843e7f8591f71021e"
+            "166e33d043fca224ee4c00621f18e947")}}
+
+
+def checkpoint_leaf_table(path) -> str:
+    """sha256 over a checkpoint's leaf table: its paths, shapes, dtypes
+    and CRC32s, and its extras' CRC32s, as the header records them."""
+    with np.load(path) as data:
+        h = json.loads(bytes(data["__header__"]).decode("utf-8"))
+    table = [h["paths"], h["shapes"], h["dtypes"], h["crc32"], h["extra"]]
+    return hashlib.sha256(json.dumps(table).encode()).hexdigest()
+
+
+def checkpoint_digest(path) -> str:
+    """leaves_digest of the state a checkpoint holds."""
+    from shadow_tpu_torch.convert import key_of, leaves_digest
+
+    with np.load(path) as data:
+        h = json.loads(bytes(data["__header__"]).decode("utf-8"))
+        leaves = {key_of(p): data[f"leaf_{i}"]
+                  for i, p in enumerate(h["paths"])}
+    return leaves_digest(leaves)
+
+
+def cli_pin_fields(stdout: str, workdir) -> dict:
+    """A phase-19 run's pin from its stdout and its directory (either
+    package's CLI)."""
+    from pathlib import Path
+
+    from shadow_tpu_torch.tools.strip_log import strip_line
+
+    lines = stdout.splitlines()
+    summary = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    fields = {k: summary[k] for k in CLI_SUMMARY_KEYS}
+    fields["pressure"] = {k: v for k, v in fields["pressure"].items()
+                          if k != "harvest_seconds"}
+    stripped = "".join(s + "\n" for s in map(strip_line, lines)
+                       if s is not None)
+    d = Path(workdir)
+    with np.load(d / CLI_CKPT) as data:
+        meta = json.loads(bytes(data["__header__"]).decode("utf-8"))["meta"]
+    if meta["sim_seconds"] != summary["sim_seconds"]:
+        raise ValueError(f"{CLI_CKPT} was written at {meta['sim_seconds']} "
+                         f"s, not at the stop ({summary['sim_seconds']} s)")
+    return {"summary": fields,
+            "log_sha256": hashlib.sha256(stripped.encode()).hexdigest(),
+            "mid_leaf_table_sha256": checkpoint_leaf_table(d / CLI_MID_CKPT),
+            "final_digest": checkpoint_digest(d / CLI_CKPT)}
+
+
+def cli_pin_of(pins: dict) -> dict:
+    """The pin as PIN_CLI_TGEN stores it: {"run": fields, "resumed":
+    fields}, through JSON (so tuples and ints compare as stored)."""
+    return json.loads(json.dumps({k: pins[k] for k in ("run", "resumed")}))
 
 
 def tgen_faults_config(n_pairs: int) -> str:
@@ -1896,6 +2017,92 @@ def phase_trace(phold, engine, topology, pressure, sim_mod, config_mod,
     return out
 
 
+def phase_cli(merge, smi_line, tgen_wall_s=None) -> dict:
+    """`shadow_tpu_torch.cli.main` in-process on phase 10's TGen config:
+    a run to CLI_STOP_S with a checkpoint at 4 s, then a resume from
+    that checkpoint, each with its stdout captured, the merge launches
+    counted from zero and required, and both held to PIN_CLI_TGEN; the
+    resumed run's final state must equal the uninterrupted run's."""
+    import contextlib
+    import io
+    import os
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from shadow_tpu_torch import cli
+
+    pins, runs = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp)
+        # the resumed run also times its phases (--profile: the summary's
+        # "profile", which strip_log drops, so the pins hold either way)
+        for label, extra in (("run", []),
+                             ("resumed", ["--resume", "auto", "--profile"])):
+            d = base / label
+            d.mkdir()
+            if label == "resumed":
+                shutil.copy(base / "run" / CLI_MID_CKPT, d / CLI_CKPT)
+            (d / "tgen.xml").write_text(tgen_config(TGEN_PAIRS))
+            out, cwd, last = io.StringIO(), os.getcwd(), {}
+            torch.cuda.synchronize()
+            merge.launches = 0
+            t0 = time.perf_counter()
+            os.chdir(d)
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = cli.main(CLI_ARGV + extra, run_info=last)
+            finally:
+                os.chdir(cwd)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = merge.launches
+            check(rc == 0, f"cli {label}: exit code {rc}")
+            check(launches > 0, f"cli {label}: no merge launch")
+            pins[label] = cli_pin_fields(out.getvalue(), d)
+            summary = json.loads([ln for ln in out.getvalue().splitlines()
+                                  if ln.startswith("{")][-1])
+            inner = [0, 0]
+            for k, name in enumerate((CLI_MID_CKPT, CLI_CKPT)):
+                with np.load(d / name) as data:
+                    h = json.loads(bytes(data["__header__"]).decode())
+                    i = h["paths"].index(".stats.n_inner_steps")
+                    inner[k] = int(data[f"leaf_{i}"])
+            # the resumed run starts at the mid-run checkpoint's steps
+            steps = inner[1] - (inner[0] if label == "resumed" else 0)
+            runs[label] = {
+                "wall_s": wall, "launches": launches,
+                "inner_steps": steps,
+                "ms_per_inner_step": 1e3 * last["loop_s"] / steps,
+                "segments": last["segments"],
+                "harvest_reads_per_segment":
+                    last["harvest_reads"] / last["segments"],
+                "host_syncs_per_segment":
+                    last["host_syncs"] / last["segments"],
+                "harvest_s": last["harvest_s"],
+                "harvest_share": last["harvest_s"] / last["loop_s"],
+                "loop_s": last["loop_s"],
+                "events": pins[label]["summary"]["events"],
+                "profile_phases": (summary.get("profile") or {}).get(
+                    "phases"),
+            }
+            print(f"  cli {label}: {json.dumps(runs[label])} ({smi_line})")
+    got = cli_pin_of(pins)
+    for label in ("run", "resumed"):
+        for key, val in got[label].items():
+            want = (PIN_CLI_TGEN or {}).get(label, {}).get(key)
+            check(val == want, f"cli {label}: {key} {val} != JAX/CPU {want}")
+    check(got["run"]["final_digest"] == got["resumed"]["final_digest"],
+          "cli: the resumed run's final state differs from the run's")
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({"cli": runs, "phase_s": phase_s,
+                      "tgen_phase10_wall_s": tgen_wall_s,
+                      "card": smi_line}))
+    return {"runs": runs, "phase_s": phase_s}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1906,13 +2113,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (9-18) to run after "
+                    help="comma-separated phases (9-19) to run after "
                          "phases 1-3, skipping the others; prints no "
                          "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= set(range(9, 19)):
-        ap.error("--only takes phases 9 to 18")
+    if not only <= set(range(9, 20)):
+        ap.error("--only takes phases 9 to 19")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1971,6 +2178,8 @@ def main(argv=None) -> int:
                     phase_trace(phold, engine, topology, pressure, sim,
                                 config, trace_mod, merge, convert, dev,
                                 smi_line)
+                elif p == 19:
+                    phase_cli(merge, smi_line)
                 else:
                     phase_app({11: "tor", 12: "btc", 13: "mixed",
                                15: "tgen_frontier", 16: "tgen_faults"}[p],
@@ -2118,6 +2327,10 @@ def main(argv=None) -> int:
                      front["run"]["ms_per_inner_step"]]},
         "card": smi_line}))
 
+    phase("19. the command line: TGen 4096 hosts through cli.main, "
+          "checkpointed in flight and resumed")
+    cli_phase = phase_cli(merge, smi_line, tgen["runs"][0]["wall_s"])
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -2132,7 +2345,8 @@ def main(argv=None) -> int:
                      + front["run"]["launches"]
                      + faults["run"]["launches"]
                      + cubic["run"]["launches"]
-                     + sum(t["launches"] for t in traced.values())),
+                     + sum(t["launches"] for t in traced.values())
+                     + sum(r["launches"] for r in cli_phase["runs"].values())),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -2153,6 +2367,8 @@ def main(argv=None) -> int:
         "launches_tgen_cubic": cubic["run"]["launches"],
         "launches_tgen_cubic_by_hc": cubic["by_hc"],
         "launches_traced": {k: t["launches"] for k, t in traced.items()},
+        "launches_cli": {k: r["launches"]
+                         for k, r in cli_phase["runs"].items()},
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,

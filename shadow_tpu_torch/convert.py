@@ -9,6 +9,14 @@ plane as "splane.*" when they are on. So a state can move between the
 reference and this package leaf for leaf, and `leaves_digest` gives both
 the same fingerprint. A reference GraphNetwork's routing tables come over
 as numpy arrays through `GraphNetwork.from_numpy`.
+
+The leaves come in the reference's pytree flatten order (the dataclass
+fields in declaration order, depth first, a None field contributing
+none), and `keystr` turns a key into the reference's
+`jax.tree_util.keystr` of that path (".hosts.app.subs[0].gid" for
+"hosts.app.subs.0.gid"): the leaf table of a checkpoint
+(`utils/checkpoint.py`) is written in that order under those names, as
+the reference writes it.
 """
 
 from __future__ import annotations
@@ -26,29 +34,64 @@ from shadow_tpu_torch.obs.stats import StatPlane
 from shadow_tpu_torch.obs.trace import TraceRing
 
 
-def _leaves(obj, prefix: str, out: dict) -> dict:
+def _walk(obj, prefix: str, out: list) -> list:
     for f in dataclasses.fields(obj):
-        _leaf(getattr(obj, f.name), f"{prefix}{f.name}",
-              f.metadata.get("u64"), out)
+        _walk_leaf(getattr(obj, f.name), f"{prefix}{f.name}",
+                   bool(f.metadata.get("u64")), out)
     return out
 
 
-def _leaf(v, key: str, u64, out: dict) -> None:
+def _walk_leaf(v, key: str, u64: bool, out: list) -> None:
     if v is None:
         return  # an absent subtree (HostNet.tcb), as in a pytree
     if dataclasses.is_dataclass(v):
-        _leaves(v, key + ".", out)
+        _walk(v, key + ".", out)
     elif isinstance(v, tuple):
         for i, item in enumerate(v):
-            _leaf(item, f"{key}.{i}", u64, out)
+            _walk_leaf(item, f"{key}.{i}", u64, out)
     else:
-        a = v.detach().cpu().numpy()
+        out.append((key, v, u64))
+
+
+def state_tensors(state) -> list[tuple[str, torch.Tensor, bool]]:
+    """(key, tensor, holds u64 bits) for every leaf of `state`, in the
+    reference's flatten order."""
+    return _walk(state, "", [])
+
+
+def numpy_dtype(t: torch.Tensor, u64: bool = False) -> np.dtype:
+    """The numpy dtype of a leaf as `engine_state_to_numpy` gives it."""
+    if u64:
+        return np.dtype(np.uint64)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def _leaves(obj, prefix: str, out: dict) -> dict:
+    """Every tensor under the dataclass `obj` into `out` as numpy, keyed
+    by field path after `prefix`, in the reference's flatten order."""
+    for key, t, u64 in _walk(obj, prefix, []):
+        a = t.detach().cpu().numpy()
         out[key] = a.view(np.uint64) if u64 else a
+    return out
 
 
 def engine_state_to_numpy(state: EngineState) -> dict[str, np.ndarray]:
-    """Every tensor of `state` as a numpy array, keyed by field path."""
+    """Every tensor of `state` as a numpy array, keyed by field path, in
+    the reference's flatten order."""
     return _leaves(state, "", {})
+
+
+def keystr(key: str) -> str:
+    """A leaf key as the reference's `jax.tree_util.keystr` of that
+    path: a field is ".name", a tuple index "[i]"."""
+    return "".join(f"[{p}]" if p.isdigit() else f".{p}"
+                   for p in key.split("."))
+
+
+def key_of(path: str) -> str:
+    """The inverse of `keystr`: ".hosts.app.subs[0].gid" ->
+    "hosts.app.subs.0.gid"."""
+    return path.replace("[", ".").replace("]", "").lstrip(".")
 
 
 def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,

@@ -1,0 +1,213 @@
+"""One device-to-host copy per segment for the CLI's run loop: the
+counterpart of `shadow_tpu.runtime.harvest`.
+
+At every segment boundary the run loop needs the summary scalars, the
+queue fill, the pressure ring counters, the metrics extras, the stats
+histograms and, at heartbeats, the tracker's counters and the trace
+ring. Read one by one, each would be a device-to-host copy that waits
+for the card. This module gathers all of them as device tensors
+(`extract`, no copy) and brings them to the host in one copy (`fetch`):
+every tensor is viewed as bytes, the bytes are concatenated on the
+device, copied once into a pinned host buffer and waited for with one
+event, then split and viewed back on the host. The read is counted in
+the engine's `host_syncs`, as the engine's own reads are, and in this
+object's `host_syncs`.
+
+    state', bundle = harvest.extract(state, full=True)
+    fetched = harvest.fetch(bundle)       # the segment's only read
+    harvest.consume(fetched, sim_ns)      # host-side formatting
+
+The trace ring's reset rides the extraction: the bundle keeps the
+pre-reset record columns, and the returned state carries the reset ring.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from shadow_tpu_torch.convert import numpy_dtype
+from shadow_tpu_torch.core.timebase import TIME_INVALID
+
+
+def _flatten(tree, prefix=()) -> list:
+    out = []
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out += _flatten(v, prefix + (k,))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def _unflatten(items) -> dict:
+    out: dict = {}
+    for path, v in items:
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = v
+    return out
+
+
+class _Staging:
+    """A pinned host buffer that grows to the largest bundle seen."""
+
+    def __init__(self):
+        self.buf: torch.Tensor | None = None
+
+    def take(self, n: int) -> torch.Tensor:
+        if self.buf is None or self.buf.numel() < n:
+            # a normal tensor even under inference mode, so that a later
+            # fetch outside it may still copy into the buffer
+            with torch.inference_mode(False):
+                self.buf = torch.empty((n,), dtype=torch.uint8,
+                                       pin_memory=True)
+        return self.buf[:n]
+
+
+def fetch_tree(tree: dict, staging: _Staging | None = None) -> dict:
+    """Copy a nested dict of tensors (all on one device) to numpy in one
+    device-to-host copy; returns the same nesting of numpy arrays."""
+    items = _flatten(tree)
+    if not items:
+        return {}
+    parts, layout = [], []
+    for path, t in items:
+        t = t.detach().contiguous()
+        layout.append((path, numpy_dtype(t), tuple(t.shape),
+                       t.numel() * t.element_size()))
+        parts.append(t.reshape(-1).view(torch.uint8))
+    flat = torch.cat(parts)
+    if flat.is_cuda:
+        host = (staging or _Staging()).take(flat.numel())
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        raw = host.numpy()
+    else:
+        raw = flat.numpy()
+    out, off = [], 0
+    for path, dtype, shape, nbytes in layout:
+        # a copy: the pinned buffer is reused by the next fetch
+        a = raw[off:off + nbytes].view(dtype).reshape(shape).copy()
+        out.append((path, a))
+        off += nbytes
+    return _unflatten(out)
+
+
+def queue_fill_ref(q) -> torch.Tensor:
+    """The mean slot occupancy of the queues as a 0-d f32 tensor, as the
+    reference computes its `jnp.mean` of the f32 mask: the valid-slot
+    count (exact in f32 below 2^24) times the f32 reciprocal of the slot
+    count (XLA turns the division by a constant into that product)."""
+    n = torch.sum(q.time != TIME_INVALID, dtype=torch.int64)
+    recip = np.float32(1.0) / np.float32(q.time.numel())
+    return n.to(torch.float32) * torch.full(
+        (), float(recip), dtype=torch.float32, device=q.time.device)
+
+
+class HeartbeatHarvest:
+    """Gathers every segment-boundary read into one copy.
+
+    `tracker`, `tdrain` and `metrics` are the CLI's observability
+    consumers (any may be None); `sim` provides the pressure controller
+    and the engine whose `host_syncs` counts the copy.
+    """
+
+    def __init__(self, sim, *, tracker=None, tdrain=None, metrics=None):
+        self.sim = sim
+        self.tracker = tracker
+        self.tdrain = tdrain
+        # truthy: carry the live-telemetry reductions
+        # (obs.metrics.metrics_device_refs) in the bundle
+        self.metrics = metrics
+        self.host_syncs = 0
+        self._staging = _Staging()
+
+    def rebind(self, sim) -> None:
+        """Point at a rebuilt Simulation (the --overflow grow
+        re-template)."""
+        self.sim = sim
+
+    # -- device half -----------------------------------------------------
+
+    def extract(self, state, *, full: bool):
+        """Gather the segment's bundle as device tensors (no copy);
+        returns (state, bundle). With `full` (a heartbeat) the bundle
+        also holds the tracker's counters and the trace ring's records,
+        and the returned state has the ring reset."""
+        sim = self.sim
+        q = state.queues
+        bundle: dict[str, Any] = {
+            # core.engine.state_summary's keys and reductions
+            "summary": {
+                "now_ns": state.now,
+                "windows": state.stats.n_windows,
+                "executed": state.stats.n_executed.sum(),
+                "sweeps": state.stats.n_sweeps,
+                "queue_drops": q.drops.sum(),
+            },
+            # obs.profiler.queue_fill's reduction
+            "fill": queue_fill_ref(q),
+        }
+        if q.spill is not None:
+            ring = q.spill
+            bundle["summary"]["spilled"] = ring.n_spilled.sum()
+            bundle["summary"]["spill_lost"] = ring.n_lost.sum()
+            bundle["summary"]["fill_hwm"] = ring.fill_hwm.max()
+        if sim.pressure is not None:
+            bundle["pressure"] = sim.pressure.gather(state)
+        if self.metrics is not None:
+            bundle["metrics"] = sim.metrics_refs(state)
+        if state.splane is not None:
+            from shadow_tpu_torch.obs.stats import stats_device_refs
+
+            bundle["stats"] = stats_device_refs(state.splane)
+        if full:
+            if self.tracker is not None:
+                bundle["tracker"] = self.tracker.gather(state)
+            if self.tdrain is not None and state.trace is not None:
+                from shadow_tpu_torch.obs.trace import TraceDrain, reset_ring
+
+                bundle["trace"] = TraceDrain.gather(state.trace)
+                state = dataclasses.replace(
+                    state, trace=reset_ring(state.trace))
+        return state, bundle
+
+    # -- host half -------------------------------------------------------
+
+    def fetch(self, bundle: dict) -> dict:
+        """The segment's one device-to-host copy, counted."""
+        self.host_syncs += 1
+        self.sim.engine.host_syncs += 1
+        return fetch_tree(bundle, self._staging)
+
+    def summary_from(self, fetched: dict) -> dict:
+        """`Simulation.summary`'s dict from a fetched bundle (no state
+        access, no read)."""
+        out = {k: int(v) for k, v in fetched["summary"].items()}
+        sim = self.sim
+        if sim.profiler is not None:
+            out["profile"] = sim.profiler.summary()
+        if sim.pressure is not None and "pressure" in fetched:
+            snap = sim.pressure.snapshot_from(fetched["pressure"])
+            out["refilled"] = snap.get("refilled", 0)
+            out["reservoir"] = snap.get("resident", 0)
+            out["overdue"] = snap.get("overdue", 0)
+        return out
+
+    def consume(self, fetched: dict, sim_ns: int) -> None:
+        """Feed a fetched full bundle to every observability consumer.
+        Trace first: the tracker's [trace] section reads the drain's
+        interval counts."""
+        if self.tdrain is not None and "trace" in fetched:
+            self.tdrain.ingest(fetched["trace"])
+        if self.tracker is not None and "tracker" in fetched:
+            self.tracker.heartbeat_from(fetched["tracker"], sim_ns)
+        if self.tracker is not None and "stats" in fetched:
+            self.tracker.stats_from(fetched["stats"], sim_ns)

@@ -25,18 +25,12 @@ from typing import Any
 
 import numpy as np
 
-from shadow_tpu_torch.convert import engine_state_to_numpy
+from shadow_tpu_torch.convert import engine_state_to_numpy, keystr
 from shadow_tpu_torch.core.timebase import TIME_INVALID
 
 
 class InvariantViolation(RuntimeError):
     """EngineState violated a structural contract; state is corrupt."""
-
-
-def _keystr(key: str) -> str:
-    """A `convert` leaf key as the reference's keystr of that path."""
-    return "".join(f"[{p}]" if p.isdigit() else f".{p}"
-                   for p in key.split("."))
 
 
 def check_state(state: Any, *, prev_now: int | None = None,
@@ -104,7 +98,7 @@ def check_state(state: Any, *, prev_now: int | None = None,
                 continue
             if (arr < 0).any():
                 idx = np.unravel_index(int(np.argmin(arr)), arr.shape)
-                if add(f"{_keystr(key)}{list(idx)}: negative counter "
+                if add(f"{keystr(key)}{list(idx)}: negative counter "
                        f"{int(arr[idx])}"):
                     return viols
 
@@ -147,7 +141,7 @@ def check_state(state: Any, *, prev_now: int | None = None,
         finite = np.isfinite(arr)
         if not finite.all():
             idx = np.unravel_index(int(np.argmin(finite)), arr.shape)
-            if add(f"{_keystr(key)}{list(idx)}: non-finite value "
+            if add(f"{keystr(key)}{list(idx)}: non-finite value "
                    f"{arr[idx]!r}"):
                 return viols
 

@@ -11,9 +11,10 @@ The counterpart of `shadow_tpu.runtime.pressure`. The overflow modes:
           while a host's demand per window fits its queue; `n_overdue`
           counts the rest.
   strict  no ring; the first would-be drop raises QueuePressureError.
-  grow    spill plus a re-template at doubled capacity: not ported (it
-          needs utils/checkpoint.py's `transfer_state`); build_simulation
-          refuses it.
+  grow    spill, plus: the first fresh eviction after a boundary sets
+          `grow_wanted`, and the CLI's run loop rebuilds the engine at
+          doubled capacity and carries the state across through
+          `utils.checkpoint.transfer_state`, keeping this controller.
   drop    overflow is counted in `queues.drops` and the run goes on.
 
 Window boundaries are safe harvest points: during a drain the engine
@@ -30,9 +31,11 @@ becomes an OP_SPILL row and every refilled one an OP_REFILL row of the
 trace, injected on the host (the moments happen there); rows are local
 host ids, since the controller works on one unsharded queue.
 
-Not ported, each raising NotImplementedError: `pressure_bundle` (it
-needs runtime/supervisor.py) and the reservoir's checkpoint extras
-(`serialize`/`restore`, which ride utils/checkpoint.py).
+The reservoir rides a checkpoint's extra arrays (`serialize`/`restore`),
+so `--resume` is exact with events parked on the host; `gather` and
+`snapshot_from` split the telemetry snapshot into device refs and host
+arithmetic, so the heartbeat harvest carries it in its one copy; and
+`pressure_bundle` is the strict mode's diagnostic bundle (exit 76).
 """
 
 from __future__ import annotations
@@ -49,6 +52,10 @@ import torch
 from shadow_tpu_torch.core.events import Events, pack_srcseq, queue_push
 from shadow_tpu_torch.core.timebase import TIME_INVALID
 from shadow_tpu_torch.obs.trace import OP_REFILL, OP_SPILL
+from shadow_tpu_torch.runtime.supervisor import (
+    EXIT_PRESSURE,
+    write_diagnostic_bundle,
+)
 
 OVERFLOW_MODES = ("spill", "strict", "grow", "drop")
 
@@ -62,6 +69,9 @@ _MAX_REFILL_ROUNDS = 8
 _WATERMARK = 0.75
 
 _I64MIN = -(1 << 63)
+
+# the per-host ring counters `gather` returns, in `snapshot`'s copy order
+_GATHER_KEYS = ("n_spilled", "n_lost", "fill_hwm", "wr")
 
 
 class QueuePressureError(RuntimeError):
@@ -81,9 +91,23 @@ class QueuePressureError(RuntimeError):
 
 def pressure_bundle(exc: QueuePressureError, *, diag_dir: str,
                     label: str, extra: dict | None = None) -> str:
-    """The strict mode's diagnostic bundle: not ported."""
-    raise NotImplementedError(
-        "pressure_bundle needs runtime/supervisor.py, which is not ported")
+    """Write the strict mode's diagnostic bundle (exit code 76); returns
+    its path. `extra` adds context beyond the exception, such as the
+    flight recorder's ring of recent heartbeats."""
+    payload = {
+        "reason": "queue pressure under --overflow strict",
+        "would_drop": exc.drops,
+        "capacity": exc.capacity,
+        "progress": exc.summary,
+        "remedy": (
+            "rerun with a larger --capacity, or --overflow spill "
+            "(lossless) / grow (auto-resize) / drop (lossy, counted)"
+        ),
+        "exit_code": EXIT_PRESSURE,
+    }
+    if extra:
+        payload.update(extra)
+    return write_diagnostic_bundle(diag_dir, label, "pressure", payload)
 
 
 def _unpack_words(packed: np.ndarray, n: int) -> list[np.ndarray]:
@@ -118,10 +142,17 @@ class PressureController:
     The counters are cumulative. `host_syncs` counts this controller's
     device-to-host reads; the pushes' own flag reads go through the
     `read` a caller passes to `boundary` (an engine's `_read`).
+
+    In "grow" mode a boundary that harvests fresh evictions sets
+    `grow_wanted`; the CLI re-templates and clears it.
     """
 
     def __init__(self, n_hosts: int, capacity: int, lookahead: int, *,
-                 n_args: int):
+                 n_args: int, mode: str = "spill"):
+        if mode not in ("spill", "grow"):
+            raise ValueError(f"controller modes are spill/grow, got {mode}")
+        self.mode = mode
+        self.grow_wanted = False
         self.n_hosts = int(n_hosts)
         self.capacity = int(capacity)
         self.lookahead = int(lookahead)
@@ -133,6 +164,7 @@ class PressureController:
         self.boundaries = 0
         self.host_syncs = 0
         self._warned_overdue = False
+        self._ring_slots = 0  # ring width, refreshed by gather
         self._n_args = int(n_args)
         # an obs.trace.TraceDrain that OP_SPILL / OP_REFILL rows go to
         self.trace_drain = None
@@ -159,15 +191,55 @@ class PressureController:
             seq=(ss & 0xFFFFFFFF).astype(np.uint32).astype(np.int32),
             op=op, owner=owner, n_hosts=self.n_hosts)
 
-    def serialize(self) -> dict:
-        raise NotImplementedError(
-            "the reservoir's checkpoint extras need utils/checkpoint.py, "
-            "which is not ported")
+    def serialize(self) -> dict[str, np.ndarray]:
+        """The reservoir and counters as flat arrays for a checkpoint's
+        extra section, so `--resume` is exact mid-pressure. Each heap is
+        stored sorted: a heap rebuilt from sorted input pops in the same
+        order, which is all determinism needs."""
+        counts = self.resident()
+        offsets = np.zeros((self.n_hosts + 1,), np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        total = int(offsets[-1])
+        nw = 1  # placeholder width when empty
+        for hp in self._heaps:
+            if hp:
+                nw = len(hp[0][2])
+                break
+        t = np.zeros((total,), np.int64)
+        ss = np.zeros((total,), np.int64)
+        pay = np.zeros((total, nw), np.int64)
+        for h, hp in enumerate(self._heaps):
+            for i, rec in enumerate(sorted(hp)):
+                j = int(offsets[h]) + i
+                t[j], ss[j] = rec[0], rec[1]
+                pay[j] = rec[2]
+        return {
+            "reservoir_offsets": offsets,
+            "reservoir_time": t,
+            "reservoir_srcseq": ss,
+            "reservoir_pay": pay,
+            "n_harvested": self.n_harvested.copy(),
+            "n_refilled": self.n_refilled.copy(),
+            "n_overdue": np.asarray(self.n_overdue, np.int64),
+        }
 
     def restore(self, extra: dict) -> None:
-        raise NotImplementedError(
-            "the reservoir's checkpoint extras need utils/checkpoint.py, "
-            "which is not ported")
+        """Reload the reservoir and counters from `serialize`'s arrays
+        (a checkpoint's extras, either package's)."""
+        offsets = np.asarray(extra["reservoir_offsets"])
+        t = np.asarray(extra["reservoir_time"])
+        ss = np.asarray(extra["reservoir_srcseq"])
+        pay = np.asarray(extra["reservoir_pay"])
+        self._heaps = []
+        for h in range(self.n_hosts):
+            lo, hi = int(offsets[h]), int(offsets[h + 1])
+            heap = [(int(t[j]), int(ss[j]), tuple(int(w) for w in pay[j]))
+                    for j in range(lo, hi)]
+            heapq.heapify(heap)
+            self._heaps.append(heap)
+        self.n_harvested = np.asarray(extra["n_harvested"]).copy()
+        self.n_refilled = np.asarray(extra["n_refilled"]).copy()
+        self.n_overdue = int(extra["n_overdue"])
 
     def _fetch(self, t: torch.Tensor) -> np.ndarray:
         """One counted device-to-host copy."""
@@ -299,6 +371,12 @@ class PressureController:
         resident = sum(len(hp) for hp in self._heaps)
         if not wr.any() and resident == 0:
             return state
+        if self.mode == "grow" and wr.any():
+            # fresh evictions since the last boundary (not a cumulative
+            # counter, not the reservoir draining): the flag re-arms
+            # only if the queue overflows again after a grow, so the
+            # capacity converges instead of doubling forever
+            self.grow_wanted = True
         t0 = _time.perf_counter()
         if wr.any():
             state = self._harvest(state, wr)
@@ -358,26 +436,43 @@ class PressureController:
                 out[h] = hp[0][0]
         return out
 
-    def snapshot(self, state) -> dict:
-        """Cumulative pressure counters, device and host, in one copy."""
+    def gather(self, state) -> dict:
+        """Device refs (nothing copied) for one telemetry snapshot: the
+        ring's per-host counters. The heartbeat harvest carries them in
+        its one copy; `snapshot_from` does the rest on the host."""
         ring = state.queues.spill
-        if ring is None:
-            return {}
-        scap = ring.time.shape[1] - self.capacity
-        vals = self._fetch(torch.stack([
-            ring.n_spilled.sum(), ring.n_lost.sum(),
-            ring.fill_hwm.max().to(torch.int64),
-            torch.clamp(ring.wr, max=scap).sum().to(torch.int64)]))
+        self._ring_slots = int(ring.time.shape[1])
+        return {"n_spilled": ring.n_spilled, "n_lost": ring.n_lost,
+                "fill_hwm": ring.fill_hwm, "wr": ring.wr}
+
+    def snapshot_from(self, fetched: dict) -> dict:
+        """The telemetry dict from a fetched (numpy) `gather`."""
+        spilled = np.asarray(fetched["n_spilled"])
+        lost = np.asarray(fetched["n_lost"])
+        hwm = np.asarray(fetched["fill_hwm"])
+        wr = np.asarray(fetched["wr"])
         return {
-            "spilled": int(vals[0]),
-            "spill_lost": int(vals[1]),
-            "fill_hwm": int(vals[2]),
-            "pending": int(vals[3]),
+            "spilled": int(np.sum(spilled)),
+            "spill_lost": int(np.sum(lost)),
+            "fill_hwm": int(np.max(hwm)) if hwm.size else 0,
+            "pending": int(np.sum(np.minimum(
+                wr, self._ring_slots - self.capacity))),
             "refilled": int(np.sum(self.n_refilled)),
             "resident": int(np.sum(self.resident())),
             "overdue": int(self.n_overdue),
             "harvest_seconds": float(self.harvest_seconds),
         }
+
+    def snapshot(self, state) -> dict:
+        """Cumulative pressure counters, device and host, in one copy."""
+        if state.queues.spill is None:
+            return {}
+        refs = self.gather(state)
+        flat = self._fetch(torch.cat([refs[k].reshape(-1).to(torch.int64)
+                                      for k in _GATHER_KEYS]))
+        h = self.n_hosts
+        return self.snapshot_from(
+            {k: flat[i * h:(i + 1) * h] for i, k in enumerate(_GATHER_KEYS)})
 
 
 def run_with_spill(engine, state, stop, controller: PressureController):

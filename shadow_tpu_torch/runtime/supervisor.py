@@ -1,0 +1,357 @@
+"""Watchdog + graceful-shutdown supervision for the simulator's process: the
+counterpart of `shadow_tpu.runtime.supervisor`.
+
+The run loop's blocking site, the window loop on the card (a kernel that
+never finishes, a device that stops answering), hangs the whole run
+with no diagnosis: the outer `timeout -k` kills the process long after
+the fact and the stacks are gone. The Watchdog turns that into a
+bounded, diagnosable failure; the Supervisor turns SIGTERM/SIGINT from
+run-killers into checkpoint-then-exit requests.
+
+The Watchdog's compile grace waves through the one benign unbounded
+wait of this package: the first-use `nvcc` build of a kernel library
+(`core/nvcc.py`), which can take minutes. The supervised run's
+watchdog has the grace on, so a short `--watchdog` does not fire while
+a kernel compiles.
+
+Free of torch imports: supervision must keep working when the thing it
+supervises is the part that broke. The relaunching wrapper
+(`run_with_retry`, `--retry`) is not ported.
+"""
+
+from __future__ import annotations
+
+import faulthandler
+import json
+import os
+import signal
+import sys
+import threading
+import time
+from typing import Any, Callable
+
+# Distinct exit codes so wrappers (sbatch scripts, k8s restart policies,
+# the test harness) can tell failure classes apart without parsing logs.
+# 75 = EX_TEMPFAIL (retryable: the run stalled, a resubmit may succeed),
+# 70 = EX_SOFTWARE (internal state corruption; do NOT blindly resume),
+# 76 = EX_PROTOCOL-adjacent (queue pressure under --overflow strict: the
+#      run is healthy but its results would be lossy; rerun with a larger
+#      --capacity or a lossless overflow mode),
+# 77 = a collective deadline expired (a mesh peer died or wedged mid
+#      collective; retryable on a smaller mesh from the newest
+#      checkpoint). The port runs on one device; the code is kept so
+#      that both packages name their exits alike.
+EXIT_STALL = 75
+EXIT_INVARIANT = 70
+EXIT_PRESSURE = 76
+EXIT_PEER_LOST = 77
+
+# Exit statuses a relaunching wrapper treats as transient: the two
+# deadline aborts above, plus any signal death (SIGKILL by the OOM
+# killer or a preemption, SIGTERM from a scheduler — Popen reports those
+# as -N).
+RETRYABLE_EXITS = frozenset({EXIT_STALL, EXIT_PEER_LOST})
+
+
+def exit_retryable(rc: int) -> bool:
+    return rc in RETRYABLE_EXITS or rc < 0 or rc in (
+        signal_exit_code(signal.SIGKILL), signal_exit_code(signal.SIGTERM))
+
+
+def signal_exit_code(signum: int) -> int:
+    """Shell convention: a signal-terminated process exits 128+N."""
+    return 128 + int(signum)
+
+
+def write_diagnostic_bundle(diag_dir: str, label: str, kind: str,
+                            payload: dict) -> str:
+    """Write a `<label>.<kind>.<pid>.json` diagnostic bundle — the same
+    artifact shape the Watchdog leaves on a stall, reusable by any
+    abnormal-exit path (the queue-pressure strict mode uses it so a
+    `--overflow strict` abort is diagnosable from disk alone)."""
+    pid = os.getpid()
+    os.makedirs(diag_dir, exist_ok=True)
+    path = os.path.join(diag_dir, f"{label}.{kind}.{pid}.json")
+    with open(path, "w") as f:
+        json.dump({"pid": pid, **payload}, f, indent=2, default=str)
+        f.write("\n")
+    return path
+
+
+class Watchdog:
+    """Per-window wall-clock deadline over the run loop.
+
+    The loop calls `pet(**progress)` once per window boundary; a
+    background thread fires when no pet arrives within `timeout_s`.
+    Firing writes two files into `diag_dir` —
+
+      <label>.stall.<pid>.stacks.txt   every thread's Python stack
+                                       (faulthandler, so it works even
+                                       while the main thread is stuck
+                                       inside a device call)
+      <label>.stall.<pid>.json         the diagnostic bundle: last
+                                       progress the loop reported
+                                       (frontier time, window number),
+                                       stall duration, plus whatever
+                                       the `info` callable adds
+
+    — then aborts the process with `exit_code` via os._exit: the main
+    thread is, by definition of a stall, not going to run `sys.exit`.
+    """
+
+    def __init__(self, timeout_s: float, *, diag_dir: str = ".",
+                 label: str = "shadow_tpu",
+                 info: Callable[[], dict] | None = None,
+                 exit_code: int = EXIT_STALL,
+                 kind: str = "stall",
+                 compile_grace: bool = False,
+                 _exit: Callable[[int], Any] = os._exit,
+                 _stream=None):
+        if timeout_s <= 0:
+            raise ValueError(f"watchdog timeout must be > 0, got {timeout_s}")
+        self.timeout_s = float(timeout_s)
+        self.diag_dir = diag_dir
+        self.label = label
+        self.exit_code = exit_code
+        # bundle-file kind: "stall" for the classic per-window deadline,
+        # "peerlost" for the collective deadline — distinct names so one
+        # run can leave both without clobbering
+        self.kind = kind
+        # a deadline must not count a kernel's first-use nvcc build: it
+        # blocks the main thread for up to minutes with nothing wrong.
+        # With compile_grace the expiry check inspects the main thread's
+        # Python stack and re-arms instead of firing while it shows the
+        # build (core/nvcc.py); a wedged window never blocks there.
+        self.compile_grace = bool(compile_grace)
+        self.compile_graces = 0
+        self._info = info
+        self._exit = _exit  # injectable so unit tests survive a firing
+        self._stream = _stream  # defaults to sys.stderr at fire time
+        self._lock = threading.Lock()
+        self._last_pet = time.monotonic()
+        self._progress: dict = {}
+        self._n_pets = 0
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+        self.fired = False
+
+    # ------------------------------------------------------------ control
+    def start(self) -> "Watchdog":
+        with self._lock:
+            self._last_pet = time.monotonic()
+        self._thread = threading.Thread(
+            target=self._loop, name=f"{self.label}-watchdog", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None
+
+    def pet(self, **progress) -> None:
+        """Report liveness + the latest progress snapshot (kept for the
+        diagnostic bundle, so a later stall names the last good window)."""
+        with self._lock:
+            self._last_pet = time.monotonic()
+            self._n_pets += 1
+            if progress:
+                self._progress.update(progress)
+
+    def margin_s(self) -> float:
+        """Seconds of deadline left before the next firing — the
+        supervisor heartbeat's stall-margin column."""
+        with self._lock:
+            return self.timeout_s - (time.monotonic() - self._last_pet)
+
+    # ------------------------------------------------------------- firing
+    def _main_thread_compiling(self) -> bool:
+        """True when the main thread's stack shows the kernel build of
+        `core/nvcc.py`: the benign unbounded-wall-time case a deadline
+        waves through (see compile_grace)."""
+        try:
+            frame = sys._current_frames().get(threading.main_thread().ident)
+        except Exception:
+            return False
+        while frame is not None:
+            fn = frame.f_code.co_filename.replace(os.sep, "/")
+            if fn.endswith("/shadow_tpu_torch/core/nvcc.py"):
+                return True
+            frame = frame.f_back
+        return False
+
+    def _loop(self) -> None:
+        poll = min(1.0, max(self.timeout_s / 4.0, 0.05))
+        while not self._stop.wait(poll):
+            with self._lock:
+                stalled_for = time.monotonic() - self._last_pet
+            if stalled_for > self.timeout_s:
+                if self.compile_grace and self._main_thread_compiling():
+                    with self._lock:
+                        self._last_pet = time.monotonic()
+                        self.compile_graces += 1
+                    print(
+                        f"{self.label}: {self.kind} deadline extended — "
+                        f"main thread is compiling "
+                        f"(grace {self.compile_graces})",
+                        file=self._stream or sys.stderr, flush=True,
+                    )
+                    continue
+                self._fire(stalled_for)
+                return
+
+    def _fire(self, stalled_for: float) -> None:
+        self.fired = True
+        pid = os.getpid()
+        base = os.path.join(self.diag_dir, f"{self.label}.{self.kind}.{pid}")
+        stream = self._stream or sys.stderr
+        try:
+            os.makedirs(self.diag_dir, exist_ok=True)
+            with open(base + ".stacks.txt", "wb") as f:
+                faulthandler.dump_traceback(file=f, all_threads=True)
+            extra = {}
+            if self._info is not None:
+                try:
+                    extra = dict(self._info())
+                except Exception as e:  # the info source may be broken
+                    extra = {"info_error": repr(e)}
+            with self._lock:
+                progress = dict(self._progress)
+                n_pets = self._n_pets
+            bundle = {
+                "reason": (
+                    "watchdog: no window progress within deadline"
+                    if self.kind == "stall" else
+                    f"watchdog: {self.kind} deadline expired"
+                ),
+                "timeout_s": self.timeout_s,
+                "stalled_for_s": round(stalled_for, 3),
+                "windows_reported": n_pets,
+                "compile_graces": self.compile_graces,
+                "progress": progress,
+                "pid": pid,
+                "exit_code": self.exit_code,
+                **extra,
+            }
+            with open(base + ".json", "w") as f:
+                json.dump(bundle, f, indent=2, default=str)
+                f.write("\n")
+            print(
+                f"{self.label}: STALL — no window progress for "
+                f"{stalled_for:.1f}s (deadline {self.timeout_s:.1f}s); "
+                f"diagnostics at {base}.json / {base}.stacks.txt; "
+                f"aborting with exit code {self.exit_code}",
+                file=stream, flush=True,
+            )
+        except Exception:  # diagnosis must never block the abort
+            pass
+        self._exit(self.exit_code)
+
+
+class Supervisor:
+    """Signal-aware wrapper for a run loop (a context manager).
+
+    Inside the `with` block:
+
+    - SIGINT / SIGTERM set `stop_requested`; the loop finishes its
+      current window batch, writes a checkpoint, and exits with the
+      shell-conventional 128+signum. A SECOND signal of the same kind
+      gets the default disposition back — two Ctrl-Cs still kill a
+      wedged run immediately.
+    - SIGUSR1 sets a one-shot on-demand-checkpoint request, drained
+      with `take_checkpoint_request()`.
+    - with `watchdog_timeout > 0`, a Watchdog enforces the per-window
+      wall deadline; the loop must call `pet(**progress)` each window.
+      It has the compile grace on: a first-use kernel build does not
+      count against the deadline.
+
+    Handlers are only installed from the main thread (Python's rule);
+    elsewhere the supervisor degrades to a plain watchdog holder.
+    """
+
+    _STOP_SIGNALS = (signal.SIGINT, signal.SIGTERM)
+
+    def __init__(self, *, watchdog_timeout: float = 0.0,
+                 diag_dir: str = ".", label: str = "shadow_tpu",
+                 info: Callable[[], dict] | None = None,
+                 install_signals: bool = True):
+        self.watchdog = (
+            Watchdog(watchdog_timeout, diag_dir=diag_dir, label=label,
+                     info=info, compile_grace=True)
+            if watchdog_timeout > 0 else None
+        )
+        self.label = label
+        self.stop_signum: int | None = None
+        self._ckpt_requested = False
+        self._install_signals = install_signals
+        self._saved: dict[int, Any] = {}
+
+    # ----------------------------------------------------------- lifecycle
+    def __enter__(self) -> "Supervisor":
+        if self._install_signals and (
+            threading.current_thread() is threading.main_thread()
+        ):
+            for sig in self._STOP_SIGNALS:
+                self._saved[sig] = signal.signal(sig, self._on_stop)
+            if hasattr(signal, "SIGUSR1"):
+                self._saved[signal.SIGUSR1] = signal.signal(
+                    signal.SIGUSR1, self._on_usr1
+                )
+        if self.watchdog is not None:
+            self.watchdog.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        for sig, old in self._saved.items():
+            try:
+                signal.signal(sig, old)
+            except (ValueError, OSError):  # not main thread / torn down
+                pass
+        self._saved.clear()
+        return None
+
+    # ------------------------------------------------------------- signals
+    def _on_stop(self, signum, frame) -> None:
+        self.stop_signum = signum
+        # restore the default disposition: the next signal of this kind
+        # must kill the process outright, not queue a second request —
+        # graceful shutdown may itself be the thing that's stuck
+        try:
+            signal.signal(signum, signal.SIG_DFL)
+        except (ValueError, OSError):
+            pass
+        print(
+            f"{self.label}: received signal {signum}, will checkpoint and "
+            "exit at the next window boundary (send again to kill now)",
+            file=sys.stderr, flush=True,
+        )
+
+    def _on_usr1(self, signum, frame) -> None:
+        self._ckpt_requested = True
+
+    # --------------------------------------------------------------- query
+    @property
+    def stop_requested(self) -> bool:
+        return self.stop_signum is not None
+
+    def exit_code(self) -> int:
+        """128+signum once a stop was requested, 0 otherwise."""
+        if not self.stop_requested:
+            return 0
+        return signal_exit_code(self.stop_signum)
+
+    def take_checkpoint_request(self) -> bool:
+        """Drain the one-shot SIGUSR1 checkpoint request."""
+        req, self._ckpt_requested = self._ckpt_requested, False
+        return req
+
+    def pet(self, **progress) -> None:
+        if self.watchdog is not None:
+            self.watchdog.pet(**progress)
+
+    def margin_s(self) -> float | None:
+        return self.watchdog.margin_s() if self.watchdog is not None else None

@@ -14,15 +14,18 @@ per-host bandwidth, `cpufrequency`, `interfacebuffer`,
 `stoptime`, the three rx queue managers, both `fuse_rx` modes, both
 qdiscs, the TCP knobs (`tcp_in_order`, `tcp_wnd_words`,
 `tcp_child_slot_limit`), burst folding of TCP arrivals (`burst_rx`), the
-frontier drain (`frontier`), lossless overflow (`overflow="spill"`,
-`spill_len`) and fault schedules (<fault>: crash, churn, bandwidth,
-loss, latency, partition; `Simulation.faults`), the event trace ring
-(`trace`, records per host between drains), the sim-time histograms
-(`stats`) and a wall-clock phase profiler (`profiler`, an
-`obs.profiler.WindowProfiler`: `run` and `step_window` time their
-"step" phase, `summary` gains a "profile" key). Not ported, each raising
-NotImplementedError: sharding (`mesh`, `locality`, `host_order`),
-`overflow="grow"` and packet capture.
+frontier drain (`frontier`), every overflow mode (`overflow="spill"`
+with `spill_len`, "grow", "strict", "drop") and fault schedules
+(<fault>: crash, churn, bandwidth, loss, latency, partition;
+`Simulation.faults`), the event trace ring (`trace`, records per host
+between drains), the sim-time histograms (`stats`) and a wall-clock
+phase profiler (`profiler`, an `obs.profiler.WindowProfiler`: `run` and
+`step_window` time their "step" phase, `summary` gains a "profile"
+key). `Simulation.dispatch` runs a segment with no overflow probe (the
+CLI's run loop, `cli.py`, which re-templates a "grow" run itself). Not
+ported, each raising NotImplementedError: sharding (`mesh`,
+`locality`, `host_order`), packet capture and traced window widths
+(`window_ns`).
 """
 
 from __future__ import annotations
@@ -208,11 +211,30 @@ class Simulation:
                 "to accept counted drops"
             )
 
+    def dispatch(self, stop_ns: int, state, window_ns: int | None = None):
+        """Run from `state` to `stop_ns` with no overflow probe: the CLI
+        reads the drop count from its heartbeat harvest instead. Pressure
+        modes need `run`'s window-boundary refills and are refused.
+        `window_ns` (traced window widths, `--window`) is not ported."""
+        if window_ns is not None:
+            raise NotImplementedError(
+                "traced window widths are not ported (ROADMAP.md Queue 1 "
+                "item 5)")
+        if self.pressure is not None:
+            raise ValueError(
+                "dispatch() cannot run spill/grow pressure modes; their "
+                "reservoir refills are host-side window-boundary work — "
+                "use run()")
+        with self._phase():
+            return self.engine.run(state, stop_ns)
+
     def step_window(self, state, stop_ns: int | None = None,
                     window_ns: int | None = None):
         """Advance one window from `state`."""
         if window_ns is not None:
-            raise NotImplementedError("traced window widths are not ported")
+            raise NotImplementedError(
+                "traced window widths are not ported (ROADMAP.md Queue 1 "
+                "item 5)")
         st = self.state0 if state is None else state
         with self._phase():
             return self.engine.step_window(
@@ -244,6 +266,15 @@ class Simulation:
             out["reservoir"] = snap["resident"]
             out["overdue"] = snap["overdue"]
         return out
+
+    def metrics_refs(self, state) -> dict:
+        """Device refs of the live-telemetry extras (net drops, fault
+        drops, cross-shard traffic, socket byte totals) that the heartbeat
+        harvest carries under `--metrics`; the CLI reads them once more
+        after a "grow" re-template."""
+        from shadow_tpu_torch.obs.metrics import metrics_device_refs
+
+        return metrics_device_refs(state)
 
 
 def _plugin_tokens(cfg: ShadowConfig, plugin_id: str) -> set[str]:
@@ -423,7 +454,6 @@ def _refuse_unported(*, mesh, locality, host_order, overflow):
         "mesh (sharding)": mesh is not None,
         "locality": bool(locality),
         "host_order": host_order is not None,
-        "overflow='grow' (it needs utils/checkpoint.py)": overflow == "grow",
     }
     for name, set_ in unported.items():
         if set_:
@@ -478,7 +508,9 @@ def build_simulation(
 
     `overflow="spill"` gives every queue an overflow ring of `spill_len`
     slots (4 x capacity by default) and a PressureController, and `run`
-    then steps window by window. `frontier=N` selects the frontier drain
+    then steps window by window; `overflow="grow"` does the same with a
+    controller in grow mode, whose `grow_wanted` asks the CLI to
+    rebuild at doubled capacity. `frontier=N` selects the frontier drain
     (runs of up to N positions per round), bit-identical to the chained
     drain; it requires a TCP stack with fuse_rx=True and a model that
     declares `frontier_safe` (every local emit at dt >= 1).
@@ -647,7 +679,7 @@ def build_simulation(
     # spill ring: 4 x capacity record slots by default; an undersized
     # ring reports its overflow in n_lost
     spill = 0
-    if overflow == "spill":
+    if overflow in ("spill", "grow"):
         spill = int(spill_len) if spill_len > 0 else 4 * capacity
     # the frontier drain's run rule is exact only when every local emit
     # lands at dt >= 1: the unfused ARRIVE -> RX re-emit can land at dt 0,
@@ -743,8 +775,8 @@ def build_simulation(
         dns=dns, topo=topo, names=[h.name for h in hosts], app=model,
         stack=stack, kind_names=tuple(kind_names), overflow=overflow,
         pressure=(PressureController(n_hosts, capacity, lookahead,
-                                     n_args=N_PKT_ARGS)
-                  if overflow == "spill" else None),
+                                     n_args=N_PKT_ARGS, mode=overflow)
+                  if overflow in ("spill", "grow") else None),
         faults=faults, profiler=profiler,
     )
 

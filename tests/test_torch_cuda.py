@@ -619,3 +619,61 @@ def test_traced_on_cuda_matches_cpu(name):
         np.testing.assert_array_equal(rc[key], a, err_msg=key)
     assert (dc.lost, dc.n_records) == (dp.lost, dp.n_records)
     assert dp.n_records > 0 and lp["splane.wait_n"].sum() > 0
+
+
+# -- the command line on the card ---------------------------------------------
+# name: (config text, flags): PHOLD over UDP under spill pressure, and TGen
+# at 32 pairs with phase 19's flags, its checkpoint at 4 s in flight; each
+# run's stop is a checkpoint time, so its newest generation is the end state
+CLI_CASES = {
+    "phold": (examples.phold_example(16, 12, stoptime=2),
+              ["--seed", "4", "--capacity", "12", "--heartbeat-frequency",
+               "0.5", "--metrics", "--stats", "--checkpoint-interval", "1"]),
+    "tgen32": (chip_smoke.tgen_config(32), chip_smoke.CLI_ARGV[1:]),
+}
+
+
+def _cli_run(dev, text, flags, workdir, extra=()):
+    """`cli.main` on `dev` in `workdir`: phase 19's pin fields."""
+    import contextlib
+    import io
+    import os
+
+    from shadow_tpu_torch import cli
+
+    workdir.mkdir(exist_ok=True)
+    (workdir / "cfg.xml").write_text(text)
+    out, cwd = io.StringIO(), os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["cfg.xml", *flags, "--checkpoint-keep", "2",
+                           "--checkpoint-path", chip_smoke.CLI_CKPT,
+                           *extra], device=dev)
+    finally:
+        os.chdir(cwd)
+    assert rc == 0
+    return chip_smoke.cli_pin_fields(out.getvalue(), workdir)
+
+
+@pytest.mark.parametrize("name", list(CLI_CASES))
+def test_cli_on_cuda_matches_cpu(name, tmp_path):
+    """The command line on the card prints the CPU run's heartbeat log
+    and summary and writes its checkpoints, through the kernel; the card
+    resumes the CPU's mid-run checkpoint to the same final state."""
+    import shutil
+
+    _need_card()
+    text, flags = CLI_CASES[name]
+    before = merge.launches
+    card = _cli_run("cuda", text, flags, tmp_path / "cuda")
+    assert merge.launches > before
+    cpu = _cli_run("cpu", text, flags, tmp_path / "cpu")
+    assert card == cpu
+    (tmp_path / "resume").mkdir()
+    shutil.copy(tmp_path / "cpu" / chip_smoke.CLI_MID_CKPT,
+                tmp_path / "resume" / chip_smoke.CLI_CKPT)
+    resumed = _cli_run("cuda", text, flags, tmp_path / "resume",
+                       ["--resume", "auto"])
+    assert resumed["final_digest"] == cpu["final_digest"]
+    assert resumed["summary"] == cpu["summary"]

@@ -43,6 +43,13 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.tools.export_trace\n"
         "import shadow_tpu_torch.tools.critical_path\n"
         "import shadow_tpu_torch.transport.cbrt\n"
+        "import shadow_tpu_torch.cli, shadow_tpu_torch.utils.checkpoint\n"
+        "import shadow_tpu_torch.utils.tracker\n"
+        "import shadow_tpu_torch.utils.logger\n"
+        "import shadow_tpu_torch.runtime.harvest\n"
+        "import shadow_tpu_torch.runtime.supervisor\n"
+        "import shadow_tpu_torch.obs.metrics, shadow_tpu_torch.obs.server\n"
+        "import shadow_tpu_torch.tools.strip_log\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -82,6 +89,11 @@ def test_default_device_is_cuda_without_fallback():
         tsim.build_simulation(cfg)
     assert tengine.resolve_device("cpu") == torch.device("cpu")
     tsim.build_simulation(cfg, device="cpu")
+    # the command line too: without `device=` it runs on CUDA or raises
+    from shadow_tpu_torch import cli
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["--test", "--stoptime", "1"])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

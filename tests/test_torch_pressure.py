@@ -16,8 +16,9 @@ At tests/test_pressure.py's size (H = 16, capacity 8, a skewed PHOLD):
 - build_simulation's spill mode equals the reference's, summary
   included, on PHOLD over UDP and on TGen over TCP; the strict mode
   raises with the same accounting;
-- spill=0 leaves no ring; "grow", the diagnostic bundle and the
-  reservoir's checkpoint extras raise NotImplementedError; a TraceDrain
+- spill=0 leaves no ring; "grow" builds a grow-mode controller, the
+  strict mode's diagnostic bundle is written as the reference writes it,
+  and the reservoir's checkpoint extras round-trip; a TraceDrain
   attaches (its records: tests/test_torch_trace.py).
 
 With the slow tests also chip_smoke.py's phase 14 (bench.py's skew
@@ -25,6 +26,7 @@ shape, 4096 hosts to 2 sim-s) in both packages, against its pins.
 """
 
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -174,9 +176,7 @@ def _assert_queues_equal(qj, qt):
     flat, _ = jax.tree_util.tree_flatten_with_path(jax.device_get(qj))
     for path, v in flat:
         lj[".".join(str(k.name) for k in path)] = np.asarray(v)
-    lt = {}
-    convert._leaf(qt, "q", None, lt)
-    lt = {k[2:]: v for k, v in lt.items()}
+    lt = convert.engine_state_to_numpy(qt)
     assert_leaves_equal(lj, lt)
 
 
@@ -356,17 +356,30 @@ def test_strict_error_accounting():
     assert "--overflow spill" in str(e)
 
 
-def test_grow_and_unported_extras_raise():
+def test_grow_and_unported_extras_raise(tmp_path):
+    """Once refused, now ported: "grow" builds a grow-mode controller,
+    `pressure_bundle` writes the reference's bundle, and the reservoir's
+    checkpoint extras round-trip (with a checkpoint:
+    tests/test_torch_checkpoint.py); only an unknown mode raises."""
     cfg = tconfig.parse_config(SPILL_CONFIG)
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        tsim.build_simulation(cfg, overflow="grow", device="cpu")
+    sim = tsim.build_simulation(cfg, overflow="grow", device="cpu")
+    assert sim.pressure.mode == "grow"
+    with pytest.raises(ValueError, match="spill/grow"):
+        tp.PressureController(4, 8, 1, n_args=1, mode="strict")
     ctrl = tp.PressureController(4, 8, 1, n_args=tphold.N_PHOLD_ARGS)
-    with pytest.raises(NotImplementedError, match="supervisor"):
-        tp.pressure_bundle(tp.QueuePressureError(1, 8, {}), diag_dir=".",
-                           label="x")
-    for call in (ctrl.serialize, lambda: ctrl.restore({})):
-        with pytest.raises(NotImplementedError):
-            call()
+    err = tp.QueuePressureError(1, 8, {"now_ns": 3})
+    paths = [mod.pressure_bundle(err, diag_dir=str(tmp_path / name),
+                                 label="x")
+             for mod, name in ((tp, "t"), (jp, "j"))]
+    docs = [json.loads(open(p).read()) for p in paths]
+    assert docs[0] == docs[1] and docs[0]["exit_code"] == 76
+    ctrl._heaps[2] = [(5, 7, (1, 2)), (9, 3, (4, 5))]
+    ctrl.n_refilled[1] = 4
+    extra = ctrl.serialize()
+    back = tp.PressureController(4, 8, 1, n_args=tphold.N_PHOLD_ARGS)
+    back.restore(extra)
+    assert back._heaps == ctrl._heaps and back.n_refilled.tolist() == [
+        0, 4, 0, 0]
     # spill/refill trace records are ported (tests/test_torch_trace.py)
     drain = TraceDrain(8)
     ctrl.attach_trace(drain, len_arg=1)

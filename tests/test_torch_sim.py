@@ -250,9 +250,14 @@ def test_step_window_and_state_carry(sim_dir):
 def test_unported_knobs_raise():
     cfg = tconfig.parse_config(texamples.phold_example(8, 1, 2))
     for kw in (dict(mesh=object()), dict(locality=True),
-               dict(host_order=[0]), dict(overflow="grow")):
+               dict(host_order=[0])):
         with pytest.raises(NotImplementedError):
             tsim.build_simulation(cfg, device="cpu", **kw)
+    # overflow="grow" is ported (the CLI re-templates it,
+    # tests/test_torch_cli.py): a spill ring and a grow-mode controller
+    grown = tsim.build_simulation(cfg, device="cpu", overflow="grow")
+    assert grown.engine.cfg.spill == 1024
+    assert grown.pressure.mode == "grow" and not grown.pressure.grow_wanted
     # tracing, the stats plane and the profiler are ported
     # (tests/test_torch_trace.py, tests/test_torch_stats.py)
     prof = WindowProfiler()

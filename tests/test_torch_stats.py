@@ -330,7 +330,7 @@ def test_nan_names_the_reference_leaf():
     want = jinv.check_state(_set(js.state0, "hosts.net.tcb.cwnd", nan,
                                  "jax"))
     assert got == want and got[0].startswith(".hosts.net.tcb.cwnd[")
-    assert tinv._keystr("hosts.app.subs.0.gid") == ".hosts.app.subs[0].gid"
+    assert tinv.keystr("hosts.app.subs.0.gid") == ".hosts.app.subs[0].gid"
 
 
 # -- the profiler --------------------------------------------------------------

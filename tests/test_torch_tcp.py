@@ -294,20 +294,30 @@ def test_two_runs_one_state():
 RST_CASES = {"refused": (0, 0), "reset": (50, 1)}
 
 
+@functools.lru_cache(maxsize=None)
+def jax_rst_pair():
+    """The reference's two-host pair with TCP(rst_on_unmatched=True) and
+    its jitted run, built and compiled once for both RST cases."""
+    make_tcp = jtcp_tests.TCP
+    jtcp_tests.TCP = functools.partial(jtcp.TCP, rst_on_unmatched=True)
+    try:
+        eng, st = jtcp_tests.build()
+    finally:
+        jtcp_tests.TCP = make_tcp
+    return st, jax.jit(eng.run)
+
+
 @pytest.mark.parametrize("case", list(RST_CASES))
-def test_rst_on_unmatched_matches_reference(case, monkeypatch):
+def test_rst_on_unmatched_matches_reference(case):
     """TCP(rst_on_unmatched=True), the knob the reference turns on for
     crash faults: the server loses a socket slot (`forget_socket`) and
     the client's next segment draws an RST, so the client closes at
     once, with no retransmission, where without the knob it would
     retransmit into the void."""
     drop_ms, slot = RST_CASES[case]
-    monkeypatch.setattr(jtcp_tests, "TCP", functools.partial(
-        jtcp.TCP, rst_on_unmatched=True))
     jput = lambda a, h, s, v: a.at[h, s].set(v)
     stop = 2 * SECOND
-    eng, st = jtcp_tests.build()
-    run = jax.jit(eng.run)
+    st, run = jax_rst_pair()
     if drop_ms:
         st = run(st, jnp.int64(drop_ms * MS))
     lj = jax_leaves(run(forget_socket(st, 1, slot, jput), jnp.int64(stop)))
