@@ -40,10 +40,11 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    messages sent and received, and to a merge launch per sweep; the
    merge kernel held to its plain version on the run's first merge
    inputs (the packet width, nw = 6) and timed on the last of them;
-   then, to NET_VARIANT_STOP_S = 2 sim-s, the CoDel variant (hot peers
-   behind thin downlinks, drops past count 19, a virtual CPU on a
-   quarter of the peers) and the unfused pipeline (rx_queue "single",
-   a bootstrap phase, a process stoptime), each pinned the same way;
+   then, to NET_VARIANT_STOP_S = 1.5 sim-s (cut from 2 for phase 20), the
+   CoDel variant (hot peers behind thin downlinks, drops past count 19, a
+   virtual CPU on a quarter of the peers) and the unfused pipeline
+   (rx_queue "single", a bootstrap phase, a process stoptime), each
+   pinned the same way;
 10. TGen over TCP (NewReno, burst folding on the chained drain), built
    from `tgen_example(2048 pairs)` by `sim.build_simulation` with
    bench.py's TCP knobs: run once to 10 sim-s, held to its JAX/CPU
@@ -116,15 +117,28 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    inner step printed beside the untraced run of phases 8 and 15;
 19. the command line: `shadow_tpu_torch.cli.main`, in-process, on
    phase 10's config with the CLI's default --overflow spill and
-   --metrics, heartbeats every 2 sim-s and a checkpoint every 4, to
-   CLI_STOP_S = 8 sim-s (the 4 s checkpoint lands while the first TCP
-   streams are in flight), then a second `main` resuming from that
+   --metrics, heartbeats every 2 sim-s and a checkpoint every 3, to
+   CLI_STOP_S = 6 sim-s (cut from 8 for phase 20; the 3 s checkpoint lands
+   as the first clients start), then a second `main` resuming from that
    checkpoint to the same stop: each held to PIN_CLI_TGEN (the
    summary's deterministic fields, the sha256 of the stripped stdout,
    of the mid-run checkpoint's leaf table and the final leaves' digest),
    the two final states equal, merge launches counted from zero and
    required; its host reads per segment, harvest share of the loop's
-   wall time and wall time printed beside phase 10's.
+   wall time and wall time printed beside phase 10's;
+20. the command line with packet capture, adaptive windows and a
+   device profile: `cli.main` on phase 10's config with `logpcap` and
+   one `pcapdir` on every host, --overflow strict, --window auto,
+   heartbeats every sim-second (five drains of the capture rings),
+   --xprof over PCAP_XPROF and a checkpoint at PCAP_STOP_S = 5 sim-s:
+   held to PIN_CLI_PCAP (the summary's deterministic fields, `windows`
+   among them, the stripped stdout's sha256, one sha256 over the pcap
+   files in name order, the records lost and the stage counts, the
+   final leaves' digest), merge launches counted from zero and
+   required, and the xprof trace holding CUDA kernel events; its ms
+   per inner step, window probes and widths, host reads per segment,
+   harvest share, the capture drain's host seconds and the trace's
+   size printed beside phase 10's.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -132,7 +146,7 @@ package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines; `--only 17,18` runs phases 1-3 and then only
-the listed phases (9-19), without the result lines.
+the listed phases (9-20), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
@@ -144,7 +158,8 @@ for phases 11 and 12, `tests/test_torch_multimodel.py`,
 `-m slow` for phases 13, 14 and 15, `tests/test_torch_faults_tcp.py -m
 slow` for phase 16, `tests/test_torch_cubic.py -m slow` for phase 17,
 `tests/test_torch_trace.py -m slow` for phase 18,
-`tests/test_torch_cli.py -m slow` for phase 19). The merge-input
+`tests/test_torch_cli.py -m slow` for phase 19,
+`tests/test_torch_pcap.py -m slow` for phase 20). The merge-input
 generator below is shared with tests/test_torch_merge.py.
 """
 
@@ -244,27 +259,27 @@ def phold_variant(phold, engine, topology, which: str, dev,
 # digest of every leaf, sum of n_sent, sum of n_recv).
 NET_HOSTS, NET_MSGS, NET_SEED = 4096, 8, 1234
 NET_STOP_S = 3
-NET_VARIANT_STOP_S = 2
+NET_VARIANT_STOP_S = 1.5
 PIN_NET = (
     1_310_720,
     "54e66878def9d2dd5fc8646c004eadd03bb033ab0fa7aabd270efb012e78789c",
     1_310_720, 1_277_952)
 PIN_NET_CODEL = (
-    19_453,
-    "426739e4c42877e10694921c40c6abb04c75e5ae97fcd5fc13b0d181457d044f",
-    18_629, 14_533)
+    14_511,
+    "3a7abf51b54cc5633d5b3a927a1341b7176d94bff79f88e5fb79238fa0367487",
+    14_103, 10_007)
 PIN_NET_UNFUSED = (
-    1_077_624,
-    "18ed6cbcc3c664c6c32bf82cfd31f1e8cfedd0ecf1ea253ac28690fe1cc9958b",
-    533_680, 500_912)
+    566_065,
+    "9b0217ca88a8634f791f5c2c2d359940bad1da4d1f0a16187b6c46a015367002",
+    285_463, 252_695)
 # variant "codel": 16 hot peers drawn with weight 400 (the other peers 1)
 # behind a 16 KiB/s downlink, and 1024 peers with a 2 GHz virtual CPU;
 # every peer starts with one message
 NET_HOT, NET_HOT_WEIGHT, NET_HOT_KIB, NET_CPU_HOSTS = 16, 400.0, 16, 1024
-# variant "unfused": fuse_rx=False, rx_queue="single", a 1.5 s bootstrap,
-# 64 peers behind a 2 KiB/s downlink (tail drops at the one-packet
-# queue) and 512 peers whose process stops at 1.6 s
-NET_THIN, NET_QUIT, NET_QUIT_AT = 64, 512, 1.6
+# variant "unfused": fuse_rx=False, rx_queue="single", a bootstrap to
+# NET_BOOTSTRAP_S, 64 peers behind a 2 KiB/s downlink (tail drops at the
+# one-packet queue) and 512 peers whose process stops at NET_QUIT_AT
+NET_THIN, NET_QUIT, NET_QUIT_AT, NET_BOOTSTRAP_S = 64, 512, 1.3, 1.2
 
 
 def phold_net_config(which: str, workdir) -> tuple[str, dict]:
@@ -307,7 +322,8 @@ def phold_net_config(which: str, workdir) -> tuple[str, dict]:
             host("peer", NET_HOSTS - NET_THIN - NET_QUIT, args),
             host("thin", NET_THIN, args, ' bandwidthdown="2"'),
             host("quit", NET_QUIT, args, proc=f' stoptime="{NET_QUIT_AT}"'),
-        ], ' bootstraptime="1.5"'), dict(fuse_rx=False, rx_queue="single")
+        ], f' bootstraptime="{NET_BOOTSTRAP_S}"'), dict(fuse_rx=False,
+                                                        rx_queue="single")
     raise ValueError(f"unknown PHOLD-net run {which!r}")
 
 
@@ -539,32 +555,33 @@ def trace_pin(leaves, drain) -> tuple:
 
 # The command line (phase 19): `shadow_tpu_torch.cli.main` on phase 10's
 # TGen config (2,048 pairs, 4096 hosts) with the CLI's default --overflow
-# spill, --metrics, heartbeats every 2 sim-s and a checkpoint every 4, to
-# CLI_STOP_S: the 4 s checkpoint lands while the first clients' TCP
-# streams are in flight (they start at 3-7 s). Then a second `main`
+# spill, --metrics, heartbeats every 2 sim-s and a checkpoint every 3, to
+# CLI_STOP_S: the 3 s checkpoint lands as the first clients start (they
+# start at 3-7 s; cut from 8 s and a 4 s checkpoint to make room for
+# phase 20). Then a second `main`
 # resumes from that checkpoint (copied alone into a fresh directory) to
 # the same stop. Pins from the reference's CLI on the CPU (the slow test
 # of tests/test_torch_cli.py): per run the summary's deterministic fields,
 # the sha256 of the stripped stdout (heartbeat rows and summary), the
 # sha256 of the mid-run checkpoint's leaf table and the final state's
 # leaves_digest (read from the stop's checkpoint).
-CLI_STOP_S = 8
+CLI_STOP_S = 6
 CLI_CKPT = "cli.ckpt.npz"
 CLI_MID_CKPT = CLI_CKPT + ".1"
 CLI_ARGV = ["tgen.xml", "--seed", str(TGEN_SEED), "--sockets",
             str(TGEN_SOCKETS), "--capacity", str(TGEN_CAPACITY),
             "--stoptime", str(CLI_STOP_S), "--heartbeat-frequency", "2",
-            "--checkpoint-interval", "4", "--checkpoint-keep", "2",
+            "--checkpoint-interval", "3", "--checkpoint-keep", "2",
             "--checkpoint-path", CLI_CKPT, "--metrics"]
 CLI_SUMMARY_KEYS = ("events", "windows", "sweeps", "queue_drops",
                     "net_dropped", "rx_bytes", "tx_bytes", "events_by_kind",
                     "pressure", "capacity")
 _CLI_SUMMARY = {
-    "events": 153642, "windows": 91, "sweeps": 91, "queue_drops": 0,
-    "net_dropped": 0, "rx_bytes": 326417196, "tx_bytes": 335626240,
-    "events_by_kind": {"pkt_arrive": 68013, "pkt_rx": 0, "tcp_timer": 5738,
-                       "tcp_tx": 73746, "tgen.0": 6145},
-    "pressure": {"spilled": 0, "spill_lost": 0, "fill_hwm": 23,
+    "events": 76668, "windows": 52, "sweeps": 52, "queue_drops": 0,
+    "net_dropped": 0, "rx_bytes": 158704440, "tx_bytes": 167936000,
+    "events_by_kind": {"pkt_arrive": 33210, "pkt_rx": 0, "tcp_timer": 2460,
+                       "tcp_tx": 36900, "tgen.0": 4098},
+    "pressure": {"spilled": 0, "spill_lost": 0, "fill_hwm": 22,
                  "pending": 0, "refilled": 0, "resident": 0,
                  "overdue": 0},
     "capacity": 768}
@@ -572,25 +589,25 @@ PIN_CLI_TGEN = {
     "run": {
         "summary": _CLI_SUMMARY,
         "log_sha256": (
-            "c3896eaa03a99af583e58dd590cf7cfa"
-            "851bc4f623fb3d84c1d883abb030b0ac"),
+            "beb7b68996883c38776e1c16b631f0b3"
+            "802848717f9cc93a1ba8574b7024ea25"),
         "mid_leaf_table_sha256": (
-            "d9d96e141130d37b73bed1172ce71ed4"
-            "3365f1fdaa87bd84a6aefe602faa9fd8"),
+            "5b4182bd9c508b14f925ce5a0e15a4a1"
+            "b5444824c701ed14968e715716458b81"),
         "final_digest": (
-            "1ebd9129305d09c843e7f8591f71021e"
-            "166e33d043fca224ee4c00621f18e947")},
+            "1cf99917de3c97a089b2acba3da0d6c4"
+            "27c047edc00812e4bf777c069575c52e")},
     "resumed": {
         "summary": _CLI_SUMMARY,
         "log_sha256": (
-            "2f9fcaf768a137fbeac48bc107d34fa8"
-            "282ff9bf96bfcb684668b08d5cce0baf"),
+            "e44934c9c8dfd304f1484559e6eab2ac"
+            "a114e1c719bbf6c770f35c087061be8e"),
         "mid_leaf_table_sha256": (
-            "d9d96e141130d37b73bed1172ce71ed4"
-            "3365f1fdaa87bd84a6aefe602faa9fd8"),
+            "5b4182bd9c508b14f925ce5a0e15a4a1"
+            "b5444824c701ed14968e715716458b81"),
         "final_digest": (
-            "1ebd9129305d09c843e7f8591f71021e"
-            "166e33d043fca224ee4c00621f18e947")}}
+            "1cf99917de3c97a089b2acba3da0d6c4"
+            "27c047edc00812e4bf777c069575c52e")}}
 
 
 def checkpoint_leaf_table(path) -> str:
@@ -643,6 +660,90 @@ def cli_pin_of(pins: dict) -> dict:
     """The pin as PIN_CLI_TGEN stores it: {"run": fields, "resumed":
     fields}, through JSON (so tuples and ints compare as stored)."""
     return json.loads(json.dumps({k: pins[k] for k in ("run", "resumed")}))
+
+
+# The command line with packet capture, adaptive windows and a device
+# profile (phase 20): `cli.main` on phase 10's TGen config with logpcap
+# and one pcapdir on every host, --overflow strict (--window refuses
+# spill), --window auto, heartbeats every sim-second (the capture rings
+# drain five times), --xprof over PCAP_XPROF (a few windows: the trace
+# holds a handful of inner steps) and a checkpoint at the stop (TGen's
+# streams start at 3-7 s). Pin from the reference's CLI on the CPU (the
+# slow test of tests/test_torch_pcap.py): the summary's deterministic
+# fields, the sha256 of the stripped stdout, one sha256 over the pcap
+# files in name order, the records lost and the stage counts, and the
+# final state's leaves_digest (read from the stop's checkpoint).
+PCAP_STOP_S = 5
+PCAP_XPROF = "4:4.5"
+PCAP_CKPT = "pcap.ckpt.npz"
+PCAP_DIR = "pcap"
+XPROF_DIR = "xprof"
+PCAP_ARGV = ["tgen.xml", "--seed", str(TGEN_SEED), "--sockets",
+             str(TGEN_SOCKETS), "--capacity", str(TGEN_CAPACITY),
+             "--stoptime", str(PCAP_STOP_S), "--overflow", "strict",
+             "--window", "auto", "--heartbeat-frequency", "1",
+             "--xprof", PCAP_XPROF, "--xprof-dir", XPROF_DIR,
+             "--checkpoint-interval", str(PCAP_STOP_S),
+             "--checkpoint-path", PCAP_CKPT]
+PCAP_SUMMARY_KEYS = ("events", "windows", "sweeps", "queue_drops",
+                     "net_dropped", "rx_bytes", "tx_bytes", "events_by_kind",
+                     "packet_stages", "xprof")
+_PCAP_SUMMARY = {
+    "events": 9428, "windows": 5, "sweeps": 5, "queue_drops": 0,
+    "net_dropped": 0, "rx_bytes": 1175880, "tx_bytes": 13434880,
+    "events_by_kind": {"pkt_arrive": 3280, "pkt_rx": 0, "tcp_timer": 1230,
+                       "tcp_tx": 2050, "tgen.0": 2868},
+    "packet_stages": {"arrived": 3280, "queued": 1640, "delivered": 3280,
+                      "retransmitted": 410},
+    "xprof": {"dir": XPROF_DIR, "start": 4.0, "stop": 4.5,
+              "completed": True}}
+PIN_CLI_PCAP = {
+    "summary": _PCAP_SUMMARY,
+    "log_sha256": (
+        "b2946b960be419bf807c49231d02e7ed"
+        "3f53b2d419ca2c4aca53d2f7a6351e61"),
+    "pcap_files": 4096,
+    "pcap_sha256": (
+        "6b55067b6b56ce7f453d4805edbb2ef4"
+        "9e2d8a19412863df7ad2b03f5f868d86"),
+    "lost": 0,
+    "final_digest": (
+        "1490770f6b3469bf3e1f5c3b02090813"
+        "03891c28ffbbbde953f12a35796ceb69")}
+
+
+def pcap_config(n_pairs: int) -> str:
+    """Phase 20's config: tgen_config(n_pairs) with every host capturing
+    into PCAP_DIR."""
+    return tgen_config(n_pairs).replace(
+        "<host ", f'<host logpcap="true" pcapdir="{PCAP_DIR}" ')
+
+
+def pcap_pin_fields(stdout: str, stderr: str, workdir) -> dict:
+    """A phase-20 run's pin from its stdout, its stderr and its
+    directory (either package's CLI)."""
+    import re
+    from pathlib import Path
+
+    from shadow_tpu_torch.tools.strip_log import strip_line
+
+    lines = stdout.splitlines()
+    summary = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    stripped = "".join(s + "\n" for s in map(strip_line, lines)
+                       if s is not None)
+    d = Path(workdir)
+    h = hashlib.sha256()
+    files = sorted((d / PCAP_DIR).glob("*.pcap"))
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    lost = re.search(r"pcap: (\d+) records lost", stderr)
+    return {"summary": {k: summary[k] for k in PCAP_SUMMARY_KEYS},
+            "log_sha256": hashlib.sha256(stripped.encode()).hexdigest(),
+            "pcap_files": len(files),
+            "pcap_sha256": h.hexdigest(),
+            "lost": int(lost.group(1)) if lost else 0,
+            "final_digest": checkpoint_digest(d / PCAP_CKPT)}
 
 
 def tgen_faults_config(n_pairs: int) -> str:
@@ -2019,7 +2120,7 @@ def phase_trace(phold, engine, topology, pressure, sim_mod, config_mod,
 
 def phase_cli(merge, smi_line, tgen_wall_s=None) -> dict:
     """`shadow_tpu_torch.cli.main` in-process on phase 10's TGen config:
-    a run to CLI_STOP_S with a checkpoint at 4 s, then a resume from
+    a run to CLI_STOP_S with a checkpoint at 3 s, then a resume from
     that checkpoint, each with its stdout captured, the merge launches
     counted from zero and required, and both held to PIN_CLI_TGEN; the
     resumed run's final state must equal the uninterrupted run's."""
@@ -2103,6 +2204,83 @@ def phase_cli(merge, smi_line, tgen_wall_s=None) -> dict:
     return {"runs": runs, "phase_s": phase_s}
 
 
+def phase_pcap(merge, smi_line, tgen=None) -> dict:
+    """`cli.main` in-process on phase 20's capturing config (PCAP_ARGV),
+    its stdout and stderr captured, the merge launches counted from zero
+    and required, held to PIN_CLI_PCAP, and its xprof trace required to
+    hold CUDA kernel events; prints its ms per inner step, window probes
+    and widths, host reads per segment, harvest share, the capture
+    drain's host seconds and the trace's size beside phase 10's run
+    (`tgen`, its first run's dict) when given."""
+    import contextlib
+    import io
+    import os
+    from pathlib import Path
+
+    import torch
+
+    from shadow_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "tgen.xml").write_text(pcap_config(TGEN_PAIRS))
+        out, err, cwd, last = io.StringIO(), io.StringIO(), os.getcwd(), {}
+        torch.cuda.synchronize()
+        merge.launches = 0
+        t0 = time.perf_counter()
+        os.chdir(d)
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(PCAP_ARGV, run_info=last)
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = merge.launches
+        tail = err.getvalue().splitlines()[-6:]
+        check(rc == 0, f"cli pcap: exit code {rc}: {tail}")
+        check(launches > 0, "cli pcap: no merge launch")
+        got = pcap_pin_fields(out.getvalue(), err.getvalue(), d)
+        with np.load(d / PCAP_CKPT) as data:
+            h = json.loads(bytes(data["__header__"]).decode())
+            i = h["paths"].index(".stats.n_inner_steps")
+            steps = int(data[f"leaf_{i}"])
+        trace = d / XPROF_DIR / "trace.json"
+        check(trace.exists(), "cli pcap: no xprof trace")
+        doc = json.loads(trace.read_text())
+        kernels = sum(1 for e in doc.get("traceEvents", ())
+                      if e.get("cat") == "kernel")
+        check(kernels > 0, "cli pcap: the xprof trace holds no CUDA kernel")
+        run = {
+            "wall_s": wall, "launches": launches, "inner_steps": steps,
+            "ms_per_inner_step": 1e3 * last["loop_s"] / max(steps, 1),
+            "loop_s": last["loop_s"], "segments": last["segments"],
+            "window_probes": last["windows_run"],
+            "widths_ms": [w / MS for w in last["widths"]],
+            "host_syncs_per_segment": last["host_syncs"] / last["segments"],
+            "harvest_reads_per_segment":
+                last["harvest_reads"] / last["segments"],
+            "harvest_share": last["harvest_s"] / last["loop_s"],
+            "drain_host_s": last["drain_s"],
+            "xprof_trace_bytes": trace.stat().st_size,
+            "xprof_kernel_events": kernels,
+            "pcap_files": got["pcap_files"],
+            "events": got["summary"]["events"],
+        }
+    for key, val in json.loads(json.dumps(got)).items():
+        want = (PIN_CLI_PCAP or {}).get(key)
+        check(val == want, f"cli pcap: {key} {val} != JAX/CPU {want}")
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({"cli_pcap": run, "phase_s": phase_s,
+                      "tgen_phase10": None if tgen is None else {
+                          k: tgen[k] for k in ("wall_s", "inner_steps",
+                                               "ms_per_inner_step")},
+                      "card": smi_line}))
+    return {"run": run, "phase_s": phase_s}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2113,13 +2291,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (9-19) to run after "
+                    help="comma-separated phases (9-20) to run after "
                          "phases 1-3, skipping the others; prints no "
                          "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= set(range(9, 20)):
-        ap.error("--only takes phases 9 to 19")
+    if not only <= set(range(9, 21)):
+        ap.error("--only takes phases 9 to 20")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2180,6 +2358,8 @@ def main(argv=None) -> int:
                                 smi_line)
                 elif p == 19:
                     phase_cli(merge, smi_line)
+                elif p == 20:
+                    phase_pcap(merge, smi_line)
                 else:
                     phase_app({11: "tor", 12: "btc", 13: "mixed",
                                15: "tgen_frontier", 16: "tgen_faults"}[p],
@@ -2331,6 +2511,10 @@ def main(argv=None) -> int:
           "checkpointed in flight and resumed")
     cli_phase = phase_cli(merge, smi_line, tgen["runs"][0]["wall_s"])
 
+    phase("20. the command line with packet capture, adaptive windows and "
+          "a device profile: TGen 4096 hosts")
+    pcap_phase = phase_pcap(merge, smi_line, tgen["runs"][0])
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -2346,7 +2530,9 @@ def main(argv=None) -> int:
                      + faults["run"]["launches"]
                      + cubic["run"]["launches"]
                      + sum(t["launches"] for t in traced.values())
-                     + sum(r["launches"] for r in cli_phase["runs"].values())),
+                     + sum(r["launches"]
+                           for r in cli_phase["runs"].values())
+                     + pcap_phase["run"]["launches"]),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -2369,6 +2555,7 @@ def main(argv=None) -> int:
         "launches_traced": {k: t["launches"] for k, t in traced.items()},
         "launches_cli": {k: r["launches"]
                          for k, r in cli_phase["runs"].items()},
+        "launches_cli_pcap": pcap_phase["run"]["launches"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,

@@ -4,22 +4,23 @@ The counterpart of `shadow_tpu.cli`, with the same flags and defaults:
 a Shadow config (or `--test`, the built-in example) run to its stoptime
 on the card, with heartbeat lines, checkpoints and `--resume`,
 supervision (`--watchdog`, SIGTERM/SIGINT checkpoint-then-exit, SIGUSR1
-checkpoint-now), queue-pressure modes (`--overflow`), invariant checks
-(`--validate`), the event trace, the stats plane, the phase profiler and
-the live metrics plane, then one summary JSON line with the reference's
-keys. The config digest, the heartbeat rows and the checkpoint files
-are the reference's, so a checkpoint either package writes resumes in
-the other.
+checkpoint-now, `--retry` relaunches), queue-pressure modes
+(`--overflow`), per-window widths (`--window N|auto`), invariant checks
+(`--validate`), packet capture (`logpcap`/`pcapdir`), the event trace,
+the stats plane, the phase profiler, a device profiler capture
+(`--xprof`) and the live metrics plane, then one summary JSON line with
+the reference's keys. The config digest, the heartbeat rows and the
+checkpoint files are the reference's, so a checkpoint either package
+writes resumes in the other.
 
 `main(argv, device=...)` runs on CUDA unless the caller passes
 `device="cpu"` (the tests do); without a card it raises, it never falls
 back to the CPU.
 
 Refused with exit 2, each naming the ROADMAP.md Queue 1 item that will
-port it: configs that capture packets, `--window`, `--retry` and
-`--xprof` (item 5); `--mesh`, `--dcn-slices`, `--spmd`, `--locality`
-and `--collective-timeout` (item 7); `--fleet` and `serve` (item 8);
-native `.so` plugins, the process tier (item 9).
+port it: `--mesh`, `--dcn-slices`, `--spmd`, `--locality` and
+`--collective-timeout` (item 7); `--fleet` and `serve` (item 8); native
+`.so` plugins, the process tier (item 9).
 """
 
 from __future__ import annotations
@@ -123,8 +124,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--window", default=None, metavar="N|auto",
                    help="conservative-window width chosen per window: a "
                         "number is a fixed width in milliseconds, 'auto' "
-                        "lets a host-side controller retune it (not "
-                        "ported: ROADMAP.md Queue 1 item 5)")
+                        "lets a deterministic host-side controller retune "
+                        "the width between windows. Like --runahead, "
+                        "widths past the topology's minimum latency "
+                        "coarsen cross-host packet timing; leave the flag "
+                        "off for bit-identical default results")
     p.add_argument("--workers", "-w", type=int, default=None,
                    help="ignored (pthread-era flag; kept for compatibility)")
     p.add_argument("--scheduler-policy", "-p", default=None,
@@ -314,10 +318,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "thread (0 = ephemeral port, printed to stderr); "
                         "implies --metrics")
     p.add_argument("--xprof", default=None, metavar="START:STOP",
-                   help="capture a device profiler trace across the "
-                        "window segments between sim seconds START and "
-                        "STOP, into --xprof-dir (not ported: ROADMAP.md "
-                        "Queue 1 item 5)")
+                   help="capture a device profiler trace "
+                        "(torch.profiler: CPU ops and CUDA kernels) across "
+                        "the window segments between sim seconds START and "
+                        "STOP, into --xprof-dir as a Chrome trace")
     p.add_argument("--xprof-dir", default="shadow_tpu_xprof",
                    metavar="DIR",
                    help="output directory for the --xprof trace")
@@ -366,15 +370,43 @@ def _make_profiler(args):
     return prof, prof.phase
 
 
+def _strip_retry_flags(argv: list[str]) -> list[str]:
+    """The child's command line: without the retry flags, so that one
+    supervisor owns the run."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--retry", "--retry-backoff"):
+            skip = True
+            continue
+        if a.startswith("--retry=") or a.startswith("--retry-backoff="):
+            continue
+        out.append(a)
+    return out
+
+
+def _parse_xprof(spec: str):
+    """START:STOP in sim seconds -> (start, stop), or an error message."""
+    try:
+        a, sep, b = spec.partition(":")
+        if not sep:
+            raise ValueError("missing ':'")
+        span = (float(a), float(b))
+    except ValueError:
+        return f"--xprof must be START:STOP in sim seconds, got {spec!r}"
+    if span[0] < 0 or span[1] <= span[0]:
+        return f"--xprof needs 0 <= START < STOP, got {spec!r}"
+    return span
+
+
 def _refused(args, cfg=None) -> str | None:
     """The message for the first flag (or config) this port does not
     run yet, naming the ROADMAP.md item that will port it; None when
     the run is supported."""
     item = "ROADMAP.md Queue 1 item"
     checks = (
-        (args.retry > 0, f"--retry is not ported ({item} 5)"),
-        (args.window is not None, f"--window is not ported ({item} 5)"),
-        (args.xprof is not None, f"--xprof is not ported ({item} 5)"),
         (args.mesh != 0, f"--mesh is not ported ({item} 7, sharding)"),
         (args.dcn_slices != 1,
          f"--dcn-slices is not ported ({item} 7, sharding)"),
@@ -399,8 +431,6 @@ def _refused(args, cfg=None) -> str | None:
            for p in cfg.plugins):
         return (f"native .so plugins (the process tier) are not ported "
                 f"({item} 9)")
-    if any(h.logpcap or h.pcapdir for h in cfg.hosts):
-        return f"packet capture (logpcap, pcapdir) is not ported ({item} 5)"
     return None
 
 
@@ -422,8 +452,9 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     (None: CUDA, which must exist; "cpu" for the tests). Returns the exit
     code. A completed run fills `run_info`, when given, with what it
     measured: the segments run, the heartbeat harvest's reads and wall
-    seconds (extract + fetch), the engine's reads and the loop's wall
-    seconds."""
+    seconds (extract + fetch), the engine's reads, the loop's wall
+    seconds, the windows dispatched one at a time under `--window` and
+    their widths, and the capture drain's host seconds."""
     args = make_parser().parse_args(argv)
     if args.show_build_info:
         print(_build_info(device))
@@ -432,6 +463,23 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     if msg is not None:
         print(f"error: {msg}", file=sys.stderr)
         return 2
+    if args.retry > 0:
+        # run the simulator as a child in its own process group; on a
+        # stall (75), a lost peer (77) or a signal death, reap the group,
+        # back off and relaunch with --resume auto-if-any
+        from shadow_tpu_torch.runtime.supervisor import run_with_retry
+
+        child = [sys.executable, "-m", "shadow_tpu_torch"] + (
+            _strip_retry_flags(list(argv) if argv is not None
+                               else sys.argv[1:]))
+        report = run_with_retry(child, retries=args.retry,
+                                backoff_s=args.retry_backoff)
+        print("shadow_tpu_torch: retry report "
+              + json.dumps({k: report[k] for k in
+                            ("attempts", "recoveries", "exit_code",
+                             "exit_history", "mttr_s")}),
+              file=sys.stderr, flush=True)
+        return int(report["exit_code"])
     if args.workers is not None or args.scheduler_policy is not None:
         print("note: --workers/--scheduler-policy are pthread-era flags; "
               "parallelism is the device here", file=sys.stderr)
@@ -476,6 +524,16 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
         overflow = "drop"
     if overflow is None:
         overflow = "spill"
+
+    # --xprof is parsed before the build: a malformed span fails at once
+    xprof_span = None
+    if args.xprof:
+        xprof_span = _parse_xprof(args.xprof)
+        if isinstance(xprof_span, str):
+            print(f"error: {xprof_span}", file=sys.stderr)
+            return 2
+    xprof = None  # the live obs.profiler.DeviceTrace
+    xprof_done = False
 
     from shadow_tpu_torch.sim import build_simulation
 
@@ -683,7 +741,21 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
 
     logger, tracker = _make_observability(cfg, sim, args, trace=tdrain,
                                           metrics=registry)
-    from shadow_tpu_torch.runtime.harvest import HeartbeatHarvest
+    drain = None
+    if sim.pcap_gids:
+        from shadow_tpu_torch.utils.pcap import CaptureDrain
+
+        drain = CaptureDrain(
+            [sim.names[g] for g in sim.pcap_gids], sim.pcap_gids,
+            sim.pcap_dir, dns=sim.dns,
+        )
+        print(f"pcap capture: {len(sim.pcap_gids)} hosts -> {sim.pcap_dir}/",
+              file=sys.stderr)
+    from shadow_tpu_torch.runtime.harvest import (
+        HeartbeatHarvest,
+        fetch_tree,
+        queue_fill_ref,
+    )
     from shadow_tpu_torch.runtime.invariants import (
         InvariantViolation,
         validate,
@@ -714,10 +786,39 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     )
     sup_hb = SupervisorHeartbeat(logger, watchdog=sup.watchdog)
 
+    # --window: a fixed width in ms, or the adaptive controller's
+    wctl = None
+    window_fixed_ns = None
+    if args.window is not None:
+        if sim.pressure is not None:
+            print("error: --window needs --overflow drop or strict (the "
+                  "spill reservoir's boundary harvest steps the static "
+                  "window)", file=sys.stderr)
+            return 2
+        if args.window == "auto":
+            from shadow_tpu_torch.runtime.adaptive import WindowController
+
+            wctl = WindowController(
+                sim.engine.cfg.lookahead, n_hosts=len(sim.names)
+            )
+        else:
+            try:
+                window_fixed_ns = int(float(args.window) * MILLISECOND)
+            except ValueError:
+                print(f"error: --window must be a width in ms or 'auto', "
+                      f"got {args.window!r}", file=sys.stderr)
+                return 2
+            if window_fixed_ns < sim.engine.cfg.lookahead:
+                print(f"error: --window {args.window} is narrower than "
+                      f"the conservative lookahead "
+                      f"({sim.engine.cfg.lookahead} ns); it would only "
+                      "add barriers", file=sys.stderr)
+                return 2
+
     # one device-to-host copy per segment boundary; the host-side half
     # of a heartbeat runs after the next segment is dispatched
     harvest = HeartbeatHarvest(sim, tracker=tracker, tdrain=tdrain,
-                               metrics=registry)
+                               pcap=drain, metrics=registry)
     pending_hb = None  # (fetched bundle, sim_ns, summary) to consume
 
     def consume_hb():
@@ -754,18 +855,71 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     prev_validated_now = None
     prev_validated_drops = None
     segments, harvest_s, syncs_done = 0, 0.0, 0
+    windows_run, widths = 0, set()
     syncs0 = sim.engine.host_syncs
     t1 = time.perf_counter()
     try:
         with sup:
             while sim_s < stop_s:
+                if xprof_span is not None and not xprof_done:
+                    # the span's edges are segment boundaries (joined
+                    # into `nxt` below): the capture brackets whole
+                    # segments
+                    if xprof is not None and sim_s >= xprof_span[1]:
+                        xprof.stop()
+                        xprof, xprof_done = None, True
+                        recorder.record_event("xprof-stop",
+                                              sim_seconds=sim_s)
+                        print(f"xprof: capture stopped at sim "
+                              f"{sim_s:.3f}s -> {args.xprof_dir}",
+                              file=sys.stderr)
+                    elif xprof is None and sim_s >= xprof_span[0]:
+                        from shadow_tpu_torch.obs.profiler import DeviceTrace
+
+                        xprof = DeviceTrace(args.xprof_dir, dev)
+                        recorder.record_event("xprof-start",
+                                              sim_seconds=sim_s,
+                                              dir=args.xprof_dir)
+                        print(f"xprof: capturing device trace from sim "
+                              f"{sim_s:.3f}s -> {args.xprof_dir}",
+                              file=sys.stderr)
                 nxt = min(next_hb, next_ckpt, stop_s)
+                if xprof_span is not None and not xprof_done:
+                    edge = (xprof_span[1] if xprof is not None
+                            else xprof_span[0])
+                    if edge > sim_s:
+                        nxt = min(nxt, edge)
                 stop_i = int(nxt * SECOND)
                 full_hb = nxt >= next_hb
                 # -- advance to `nxt`: pressure modes step window by
                 # window with the reservoir's boundary refills
                 if sim.pressure is not None:
                     st = sim.run(stop_i, state=st)
+                elif wctl is not None or window_fixed_ns is not None:
+                    # one window per dispatch and one read per window; in
+                    # auto mode the read also feeds the controller
+                    while True:
+                        w = (wctl.window_ns if wctl is not None
+                             else window_fixed_ns)
+                        widths.add(w)
+                        with _phase("step"):
+                            st = sim.dispatch(stop_i, st, window_ns=w)
+                        windows_run += 1
+                        sim.engine.host_syncs += 1
+                        if wctl is not None:
+                            got = fetch_tree({
+                                "now": st.now,
+                                "executed": st.stats.n_executed.sum(),
+                                "drops": st.queues.drops.sum(),
+                                "fill": queue_fill_ref(st.queues)})
+                            wctl.update(int(got["executed"]),
+                                        int(got["drops"]),
+                                        float(got["fill"]))
+                            now_i = int(got["now"])
+                        else:
+                            now_i = int(st.now)
+                        if now_i >= stop_i:
+                            break
                 else:
                     st = sim.dispatch(stop_i, st)
                 t_h = time.perf_counter()
@@ -805,10 +959,6 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                     # the bundle predates the re-template: take the
                     # telemetry extras once more from the new state
                     if metrics_on:
-                        from shadow_tpu_torch.runtime.harvest import (
-                            fetch_tree,
-                        )
-
                         sim.engine.host_syncs += 1
                         metrics_extras = fetch_tree(sim.metrics_refs(st))
                     else:
@@ -930,13 +1080,30 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
         raise
     finally:
         # interrupted and failed runs keep their observability output:
-        # a deferred heartbeat holds drained trace records whose ring
-        # was already reset, so consume it before the trace file
+        # the partial device capture, every pcap file up to the last
+        # drain; a deferred heartbeat holds drained trace records whose
+        # ring was already reset, so consume it before the trace file
+        if xprof is not None:
+            try:
+                xprof.stop()
+            except Exception:
+                pass
+            xprof = None
         try:
             consume_hb()
         except Exception:
             pass
         logger.flush()
+        if drain is not None:
+            try:
+                drain.drain(st.hosts.net.cap)
+            except Exception:
+                pass
+            drain.close()
+            if drain.lost:
+                print(f"pcap: {drain.lost} records lost to ring overrun "
+                      "(raise --heartbeat-frequency cadence)",
+                      file=sys.stderr)
         if tdrain is not None:
             try:
                 st = tdrain.drain_state(st)
@@ -945,7 +1112,12 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
             tdrain.save(
                 args.trace_out,
                 profile=prof.export() if prof is not None else None,
-                extra_meta={"seed": args.seed, "tier": "device"},
+                extra_meta={
+                    "seed": args.seed, "tier": "device",
+                    # the exported trace names the device capture
+                    **({"xprof_dir": args.xprof_dir}
+                       if xprof_span is not None else {}),
+                },
             )
             print(f"event trace: {tdrain.n_records} records -> "
                   f"{args.trace_out}"
@@ -983,7 +1155,9 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
         run_info.update(
             segments=segments, harvest_reads=harvest.host_syncs,
             harvest_s=harvest_s, loop_s=wall,
-            host_syncs=syncs_done + sim.engine.host_syncs - syncs0)
+            host_syncs=syncs_done + sim.engine.host_syncs - syncs0,
+            windows_run=windows_run, widths=sorted(widths),
+            drain_s=drain.host_s if drain is not None else 0.0)
     got = harvest.fetch(refs)
     executed = int(got["events"])
     summary = {
@@ -1013,6 +1187,11 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     if sim.pressure is not None:
         summary["pressure"] = sim.pressure.snapshot(st)
         summary["capacity"] = int(sim.engine.cfg.capacity)
+    if drain is not None:
+        # records per lifecycle stage over the capture rings
+        summary["packet_stages"] = {
+            k: v for k, v in drain.stage_counts.items() if v
+        }
     if tdrain is not None:
         summary["trace"] = {
             "records": tdrain.n_records, "lost": tdrain.lost,
@@ -1035,6 +1214,11 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
             # align the last scrape's histogram families with the
             # printed totals, like registry.finalize below
             registry.ingest_stats(got["stats"])
+    if xprof_span is not None:
+        summary["xprof"] = {"dir": args.xprof_dir,
+                            "start": xprof_span[0],
+                            "stop": xprof_span[1],
+                            "completed": xprof_done}
     if metrics_on:
         # align the registry with the printed totals, so the last scrape
         # reconciles exactly

@@ -1335,9 +1335,9 @@ class Engine:
         None)."""
         if not self._f_any:
             return self._read(nxt < stop), None
-        t, mark, end = (int(v) for v in self._fetch(torch.stack(
-            [nxt, st.fault_epoch.to(torch.int64), stop])))
-        return t < end, (self.faults.epoch_at_host(t), mark)
+        t, mark = (int(v) for v in self._fetch(torch.stack(
+            [nxt, st.fault_epoch.to(torch.int64)])))
+        return t < stop, (self.faults.epoch_at_host(t), mark)
 
     def _apply_fault_epoch(self, st: EngineState, e: int, mark: int
                            ) -> EngineState:
@@ -1377,38 +1377,48 @@ class Engine:
             fault_epoch=torch.full((), e, dtype=torch.int32,
                                    device=self.device))
 
-    def _advance(self, st: EngineState, nxt, stop, host0: int,
-                 epochs=None) -> EngineState:
-        """Open the window [nxt, min(nxt + lookahead, stop)) and drain it,
+    def _advance(self, st: EngineState, nxt, stop: int, host0: int,
+                 epochs=None, window: int | None = None) -> EngineState:
+        """Open the window [nxt, min(nxt + window, stop)) and drain it,
         after applying the fault epoch it opens in if the watermark is
-        behind (`epochs` from `_opens`)."""
-        window_end = torch.clamp(nxt + self.cfg.lookahead, max=stop)
+        behind (`epochs` from `_opens`). `window` defaults to the
+        lookahead; another width stays causal (`_route` clamps cross-host
+        arrivals up to the window's end) but is not bit-identical to it:
+        a farther end defers those arrivals with it, as `--runahead`
+        does."""
+        if window is None:
+            window = self.cfg.lookahead
+        window_end = torch.clamp(nxt + window, max=stop)
         if epochs is not None and epochs[0] != epochs[1]:
             st = self._apply_fault_epoch(st, *epochs)
         st = self._drain_window(st, window_end, host0)
         return dataclasses.replace(st, now=window_end)
 
-    def _stop(self, stop) -> torch.Tensor:
-        return torch.as_tensor(stop, dtype=torch.int64, device=self.device)
+    def _land(self, st: EngineState, stop: int) -> EngineState:
+        """`st` with its clock on `stop`, filled on the device (a Python
+        int is passed to the ops, never copied to the device)."""
+        return dataclasses.replace(st, now=torch.full(
+            (), stop, dtype=torch.int64, device=self.device))
 
-    def step_window(self, st: EngineState, stop, host0: int = 0
-                    ) -> EngineState:
-        """Advance one conservative window; when no event below `stop`
-        remains, land on `stop`."""
-        stop = self._stop(stop)
+    def step_window(self, st: EngineState, stop: int, host0: int = 0,
+                    window: int | None = None) -> EngineState:
+        """Advance one conservative window (`window` wide, the lookahead
+        by default: see `_advance`); when no event below `stop` remains,
+        land on `stop`."""
+        stop = int(stop)
         nxt = self._next_time(st)
         opens, epochs = self._opens(st, nxt, stop)
         if opens:
-            return self._advance(st, nxt, stop, host0, epochs)
-        return dataclasses.replace(st, now=stop.clone())
+            return self._advance(st, nxt, stop, host0, epochs, window)
+        return self._land(st, stop)
 
-    def run(self, st: EngineState, stop, host0: int = 0) -> EngineState:
+    def run(self, st: EngineState, stop: int, host0: int = 0) -> EngineState:
         """Run until no pending event is earlier than `stop`."""
-        stop = self._stop(stop)
+        stop = int(stop)
         nxt = self._next_time(st)
         opens, epochs = self._opens(st, nxt, stop)
         while opens:
             st = self._advance(st, nxt, stop, host0, epochs)
             nxt = self._next_time(st)
             opens, epochs = self._opens(st, nxt, stop)
-        return dataclasses.replace(st, now=stop.clone())
+        return self._land(st, stop)

@@ -15,6 +15,7 @@ Wall-clock numbers are nondeterministic; they stay under
 
 from __future__ import annotations
 
+import os
 import time
 from contextlib import contextmanager
 
@@ -124,3 +125,28 @@ def queue_fill(state) -> float:
 
     return float(torch.mean(
         (state.queues.time != TIME_INVALID).to(torch.float32)))
+
+
+class DeviceTrace:
+    """The `--xprof` capture: `torch.profiler` over the CPU and, on the
+    card, the CUDA kernels, from construction to `stop`, which writes a
+    Chrome trace (`trace.json`) into `out_dir`."""
+
+    FILE = "trace.json"
+
+    def __init__(self, out_dir: str, device):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.device(device).type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self.path = os.path.join(out_dir, self.FILE)
+        os.makedirs(out_dir, exist_ok=True)
+        self._prof = profile(activities=acts)
+        self._prof.start()
+
+    def stop(self) -> str:
+        """End the capture and write the trace; returns its path."""
+        self._prof.stop()
+        self._prof.export_chrome_trace(self.path)
+        return self.path

@@ -3,13 +3,13 @@ counterpart of `shadow_tpu.runtime.harvest`.
 
 At every segment boundary the run loop needs the summary scalars, the
 queue fill, the pressure ring counters, the metrics extras, the stats
-histograms and, at heartbeats, the tracker's counters and the trace
-ring. Read one by one, each would be a device-to-host copy that waits
-for the card. This module gathers all of them as device tensors
-(`extract`, no copy) and brings them to the host in one copy (`fetch`):
-every tensor is viewed as bytes, the bytes are concatenated on the
-device, copied once into a pinned host buffer and waited for with one
-event, then split and viewed back on the host. The read is counted in
+histograms and, at heartbeats, the tracker's counters, the trace ring
+and the packet capture rings. Read one by one, each would be a
+device-to-host copy that waits for the card. This module gathers all of
+them as device tensors (`extract`, no copy) and brings them to the host
+in one copy (`fetch`): every tensor is viewed as bytes, the bytes are
+concatenated on the device, copied once into a pinned host buffer and
+waited for with one event, then split and viewed back on the host. The read is counted in
 the engine's `host_syncs`, as the engine's own reads are, and in this
 object's `host_syncs`.
 
@@ -114,15 +114,18 @@ def queue_fill_ref(q) -> torch.Tensor:
 class HeartbeatHarvest:
     """Gathers every segment-boundary read into one copy.
 
-    `tracker`, `tdrain` and `metrics` are the CLI's observability
-    consumers (any may be None); `sim` provides the pressure controller
-    and the engine whose `host_syncs` counts the copy.
+    `tracker`, `tdrain`, `pcap` (a `utils.pcap.CaptureDrain`) and
+    `metrics` are the CLI's observability consumers (any may be None);
+    `sim` provides the pressure controller and the engine whose
+    `host_syncs` counts the copy.
     """
 
-    def __init__(self, sim, *, tracker=None, tdrain=None, metrics=None):
+    def __init__(self, sim, *, tracker=None, tdrain=None, pcap=None,
+                 metrics=None):
         self.sim = sim
         self.tracker = tracker
         self.tdrain = tdrain
+        self.pcap = pcap
         # truthy: carry the live-telemetry reductions
         # (obs.metrics.metrics_device_refs) in the bundle
         self.metrics = metrics
@@ -139,8 +142,9 @@ class HeartbeatHarvest:
     def extract(self, state, *, full: bool):
         """Gather the segment's bundle as device tensors (no copy);
         returns (state, bundle). With `full` (a heartbeat) the bundle
-        also holds the tracker's counters and the trace ring's records,
-        and the returned state has the ring reset."""
+        also holds the tracker's counters, the trace ring's records
+        (the returned state has that ring reset) and the capture rings
+        (never reset: the drain tracks each host's write counter)."""
         sim = self.sim
         q = state.queues
         bundle: dict[str, Any] = {
@@ -177,6 +181,10 @@ class HeartbeatHarvest:
                 bundle["trace"] = TraceDrain.gather(state.trace)
                 state = dataclasses.replace(
                     state, trace=reset_ring(state.trace))
+            if self.pcap is not None and state.hosts.net.cap is not None:
+                from shadow_tpu_torch.utils.pcap import CaptureDrain
+
+                bundle["pcap"] = CaptureDrain.gather(state.hosts.net.cap)
         return state, bundle
 
     # -- host half -------------------------------------------------------
@@ -211,3 +219,5 @@ class HeartbeatHarvest:
             self.tracker.heartbeat_from(fetched["tracker"], sim_ns)
         if self.tracker is not None and "stats" in fetched:
             self.tracker.stats_from(fetched["stats"], sim_ns)
+        if self.pcap is not None and "pcap" in fetched:
+            self.pcap.ingest(fetched["pcap"])

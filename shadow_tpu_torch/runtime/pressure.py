@@ -478,8 +478,8 @@ class PressureController:
 def run_with_spill(engine, state, stop, controller: PressureController):
     """Window-stepped run with a harvest and refill at every boundary:
     the raw engine's counterpart of Simulation.run in spill mode."""
-    stop_t = engine._stop(stop)
-    while engine._read(state.now < stop_t):
+    stop = int(stop)
+    while engine._read(state.now < stop):
         state = engine.step_window(state, stop)
         state = controller.boundary(state, read=engine._read)
     return state

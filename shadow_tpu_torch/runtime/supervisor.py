@@ -15,8 +15,9 @@ watchdog has the grace on, so a short `--watchdog` does not fire while
 a kernel compiles.
 
 Free of torch imports: supervision must keep working when the thing it
-supervises is the part that broke. The relaunching wrapper
-(`run_with_retry`, `--retry`) is not ported.
+supervises is the part that broke. `run_with_retry` (`--retry`) runs
+the simulator as a child process and relaunches it from its newest
+checkpoint after a transient failure.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import faulthandler
 import json
 import os
 import signal
+import subprocess
 import sys
 import threading
 import time
@@ -355,3 +357,143 @@ class Supervisor:
 
     def margin_s(self) -> float | None:
         return self.watchdog.margin_s() if self.watchdog is not None else None
+
+
+# --------------------------------------------------------------- retry loop
+def next_retry_argv(argv: list[str], rc: int, *, mesh_flag: str = "--mesh",
+                    shrink: bool = False) -> list[str]:
+    """The relaunch command for a failed worker: `--resume auto-if-any`
+    added (the newest valid checkpoint when there is one, a fresh start
+    when the worker died before its first) and, with `shrink` (a lost
+    peer), the mesh halved. A `serve` worker resumes through its own
+    snapshot flags, which ride along untouched, and halves
+    `--max-lanes` instead."""
+    argv = list(argv)
+    if "serve" in argv:
+        mesh_flag = "--max-lanes"
+    elif "--resume" not in argv and not any(
+            a.startswith("--resume=") for a in argv):
+        argv += ["--resume", "auto-if-any"]
+    if shrink:
+        for i, a in enumerate(argv):
+            if a == mesh_flag and i + 1 < len(argv):
+                argv[i + 1] = str(max(1, int(argv[i + 1]) // 2))
+                break
+            if a.startswith(mesh_flag + "="):
+                argv[i] = (
+                    f"{mesh_flag}={max(1, int(a.split('=', 1)[1]) // 2)}")
+                break
+    return argv
+
+
+def run_with_retry(argv: list[str], *, retries: int,
+                   backoff_s: float = 1.0, mesh_flag: str = "--mesh",
+                   on_spawn: Callable[[Any], None] | None = None,
+                   _sleep: Callable[[float], None] = time.sleep,
+                   _popen: Callable[..., Any] = subprocess.Popen) -> dict:
+    """Supervise `argv` as a subprocess, relaunching it from the newest
+    valid checkpoint after transient failures (`--retry N`).
+
+    Each attempt runs in its own session, so that after an abnormal exit
+    one `killpg(SIGKILL)` reaps whatever it left behind. Retryable exits
+    are `exit_retryable`'s: stall (75), peer-lost (77, which also halves
+    `--mesh`) and signal deaths. The backoff doubles: backoff_s,
+    2 * backoff_s, ... While a child lives, SIGTERM, SIGINT and SIGHUP
+    are forwarded to its process group, and the supervisor waits for the
+    child's own exit.
+
+    Returns a report: attempts, recoveries, exit_code (the last
+    attempt's), exit_history, and mttr_s (per recovery, seconds from the
+    failure to the replacement's first stderr output, or its exit when
+    it stays silent). `on_spawn(proc)` is called per attempt.
+    """
+    report: dict = {"attempts": 0, "recoveries": 0, "exit_code": None,
+                    "exit_history": [], "mttr_s": []}
+    argv = list(argv)
+    current: list = [None]  # the live child, for the signal forwarders
+
+    def _forward(signum, frame):
+        proc = current[0]
+        if proc is not None and proc.poll() is None:
+            try:
+                os.killpg(proc.pid, signum)
+            except (ProcessLookupError, PermissionError, OSError):
+                pass
+
+    old_handlers: dict = {}
+    for signum in (signal.SIGTERM, signal.SIGINT, signal.SIGHUP):
+        try:
+            old_handlers[signum] = signal.signal(signum, _forward)
+        except (ValueError, OSError):  # not the main thread
+            pass
+    try:
+        return _retry_loop(argv, report, current, retries=retries,
+                           backoff_s=backoff_s, mesh_flag=mesh_flag,
+                           on_spawn=on_spawn, _sleep=_sleep, _popen=_popen)
+    finally:
+        for signum, handler in old_handlers.items():
+            try:
+                signal.signal(signum, handler)
+            except (ValueError, OSError):
+                pass
+
+
+def _retry_loop(argv: list[str], report: dict, current: list, *,
+                retries: int, backoff_s: float, mesh_flag: str, on_spawn,
+                _sleep, _popen) -> dict:
+    fail_t: float | None = None
+    for attempt in range(retries + 1):
+        report["attempts"] += 1
+        first_out: list = [None]
+        # a relaunched child's /healthz reports degraded
+        env = None
+        if attempt > 0:
+            env = dict(os.environ)
+            env["SHADOW_TPU_RETRY_ATTEMPT"] = str(attempt)
+        proc = _popen(argv, start_new_session=True, stderr=subprocess.PIPE,
+                      env=env)
+        current[0] = proc
+
+        def _tee(stream, mark):
+            for line in iter(stream.readline, b""):
+                if mark[0] is None:
+                    mark[0] = time.monotonic()
+                sys.stderr.buffer.write(line)
+                sys.stderr.flush()
+
+        tee = None
+        if proc.stderr is not None:
+            tee = threading.Thread(
+                target=_tee, args=(proc.stderr, first_out), daemon=True)
+            tee.start()
+        if on_spawn is not None:
+            on_spawn(proc)
+        rc = proc.wait()
+        current[0] = None
+        if tee is not None:
+            tee.join(timeout=5.0)
+        if fail_t is not None:
+            alive_t = first_out[0] if first_out[0] is not None \
+                else time.monotonic()
+            report["mttr_s"].append(round(alive_t - fail_t, 3))
+        report["exit_history"].append(rc)
+        if rc == 0 or not exit_retryable(rc) or attempt == retries:
+            report["exit_code"] = rc
+            return report
+        fail_t = time.monotonic()
+        # reap the dead worker's whole process group before relaunching
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError, OSError):
+            pass
+        report["recoveries"] += 1
+        argv = next_retry_argv(argv, rc, mesh_flag=mesh_flag,
+                               shrink=(rc == EXIT_PEER_LOST))
+        print(
+            f"shadow_tpu_torch: attempt {attempt + 1} exited {rc} "
+            f"(retryable); relaunching in {backoff_s * (2 ** attempt):.1f}s: "
+            f"{' '.join(argv)}",
+            file=sys.stderr, flush=True,
+        )
+        _sleep(backoff_s * (2 ** attempt))
+    return report  # unreachable: the last attempt returns

@@ -21,11 +21,13 @@ with `spill_len`, "grow", "strict", "drop") and fault schedules
 between drains), the sim-time histograms (`stats`) and a wall-clock
 phase profiler (`profiler`, an `obs.profiler.WindowProfiler`: `run` and
 `step_window` time their "step" phase, `summary` gains a "profile"
-key). `Simulation.dispatch` runs a segment with no overflow probe (the
-CLI's run loop, `cli.py`, which re-templates a "grow" run itself). Not
-ported, each raising NotImplementedError: sharding (`mesh`,
-`locality`, `host_order`), packet capture and traced window widths
-(`window_ns`).
+key), packet capture (`logpcap`/`pcapdir`: a capture ring per host,
+`Simulation.pcap_gids` and `pcap_dir`) and per-window widths
+(`dispatch`/`step_window` with `window_ns`, one window per call).
+`Simulation.dispatch` runs a segment with no overflow probe (the CLI's
+run loop, `cli.py`, which re-templates a "grow" run itself). Not ported,
+each raising NotImplementedError: sharding (`mesh`, `locality`,
+`host_order`).
 """
 
 from __future__ import annotations
@@ -163,6 +165,8 @@ class Simulation:
     pressure: Any = None  # PressureController in spill mode
     faults: Any = None  # CompiledFaults when the config schedules any
     profiler: Any = None  # obs.profiler.WindowProfiler, timing "step"
+    pcap_gids: tuple = ()  # hosts with logpcap set
+    pcap_dir: str = "shadow.pcap.d"  # from the pcapdir host attr
     # queue overflow is loud by default: the reference's event heaps are
     # unbounded, so a counted drop would silently change the run
     strict_overflow: bool = True
@@ -215,30 +219,31 @@ class Simulation:
         """Run from `state` to `stop_ns` with no overflow probe: the CLI
         reads the drop count from its heartbeat harvest instead. Pressure
         modes need `run`'s window-boundary refills and are refused.
-        `window_ns` (traced window widths, `--window`) is not ported."""
-        if window_ns is not None:
-            raise NotImplementedError(
-                "traced window widths are not ported (ROADMAP.md Queue 1 "
-                "item 5)")
+        With `window_ns` (`--window`) it runs exactly one window of that
+        width, the adaptive controller choosing the next between calls;
+        None runs to the stop at the lookahead's width."""
         if self.pressure is not None:
             raise ValueError(
                 "dispatch() cannot run spill/grow pressure modes; their "
                 "reservoir refills are host-side window-boundary work — "
                 "use run()")
+        if window_ns is not None:
+            return self.engine.step_window(state, stop_ns,
+                                           window=int(window_ns))
         with self._phase():
             return self.engine.run(state, stop_ns)
 
     def step_window(self, state, stop_ns: int | None = None,
                     window_ns: int | None = None):
-        """Advance one window from `state`."""
-        if window_ns is not None:
-            raise NotImplementedError(
-                "traced window widths are not ported (ROADMAP.md Queue 1 "
-                "item 5)")
+        """Advance one window from `state`. `window_ns` widens (or
+        narrows) it past the lookahead: cross-host arrivals clamp up to
+        the window's end, so the run stays causal but coarsens packet
+        timing by up to the width; None keeps the lookahead."""
         st = self.state0 if state is None else state
         with self._phase():
             return self.engine.step_window(
-                st, self.stop_ns if stop_ns is None else stop_ns)
+                st, self.stop_ns if stop_ns is None else stop_ns,
+                window=None if window_ns is None else int(window_ns))
 
     @contextlib.contextmanager
     def _phase(self):
@@ -552,6 +557,8 @@ def build_simulation(
     # NIC receive buffer bound (interfacebuffer; the reference's default
     # is 1024000 bytes)
     rx_buf = np.full((n_hosts,), interface_buffer, np.int64)
+    pcap_mask = np.zeros((n_hosts,), bool)
+    pcap_dirs: set[str] = set()
     proc_stop = np.full((n_hosts,), np.iinfo(np.int64).max, np.int64)
     for h, v in zip(hosts, host_vertex):
         vx = topo.vertices[v]
@@ -572,7 +579,9 @@ def build_simulation(
         if s.interfacebuffer:
             rx_buf[h.gid] = s.interfacebuffer
         if s.logpcap or s.pcapdir:
-            raise NotImplementedError("packet capture is not ported")
+            pcap_mask[h.gid] = True
+            if s.pcapdir:
+                pcap_dirs.add(s.pcapdir)
         stops = {p.stoptime for p in s.processes if p.stoptime}
         if stops:
             if len(s.processes) > 1 and (
@@ -605,6 +614,11 @@ def build_simulation(
         wnd_words=tcp_wnd_words, rx_buf_bytes=rx_buf,
         snd_buf_bytes=snd_buf_bytes if snd_buf_bytes.any() else None,
         device=dev)
+    if pcap_mask.any():
+        from shadow_tpu_torch.utils.pcap import CaptureRing
+
+        net = dataclasses.replace(
+            net, cap=CaptureRing.create(pcap_mask, device=dev))
 
     b = SimBuild(cfg=cfg, hosts=hosts, n_hosts=n_hosts,
                  sockets=net.sockets, device=dev, dns=dns,
@@ -672,6 +686,18 @@ def build_simulation(
     # sweep fold into multi-segment events (the delivery runs inside the
     # fused arrival)
     burst = None
+    if burst_rx and fuse_rx and tcp is not None and pcap_mask.any():
+        # a folded run would be one captured record where the reference
+        # writes one per segment: capture fidelity wins over drain depth
+        import warnings
+
+        warnings.warn(
+            "burst_rx disabled: pcap capture is enabled and burst "
+            "folding would merge captured segments (pass burst_rx=False "
+            "to silence)",
+            stacklevel=2,
+        )
+        burst_rx = False
     if burst_rx and fuse_rx and tcp is not None:
         burst = (KIND_PKT_ARRIVE, A_SEQ, A_LEN, A_SPORT, A_DPORT, A_META,
                  PROTO_TCP, F_SYN | F_FIN | F_RST, tcpm.MSS,
@@ -770,6 +796,11 @@ def build_simulation(
     init = Events(time=on(times), dst=on(dsts), src=on(dsts), seq=on(seqs),
                   kind=on(kinds), args=on(argw))
     st0 = eng.init_state(hosts_state, init)
+    if len(pcap_dirs) > 1:
+        raise ValueError(
+            f"hosts disagree on pcapdir ({sorted(pcap_dirs)}); captures "
+            "share one directory per run"
+        )
     return Simulation(
         engine=eng, state0=st0, stop_ns=int(cfg.stoptime * SECOND),
         dns=dns, topo=topo, names=[h.name for h in hosts], app=model,
@@ -778,6 +809,8 @@ def build_simulation(
                                      n_args=N_PKT_ARGS, mode=overflow)
                   if overflow in ("spill", "grow") else None),
         faults=faults, profiler=profiler,
+        pcap_gids=tuple(int(g) for g in np.nonzero(pcap_mask)[0]),
+        pcap_dir=(pcap_dirs.pop() if pcap_dirs else "shadow.pcap.d"),
     )
 
 

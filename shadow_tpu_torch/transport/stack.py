@@ -163,8 +163,8 @@ class Pkt:
 class HostNet:
     """Per-host network state, [H]-leading: NIC both ways, the upstream
     router's AQM, the socket table and, when TCP is installed, the
-    connection table `tcb` ([H, S] `transport.tcp.TCB`). `cap` (packet
-    capture) is not ported and stays None."""
+    connection table `tcb` ([H, S] `transport.tcp.TCB`), and the packet
+    capture rings `cap` (`utils.pcap.CaptureRing`) when a host captures."""
 
     nic_tx: NIC
     nic_rx: NIC
@@ -257,8 +257,6 @@ class Stack:
         (hs', Emit[H, 1]). Rows where `mask` is False send nothing and
         leave the NIC and socket untouched."""
         net: HostNet = hs.net
-        if net.cap is not None:
-            raise NotImplementedError("packet capture is not ported")
         mask = _rows(mask, now, torch.bool)
         slot = _rows(slot, now, _I32)
         nbytes = _rows(nbytes, now, _I32)
@@ -270,8 +268,17 @@ class Stack:
         sport = _sel(net.sockets.local_port, slot)
         # socket counters count app payload; the NIC counts the wire
         sockets = net.sockets.add_tx(torch.where(mask, slot, -1), nbytes)
+        cap = net.cap
+        if cap is not None:
+            # the tx-side record on the sender's ring
+            from shadow_tpu_torch.utils.pcap import STG_SENT
+
+            cap = _select_rows(mask, cap.append(
+                now, -1, _rows(dst_host, now, _I32), sport,
+                _rows(dst_port, now, _I32), PROTO_UDP, nbytes, 0, 0,
+                STG_SENT), cap)
         hs = dataclasses.replace(hs, net=dataclasses.replace(
-            net, nic_tx=nic_tx, sockets=sockets))
+            net, nic_tx=nic_tx, sockets=sockets, cap=cap))
         args = Pkt.encode_args(PROTO_UDP, sport, dst_port, length=nbytes,
                                aux=aux)
         em = Emit.single(dst=_rows(dst_host, now, _I32), dt=finish - now,
@@ -324,8 +331,24 @@ class Stack:
             nic_rx = _select_rows(drop, net.nic_rx, nic_rx)
             nic_rx = dataclasses.replace(
                 nic_rx, drops=nic_rx.drops + tail_drop.to(_I64))
+            cap = net.cap
+            if cap is not None:
+                # the arrival record, its stage bitmask the packet's path
+                from shadow_tpu_torch.utils import pcap
+
+                bit = lambda c, v: torch.where(c, v, 0)
+                stages = (pcap.STG_ARRIVED
+                          | bit(sojourn > 0, pcap.STG_QUEUED)
+                          | bit(tail_drop, pcap.STG_TAIL_DROP)
+                          | bit(drop & ~tail_drop, pcap.STG_AQM_DROP)
+                          | bit(~drop, pcap.STG_DELIVERED)
+                          | bit((a[:, A_META] & F_RETX) != 0, pcap.STG_RETX))
+                cap = cap.append(now, ev.src, ev.dst, a[:, A_SPORT],
+                                 a[:, A_DPORT], a[:, A_META],
+                                 a[:, A_LEN] & BURST_LEN_MASK, a[:, A_SEQ],
+                                 a[:, A_ACK], stages)
             hs = dataclasses.replace(hs, net=dataclasses.replace(
-                net, nic_rx=nic_rx, codel=codel))
+                net, nic_rx=nic_rx, codel=codel, cap=cap))
             args = a.clone()
             args[:, A_SRC] = ev.src  # stash the true source
             if not self.fuse_rx:

@@ -378,24 +378,19 @@ REFUSED = {
     "spmd": ["--test", "--spmd", "pmap"],
     "locality": ["--test", "--locality"],
     "collective_timeout": ["--test", "--collective-timeout", "5"],
-    "retry": ["--test", "--retry", "1"],
-    "window": ["--test", "--window", "5"],
-    "xprof": ["--test", "--xprof", "1:2"],
     "native_plugin": ["native.xml"],
-    "pcap": ["pcap.xml"],
 }
 REFUSED_ITEM = {"serve": 8, "fleet": 8, "mesh": 7, "dcn_slices": 7,
                 "spmd": 7, "locality": 7, "collective_timeout": 7,
-                "retry": 5, "window": 5, "xprof": 5, "native_plugin": 9,
-                "pcap": 5}
+                "native_plugin": 9}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_refused_flags_exit_2(name, tmp_path):
+    # capture, --window, --retry and --xprof run (tests/test_torch_pcap*.py,
+    # test_torch_window.py, test_torch_retry.py)
     (tmp_path / "native.xml").write_text(PHOLD.replace(
         'path="shadow-plugin-test-phold"', 'path="libphold.so"'))
-    (tmp_path / "pcap.xml").write_text(PHOLD.replace(
-        '<host id="peer"', '<host id="peer" logpcap="true"'))
     t = run_cli("torch", tmp_path, REFUSED[name])
     assert t["rc"] == 2 and t["summary"] is None
     assert f"ROADMAP.md Queue 1 item {REFUSED_ITEM[name]}" in t["err"]
@@ -411,7 +406,7 @@ def test_no_card_no_fallback_and_build_info(capsys):
     assert f"torch {torch.__version__}" in out and "device cpu" in out
 
 
-def test_harvest_is_one_read_per_segment():
+def test_harvest_is_one_read_per_segment(tmp_path):
     """extract + fetch cost one counted read, heartbeat bundles (tracker,
     trace, stats, metrics, pressure) included; the reads of the segment
     itself are the engine's own."""
@@ -442,6 +437,31 @@ def test_harvest_is_one_read_per_segment():
             assert harvest.summary_from(fetched) == sim.summary(st)
     assert harvest.host_syncs == 3
     assert int(st.trace.wr.sum()) == 0 and drain.n_records > 0
+    # with packet capture the heartbeat bundles carry the capture rings
+    # in the same one read, and the drain writes what they held
+    from shadow_tpu_torch.utils.pcap import CaptureDrain
+
+    cfg = tconfig.parse_config(PHOLD.replace(
+        '<host id="peer"', '<host id="peer" logpcap="true"'))
+    sim = tsim.build_simulation(cfg, seed=4, capacity=12, overflow="spill",
+                                device="cpu")
+    caps = CaptureDrain([sim.names[g] for g in sim.pcap_gids],
+                        sim.pcap_gids, str(tmp_path), dns=sim.dns)
+    harvest = HeartbeatHarvest(sim, pcap=caps)
+    st = sim.state0
+    with one_thread():
+        for k, full in ((1, False), (2, True), (3, True)):
+            st = sim.run(k * 500_000_000, state=st)
+            syncs = sim.engine.host_syncs
+            st, bundle = harvest.extract(st, full=full)
+            fetched = harvest.fetch(bundle)
+            assert sim.engine.host_syncs - syncs == 1
+            assert ("pcap" in fetched) == full
+            harvest.consume(fetched, k * 500_000_000)
+    caps.close()
+    wr = st.hosts.net.cap.wr
+    assert caps.last_wr == {g: int(wr[g]) for g in sim.pcap_gids}
+    assert caps.stage_counts["sent"] > 0 and caps.lost == 0
 
 
 # -- the slow pin: chip_smoke.py's phase 19 ---------------------------------

@@ -622,13 +622,23 @@ def test_traced_on_cuda_matches_cpu(name):
 
 
 # -- the command line on the card ---------------------------------------------
-# name: (config text, flags): PHOLD over UDP under spill pressure, and TGen
-# at 32 pairs with phase 19's flags, its checkpoint at 4 s in flight; each
-# run's stop is a checkpoint time, so its newest generation is the end state
+# name: (config text, flags): PHOLD over UDP under spill pressure; the
+# same with a checkpoint each 0.5 sim-s, whose 1.5 s generation (the one
+# resumed) holds 18 events parked in the reservoir; a smaller one under
+# --overflow grow, which re-templates at doubled capacity twice and whose
+# 1.25 s checkpoint parks 2 events; and TGen at 32 pairs with phase 19's
+# flags. Each run's stop is a checkpoint time, so its newest generation is
+# the end state
+_PHOLD_FLAGS = ["--seed", "4", "--capacity", "12", "--heartbeat-frequency",
+                "0.5", "--metrics", "--stats", "--checkpoint-interval", "1"]
 CLI_CASES = {
-    "phold": (examples.phold_example(16, 12, stoptime=2),
-              ["--seed", "4", "--capacity", "12", "--heartbeat-frequency",
-               "0.5", "--metrics", "--stats", "--checkpoint-interval", "1"]),
+    "phold": (examples.phold_example(16, 12, stoptime=2), _PHOLD_FLAGS),
+    "phold_parked": (examples.phold_example(16, 12, stoptime=2),
+                     _PHOLD_FLAGS[:-1] + ["0.5"]),
+    "phold_grow": (examples.phold_example(16, 8, stoptime=1.5),
+                   ["--seed", "4", "--capacity", "6", "--heartbeat-frequency",
+                    "0.5", "--metrics", "--stats", "--overflow", "grow",
+                    "--checkpoint-interval", "0.25"]),
     "tgen32": (chip_smoke.tgen_config(32), chip_smoke.CLI_ARGV[1:]),
 }
 
@@ -673,7 +683,119 @@ def test_cli_on_cuda_matches_cpu(name, tmp_path):
     (tmp_path / "resume").mkdir()
     shutil.copy(tmp_path / "cpu" / chip_smoke.CLI_MID_CKPT,
                 tmp_path / "resume" / chip_smoke.CLI_CKPT)
+    if name in ("phold_parked", "phold_grow"):
+        # the mid-run checkpoint carries events parked in the reservoir
+        from shadow_tpu_torch.utils.checkpoint import read_extra
+
+        extras = read_extra(str(tmp_path / "resume" / chip_smoke.CLI_CKPT))
+        assert extras["reservoir_time"].size > 0
+    if name == "phold_grow":
+        # its checkpoints come after a re-template: their queues are wider
+        # than the --capacity template a resume builds, which either
+        # package refuses, so the card is held to the CPU's run alone
+        assert cpu["summary"]["capacity"] == 24
+        return
     resumed = _cli_run("cuda", text, flags, tmp_path / "resume",
                        ["--resume", "auto"])
     assert resumed["final_digest"] == cpu["final_digest"]
     assert resumed["summary"] == cpu["summary"]
+
+
+# name: (config text, flags) of phase 20's pin fields: TGen at 32 pairs
+# with phase 20's flags (capture on every host, --window auto, --xprof),
+# and PHOLD over UDP capturing tx and rx records under a fixed --window
+PCAP_CASES = {
+    "tgen32": (chip_smoke.pcap_config(32), chip_smoke.PCAP_ARGV[1:]),
+    "phold": (examples.phold_example(16, 2, stoptime=2).replace(
+        '<host id="peer"',
+        f'<host id="peer" logpcap="true" pcapdir="{chip_smoke.PCAP_DIR}"'),
+        ["--seed", "6", "--heartbeat-frequency", "0.5", "--overflow",
+         "strict", "--window", "100", "--xprof", "0.5:1", "--xprof-dir",
+         chip_smoke.XPROF_DIR, "--checkpoint-interval", "2",
+         "--checkpoint-path", chip_smoke.PCAP_CKPT]),
+}
+
+
+def _pcap_run(dev, text, flags, workdir):
+    """`cli.main` on `dev` in `workdir`: phase 20's pin fields."""
+    import contextlib
+    import io
+    import os
+
+    from shadow_tpu_torch import cli
+
+    workdir.mkdir(exist_ok=True)
+    (workdir / "cfg.xml").write_text(text)
+    out, err, cwd = io.StringIO(), io.StringIO(), os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["cfg.xml", *flags], device=dev)
+    finally:
+        os.chdir(cwd)
+    assert rc == 0, err.getvalue()[-2000:]
+    return chip_smoke.pcap_pin_fields(out.getvalue(), err.getvalue(),
+                                      workdir)
+
+
+@pytest.mark.parametrize("name", list(PCAP_CASES))
+def test_cli_capture_and_windows_on_cuda_match_cpu(name, tmp_path):
+    """Packet capture, per-window widths and the device profile through
+    the command line: the card prints the CPU's log and summary (windows
+    included), writes its pcap files byte for byte and ends in its
+    state; the card's xprof trace holds CUDA kernels."""
+    import json
+
+    _need_card()
+    text, flags = PCAP_CASES[name]
+    before = merge.launches
+    card = _pcap_run("cuda", text, flags, tmp_path / "cuda")
+    assert merge.launches > before
+    cpu = _pcap_run("cpu", text, flags, tmp_path / "cpu")
+    assert card == cpu
+    assert card["pcap_files"] > 0 and card["summary"]["packet_stages"]
+    doc = json.loads((tmp_path / "cuda" / chip_smoke.XPROF_DIR
+                      / "trace.json").read_text())
+    assert any(e.get("cat") == "kernel" for e in doc["traceEvents"])
+
+
+def test_retry_on_cuda_resumes_to_the_uninterrupted_state(tmp_path,
+                                                          monkeypatch):
+    """`--retry` on the card: the first child dies by SIGKILL after its
+    first checkpoint, the relaunch resumes from it and ends in the state
+    of an uninterrupted card run."""
+    import contextlib
+    import functools
+    import io
+    import os
+
+    from shadow_tpu_torch import cli
+    from shadow_tpu_torch.runtime import supervisor
+    from torch_retry_harness import child_popen
+
+    _need_card()
+    text = examples.phold_example(16, 3, stoptime=3)
+    argv = ["cfg.xml", "--seed", "2", "--heartbeat-frequency", "0.5",
+            "--checkpoint-interval", "1", "--checkpoint-path", "r.ckpt.npz"]
+    monkeypatch.setattr(supervisor, "run_with_retry", functools.partial(
+        supervisor.run_with_retry, _popen=child_popen("cuda"),
+        _sleep=lambda s: None))
+    cwd, logs = os.getcwd(), {}
+    for label, extra in (("straight", []), ("retry", ["--retry", "2"])):
+        d = tmp_path / label
+        d.mkdir()
+        (d / "cfg.xml").write_text(text)
+        err = io.TextIOWrapper(io.BytesIO(), encoding="utf-8",
+                               write_through=True)
+        os.chdir(d)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()), \
+                    contextlib.redirect_stderr(err):
+                assert cli.main(argv + extra, device="cuda") == 0
+        finally:
+            os.chdir(cwd)
+        logs[label] = err.buffer.getvalue().decode()
+    assert '"exit_history": [-9, 0]' in logs["retry"]
+    assert "resumed from r.ckpt.npz at sim time 1.000s" in logs["retry"]
+    assert chip_smoke.checkpoint_digest(tmp_path / "retry" / "r.ckpt.npz") \
+        == chip_smoke.checkpoint_digest(tmp_path / "straight" / "r.ckpt.npz")

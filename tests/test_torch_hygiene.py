@@ -50,6 +50,15 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.runtime.supervisor\n"
         "import shadow_tpu_torch.obs.metrics, shadow_tpu_torch.obs.server\n"
         "import shadow_tpu_torch.tools.strip_log\n"
+        "import shadow_tpu_torch.utils.pcap\n"
+        "import shadow_tpu_torch.runtime.adaptive\n"
+        "import shadow_tpu_torch.tools.parse_shadow\n"
+        "import shadow_tpu_torch.tools.plot_shadow\n"
+        "import shadow_tpu_torch.tools.check_openmetrics\n"
+        "import shadow_tpu_torch.tools.diff_runs\n"
+        "import shadow_tpu_torch.tools.convert_config\n"
+        "import shadow_tpu_torch.tools.generate_config\n"
+        "import shadow_tpu_torch.tools.generate_topology\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -12,7 +12,7 @@
   reference compile);
 - the slow pins: chip_smoke.py's PHOLD-net runs at 4096 hosts (the main
   run and both variants) in both packages, against its constants;
-- the knobs the port does not have raise NotImplementedError.
+- the knobs the port does not have (sharding) raise NotImplementedError.
 
 Every comparison is exact, dtypes included.
 """
@@ -281,13 +281,15 @@ def test_unported_knobs_raise():
         tsim.build_simulation(cfg, device="cpu", overflow="lossy")
     with pytest.raises(ValueError):
         tsim.build_simulation(cfg, device="cpu", rx_queue="red")
-    with pytest.raises(NotImplementedError):
-        tsim.build_simulation(cfg, device="cpu").step_window(None,
-                                                             window_ns=5)
+    # window widths and packet capture are ported
+    # (tests/test_torch_window.py, tests/test_torch_pcap.py)
+    ts = tsim.build_simulation(cfg, device="cpu")
+    assert int(ts.step_window(None, window_ns=5).now) > 0
     pcap = texamples.phold_example(8, 1, 2).replace(
         '<host id="peer"', '<host id="peer" logpcap="true"')
-    with pytest.raises(NotImplementedError):
-        tsim.build_simulation(tconfig.parse_config(pcap), device="cpu")
+    ts = tsim.build_simulation(tconfig.parse_config(pcap), device="cpu")
+    assert ts.pcap_gids == tuple(range(8))
+    assert ts.state0.hosts.net.cap.t.shape == (16, 1024)
     # tor and bitcoin are ported (tests/test_torch_tor_bitcoin.py): PHOLD's
     # arguments under their plugins fail as in the reference
     for plugin, why in (("tor", "needs a role"),

@@ -616,18 +616,23 @@ def test_echo_matches_reference(name, fuse_rx, rx_queue):
 
 
 def test_stack_unported_parts_raise():
+    # packet capture is ported (tests/test_torch_pcap.py): a send appends
+    # its tx record on the capturing sender's ring only, where it sends
+    from shadow_tpu_torch.utils.pcap import CaptureRing, STG_SENT
+
     net = tstack.HostNet.create(2, 2, 1.0, 1.0, device="cpu")
-    hs = tstack.SimHost(net=dataclasses.replace(net, cap=object()), app=None)
-    with pytest.raises(NotImplementedError, match="capture"):
-        tstack.Stack().send_udp(hs, torch.zeros(2, dtype=torch.int64), 0, 1,
-                                80, 100)
+    hs = tstack.SimHost(net=dataclasses.replace(
+        net, cap=CaptureRing.create([True, False], ring=4)), app=None)
+    hs2, _ = tstack.Stack().send_udp(
+        hs, torch.zeros(2, dtype=torch.int64), 0, 1, 80, 100,
+        mask=torch.tensor([True, True]))
+    assert hs2.net.cap.wr.tolist() == [1, 0]
+    assert hs2.net.cap.meta[0, 0, 4].item() >> 16 == STG_SENT
+    hs3, _ = tstack.Stack().send_udp(
+        hs2, torch.zeros(2, dtype=torch.int64), 0, 1, 80, 100,
+        mask=torch.tensor([False, True]))
+    assert hs3.net.cap.wr.tolist() == [1, 0]
     # the TCP stack is ported, CUBIC too (F2 solved)
     assert ttcp.TCP(cc="cubic").cc is ttcp.CubicCC
     with pytest.raises(ValueError):
         tstack.Stack(rx_queue="red")
-    net = dataclasses.replace(
-        tstack.HostNet.create(2, 2, 1.0, 1.0, device="cpu"), cap=object())
-    hs = tstack.SimHost(net=net, app=None)
-    with pytest.raises(NotImplementedError):
-        tstack.Stack().send_udp(hs, torch.zeros(2, dtype=torch.int64), 0,
-                                1, 80, 10)
