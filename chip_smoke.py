@@ -59,9 +59,9 @@ Phases, each of which fails the run (exit 1, no result line) on error:
 11. Tor (relay crypto on a virtual CPU, circuits over TCP), built from
    `tor_example` at bench.py's 1,020-host tier by `sim.build_simulation`
    with bench.py's Tor knobs and strict overflow, run once to TOR_STOP_S
-   = 4.5 sim-s in one call: held to its JAX/CPU events, windows, sweeps,
-   inner steps, drops, streams done, relayed bytes and state digest, and
-   to a merge launch per sweep; merge launches counted by queue width,
+   = 4 sim-s in one call (cut from 4.5 for phase 21): held to its JAX/CPU
+   events, windows, sweeps, inner steps, drops, streams done, relayed
+   bytes and state digest, and to a merge launch per sweep; merge launches counted by queue width,
    the kernel held to its plain version on captured inputs at every
    width reached and timed on one per width; a profile of 3.00-3.25 s;
 12. Bitcoin (UDP control and TCP block bodies on one host), built from
@@ -92,8 +92,9 @@ Phases, each of which fails the run (exit 1, no result line) on error:
 16. fault injection: phase 10's config under TGEN_FAULTS (server churn
    with crash, restart, quarantine and RSTs; a partition that heals; a
    loss spike; latency inflation; throttled server NICs), run once to
-   10 sim-s: held the same way as 11, and to its fault drops,
-   quarantined events and retransmits, each > 0; its wall time, host
+   FAULTS_STOP_S = 8 sim-s (cut from 10 for phase 21): held the same way
+   as 11, and to its fault drops, quarantined events and retransmits,
+   each > 0; its wall time, host
    syncs and inner steps printed beside phase 10's run of this call;
 17. CUBIC: (a) the cube-root kernel (`csrc/cbrt.cu`, the replay of
    glibc's powf(|x|, 1/3f) that XLA's CPU cbrt calls) held to its plain
@@ -102,19 +103,21 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    (PIN_CBRT_SHA256); (b) the same on edge inputs outside the domain
    (negatives, subnormals, zeros, infinities, nans); its time at TGen's
    width (4096 rows) and over the domain against its byte bound; (c)
-   phase 16's config with tcp_cc="cubic", held the same way as 16 to
-   PIN_TGEN_CUBIC, to a congestion-avoidance epoch on some rows, and to
+   phase 16's config with tcp_cc="cubic" to FAULTS_STOP_S (cut from 10
+   sim-s for phase 21), held the same way as 16 to PIN_TGEN_CUBIC, to a
+   congestion-avoidance epoch on some rows, and to
    a cube-root launch per inner step; its wall time, host syncs and
    inner steps printed beside phase 16's run of this call;
 18. traces and histograms (obs.trace, obs.stats) on each drain, each
    held to a JAX/CPU pin of trace_pin (records per op, records lost, a
    sha256 over the drained records, one over the stats plane, the state
    digest): (a) phase 8's jittered, lossy graph on the chained drain for
-   2 sim-s, drained at each second (EXEC, SEND, DROP records); (b) phase
+   1 sim-s, drained at 0.5 and 1 s (EXEC, SEND, DROP records); (b) phase
    14's spill run on the batched drain with the controller's SPILL and
-   REFILL rows; (c) phase 15's frontier run to 5 sim-s (the deferred
-   per-round append, the run-length family); each traced run's ms per
-   inner step printed beside the untraced run of phases 8 and 15;
+   REFILL rows; (c) phase 15's frontier run to 4 sim-s (the deferred
+   per-round append, the run-length family; (a) and (c) cut from 2 and
+   5 sim-s for phase 21); each traced run's ms per inner step printed
+   beside the untraced run of phases 8 and 15;
 19. the command line: `shadow_tpu_torch.cli.main`, in-process, on
    phase 10's config with the CLI's default --overflow spill and
    --metrics, heartbeats every 2 sim-s and a checkpoint every 3, to
@@ -138,7 +141,21 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    required, and the xprof trace holding CUDA kernel events; its ms
    per inner step, window probes and widths, host reads per segment,
    harvest share, the capture drain's host seconds and the trace's
-   size printed beside phase 10's.
+   size printed beside phase 10's;
+21. sharding: `cli.main` on phase 19's call with --overflow drop over
+   `--mesh 2` (two ranks on the one card over gloo, every collective
+   staged through pinned host memory; every TGen pair crosses the
+   exchange), then `--mesh 1` over NCCL resuming from its 3 s
+   checkpoint to the same stop: each held to PIN_CLI_SHARD (the
+   summary's deterministic fields with cross_shard_packets, the
+   stripped stdout's sha256, the mid-run checkpoint's leaf table and
+   mesh header, the final leaves' digest), the merge launches of every
+   rank counted from zero and required; the merge kernel held to its
+   plain version and timed on an input captured inside
+   `Engine._xchg_deliver` at the delivery of a full [S, R] bucket (the
+   flat [S*R] batch); its ms, collectives and host reads per inner
+   step, exchange rounds per sweep and backend printed beside phase
+   19's run of this call.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -146,7 +163,7 @@ package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines; `--only 17,18` runs phases 1-3 and then only
-the listed phases (9-20), without the result lines.
+the listed phases (9-21), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
@@ -159,7 +176,8 @@ for phases 11 and 12, `tests/test_torch_multimodel.py`,
 slow` for phase 16, `tests/test_torch_cubic.py -m slow` for phase 17,
 `tests/test_torch_trace.py -m slow` for phase 18,
 `tests/test_torch_cli.py -m slow` for phase 19,
-`tests/test_torch_pcap.py -m slow` for phase 20). The merge-input
+`tests/test_torch_pcap.py -m slow` for phase 20,
+`tests/test_torch_shard_cli.py -m slow` for phase 21). The merge-input
 generator below is shared with tests/test_torch_merge.py.
 """
 
@@ -169,6 +187,7 @@ import dataclasses
 import hashlib
 import itertools
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -470,9 +489,11 @@ TGEN_FAULTS = (
     'end="9"/>'
     '<fault type="bandwidth" hosts="srv*9" factor="0.25" start="4.5" '
     'end="8.5"/>')
+# phases 16's and 17(c)'s stop (cut from 10 s to make room for phase 21)
+FAULTS_STOP_S = 8
 PIN_TGEN_FAULTS = (
-    188_361, 132, 132, 646, 0, 4_619, 2_392, 246, 1_290,
-    "a41c65cbdebd12df08a54244e47a1384798bf5a402a2e6ba2b4e53fe90fbe6b0")
+    129_041, 92, 92, 417, 0, 2_941, 2_349, 191, 1_060,
+    "cb6720028e70e202ff4165e5264ca0407eaf2f4b7fbee5430ed6fc958a5ff39c")
 
 
 # CUBIC (phase 17). (a) the cube root over every f32 in [0, 2560], CUBIC's
@@ -484,8 +505,8 @@ CBRT_DOMAIN_END = 0x45200000
 PIN_CBRT_SHA256 = (
     "1a3c76c8cdf54d137017b0bf813b87ec2d9a7db0b1eba9a3c20374cdc9ee4b18")
 PIN_TGEN_CUBIC = (
-    187_043, 132, 132, 657, 0, 4_628, 2_451, 244, 1_285,
-    "b46e70b134b110a5fe7811b70d94e02a57eb75ae3547d1643d2bf550b60b2e0d")
+    128_737, 93, 93, 431, 0, 2_942, 2_415, 194, 1_070,
+    "67d12b23543251c7b14f70638912f9f9b1ecc54542bc7d99b5f30a29b2525e4f")
 # (a) runs the domain in chunks of CBRT_CHUNK inputs; (b) the edge inputs
 # outside it, each against the plain version bit for bit: every subnormal
 # kind, both zeros, both infinities, quiet and signalling nans with
@@ -509,26 +530,26 @@ CBRT_OPS = 25
 #     attached, drained at its stop;
 # (c) the frontier drain: phase 15's config to TRACE_FRONTIER_STOP_S,
 #     drained at its stop.
-TRACE_SEGMENTS_S = (1, 2)
+TRACE_SEGMENTS_S = (0.5, 1)
 TRACE_CHAINED_CAP = 256
 TRACE_SPILL_CAP = 512
 TRACE_FRONTIER_CAP = 256
-TRACE_FRONTIER_STOP_S = 5
+TRACE_FRONTIER_STOP_S = 4
 PIN_TRACE_CHAINED = (
-    591_783, 591_783, 581_047, 10_736, 0, 0, 0, 0,
-    "f0a1a03806b5c955d90c0a8df2f61f2a451d83c3b0264216bd687ea7e9099df4",
-    "bfe59ca0c828f8418ba15e94075513e2c0ad587a63d20c0812af1cd3e26083ef",
-    "f949f8853dcb0bf7de6fea6f54832a4168e0402d27f19c0ecb4fd3c8109d9378")
+    331_354, 331_354, 325_300, 6_054, 0, 0, 0, 0,
+    "ea8f9c4595b580b3e979c83e4f182666a82e0d2773442c358ab0d18218b9ffc0",
+    "eb032de8508b12c791f231180aa8ff935a447875b9533bdbb80f73254ebb7173",
+    "f07f9f66f60b1bbd3d9b36b2150960339ae0ef03cd29aab3a3639d5b4505882a")
 PIN_TRACE_SPILL = (
     1_104_201, 787_175, 786_337, 0, 0, 1_915, 1_915, 634_890,
     "f71801cfe747e51f134ab3f1cb8326dc53868faf979a8cbf48dedfe95fb02a61",
     "ae439ab2354bd5bd57d6f2c6ee9224e62ab1902363324f072ecba6f7b0e67059",
     "4e70aa704dad4c8fe8e70fe0e570d7523f2b15b4acfeaf8a139b95c86bc3b23a")
 PIN_TRACE_FRONTIER = (
-    45_508, 45_508, 85_280, 0, 0, 0, 0, 0,
-    "bd581b77fdbc0a7c5d590c6052592755cc1beec2d1984881c48017ed085550aa",
-    "fc95c7309d245e27e302d71ad196139adb5808097c139028cfce07d75c34d604",
-    "fb863dca7c7966c4e39868c761d0c09fcb49cd23d6a2f0fbcb065096cc2caacc")
+    16_808, 16_808, 28_700, 0, 0, 0, 0, 0,
+    "e9e1319ec56b6fa61411f261d5dd46ca97415986d04361c320d5fd0de577c2ad",
+    "78d49c4208439c0a81b73ffdc2e831391940cb377e41859e1b746a7e204a87ed",
+    "e9f228cd2513ad02f6a68ac8ff7d3f326d6bce281fed4869b872d0346f99eae4")
 
 
 def trace_pin(leaves, drain) -> tuple:
@@ -746,6 +767,81 @@ def pcap_pin_fields(stdout: str, stderr: str, workdir) -> dict:
             "final_digest": checkpoint_digest(d / PCAP_CKPT)}
 
 
+# The sharded command line (phase 21): phase 19's call (CLI_ARGV) with
+# --overflow drop (a mesh of more than one shard refuses spill) over two
+# ranks on the one card (--mesh 2: gloo with host-staged collectives,
+# since NCCL gives each rank a card of its own), to CLI_STOP_S with the
+# 3 s checkpoint; then --mesh 1 (NCCL) resumes from that checkpoint,
+# copied alone into a fresh directory, to the same stop. The config puts
+# every server on rank 0 and every client on rank 1, so all of TGen's
+# traffic crosses the exchange. Pins from the reference's CLI on the CPU
+# (`--mesh 2`, then `--mesh 1 --resume`; the slow test of
+# tests/test_torch_shard_cli.py): per run the summary's deterministic
+# fields with `cross_shard_packets`, the stripped stdout's sha256, the
+# mid-run checkpoint's leaf table sha256 and mesh header, and the final
+# leaves' digest.
+SHARD_ARGV = CLI_ARGV + ["--overflow", "drop"]
+SHARD_MESHES = {"run": (2, "gloo"), "resumed": (1, "nccl")}
+SHARD_SUMMARY_KEYS = ("events", "windows", "sweeps", "queue_drops",
+                      "net_dropped", "rx_bytes", "tx_bytes",
+                      "events_by_kind", "cross_shard_packets")
+_SHARD_SUMMARY = {
+    "events": 76668, "windows": 52, "sweeps": 52, "queue_drops": 0,
+    "net_dropped": 0, "rx_bytes": 158704440, "tx_bytes": 167936000,
+    "events_by_kind": {"pkt_arrive": 33210, "pkt_rx": 0, "tcp_timer": 2460,
+                       "tcp_tx": 36900, "tgen.0": 4098},
+    "cross_shard_packets": 142680}
+# resumed at one shard from the 3 s checkpoint, written before the first
+# cross-shard packet (the clients start at 3 s)
+_SHARD_SUMMARY_RESUMED = dict(_SHARD_SUMMARY, cross_shard_packets=0)
+PIN_CLI_SHARD = {
+    "run": {
+        "summary": _SHARD_SUMMARY,
+        "log_sha256": (
+            "17776e80668c620c4c1697cba1078089"
+            "ce1d5ebdbb29f749862183b54f71d68c"),
+        "mid_leaf_table_sha256": (
+            "7233ed69c83ef69c094310ea55515bd4"
+            "b8f478b3f9f7fc5d953bf23b2c5a2ffa"),
+        "mid_mesh": {"n_shards": 2, "dcn_slices": 1, "host_order": None},
+        "final_digest": (
+            "d27d54979b5ce0d952e2d117f9f69c0d"
+            "15dd46a1f6c42b033aa5cfc913553f89")},
+    "resumed": {
+        "summary": _SHARD_SUMMARY_RESUMED,
+        "log_sha256": (
+            "572817366fc7e88fe3c783eed4c32e78"
+            "4361942cd371c14fcfe19a01c7dd88da"),
+        "mid_leaf_table_sha256": (
+            "7233ed69c83ef69c094310ea55515bd4"
+            "b8f478b3f9f7fc5d953bf23b2c5a2ffa"),
+        "mid_mesh": {"n_shards": 2, "dcn_slices": 1, "host_order": None},
+        "final_digest": (
+            "94b7d73c11d285aafd0170584e010927"
+            "8930741d854e74ebebd23b82ffb8ad8f")}}
+
+
+def shard_pin_fields(stdout: str, workdir) -> dict:
+    """A phase-21 run's pin from its stdout and its directory (either
+    package's CLI)."""
+    from pathlib import Path
+
+    from shadow_tpu_torch.tools.strip_log import strip_line
+
+    lines = stdout.splitlines()
+    summary = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    stripped = "".join(s + "\n" for s in map(strip_line, lines)
+                       if s is not None)
+    d = Path(workdir)
+    with np.load(d / CLI_MID_CKPT) as data:
+        mesh = json.loads(bytes(data["__header__"]).decode("utf-8"))["mesh"]
+    return {"summary": {k: summary[k] for k in SHARD_SUMMARY_KEYS},
+            "log_sha256": hashlib.sha256(stripped.encode()).hexdigest(),
+            "mid_leaf_table_sha256": checkpoint_leaf_table(d / CLI_MID_CKPT),
+            "mid_mesh": mesh,
+            "final_digest": checkpoint_digest(d / CLI_CKPT)}
+
+
 def tgen_faults_config(n_pairs: int) -> str:
     """Phase 16's config: tgen_config(n_pairs) under TGEN_FAULTS."""
     return tgen_config(n_pairs).replace("</shadow>",
@@ -806,13 +902,15 @@ def queue_keys(leaves, ctrl=None) -> np.ndarray:
 TOR_TIER = (110, 660, 30)
 TOR_SEED, TOR_SOCKETS, TOR_CAPACITY, TOR_CPU_GHZ = 1, 32, 768, 3.0
 TOR_FILESIZE, TOR_COUNT, TOR_CONFIG_STOP_S = "64KiB", 2, 10
-# cut from 5 sim-s (1,787 inner steps, 140.6 s on the card) to 4.5: the
-# first clients start at 3 s (nothing runs before), and by 4.5 s every
-# client has finished its first fetch (946 inner steps on JAX/CPU)
-TOR_STOP_S = 4.5
+# cut from 5 sim-s (1,787 inner steps, 140.6 s on the card) to 4.5, then
+# to 4 for phase 21: the first clients start at 3 s (nothing runs
+# before); by 4 s the circuits relay 26 MB in 824 inner steps on JAX/CPU
+# though no fetch has finished yet (946 steps and every first fetch
+# done by 4.5 s)
+TOR_STOP_S = 4
 PIN_TOR = (
-    18_941, 29, 64, 946, 0, 132, 26_357_760,
-    "9d87a037281661d203b7188e1432588fe99bb689a5b11edd671648746e540900")
+    14_293, 20, 55, 824, 0, 0, 26_155_008,
+    "45453339717113212dcfd3c27ba7705ed7b2fd91ceaf0b30991e0c41cb1bc87e")
 # the first clients start at 3 s: the profile covers 3.00-3.25 s
 TOR_PROFILE_S = (3.0, 3.25)
 # the merge call whose input phase 11 times: mid-run, in circuit traffic
@@ -1827,11 +1925,12 @@ def app_phases() -> dict:
                           (3.0, float(TGEN_PROFILE_STOP_S)),
                           lambda lv, n: tgen_frontier_pin(lv),
                           PIN_TGEN_FRONTIER),
-        "tgen_faults": (tgen_faults_config(TGEN_PAIRS), tgen_kw, TGEN_STOP_S,
+        "tgen_faults": (tgen_faults_config(TGEN_PAIRS), tgen_kw,
+                        FAULTS_STOP_S,
                         TGEN_TIMED_CALL, None,
                         lambda lv, n: tgen_faults_pin(lv), PIN_TGEN_FAULTS),
         "tgen_cubic": (tgen_faults_config(TGEN_PAIRS),
-                       dict(tgen_kw, tcp_cc="cubic"), TGEN_STOP_S,
+                       dict(tgen_kw, tcp_cc="cubic"), FAULTS_STOP_S,
                        TGEN_TIMED_CALL, None,
                        lambda lv, n: tgen_faults_pin(lv), PIN_TGEN_CUBIC),
     }
@@ -2281,6 +2380,204 @@ def phase_pcap(merge, smi_line, tgen=None) -> dict:
     return {"run": run, "phase_s": phase_s}
 
 
+def _fd_capture(fn):
+    """(fn(), what the process and its children wrote to file
+    descriptor 1 meanwhile): a --mesh run's ranks print there."""
+    import os
+
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile() as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            out = fn()
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        return out, f.read().decode()
+
+
+def xchg_deliver_input(merge, events, dev, ckpt_path):
+    """One merge input captured inside `Engine._xchg_deliver`, at the
+    delivery of a full [S, R] exchange bucket (the flat [S * R] batch):
+    the queues of the shard of phase 21's checkpoint `ckpt_path` that
+    holds the most events, each host's last queued event taken out into
+    the bucket's row of another shard, delivered back. The delivered
+    queues must equal the checkpoint's."""
+    import torch
+
+    from shadow_tpu_torch.convert import key_of
+    from shadow_tpu_torch.core.engine import (
+        ConstantNetwork,
+        Engine,
+        EngineConfig,
+        ExchangeBuf,
+    )
+    from shadow_tpu_torch.core.events import EventQueue, Events
+    from shadow_tpu_torch.core.timebase import TIME_INVALID
+    from shadow_tpu_torch.parallel.mesh import Comm
+
+    with np.load(ckpt_path) as data:
+        h = json.loads(bytes(data["__header__"]).decode("utf-8"))
+        lv = {key_of(p): data[f"leaf_{i}"] for i, p in enumerate(h["paths"])}
+    s, r = lv["xchg.sent_min"].shape[0], lv["xchg.bucket.time"].shape[1]
+    per = lv["queues.time"].shape[0] // s
+    busy = (lv["queues.time"] != TIME_INVALID).reshape(s, -1).sum(1)
+    rank = int(np.argmax(busy))
+    h0 = rank * per
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a[h0:h0 + per])).to(dev)
+    q = EventQueue(time=on(lv["queues.time"]), src=on(lv["queues.src"]),
+                   seq=on(lv["queues.seq"]), kind=on(lv["queues.kind"]),
+                   args=on(lv["queues.args"]), drops=on(lv["queues.drops"]))
+    n_args = q.args.shape[-1]
+    eng = Engine(EngineConfig(n_hosts=per, capacity=q.time.shape[1],
+                              lookahead=1, n_args=n_args, axis_name="hosts",
+                              n_shards=s, route_bucket=r),
+                 [None], ConstantNetwork(1), device=dev,
+                 comm=Comm(rank=rank, size=s, staged=False))
+    cnt = (q.time != TIME_INVALID).sum(1)
+    rows = torch.nonzero(cnt > 0).flatten()[:r]
+    col = cnt[rows] - 1
+    bucket = ExchangeBuf.create(s, r, n_args, device=dev).bucket
+    take = lambda a: a[rows, col]
+    n, peer = rows.numel(), (rank + 1) % s
+    bucket.time[peer, :n] = take(q.time)
+    bucket.dst[peer, :n] = (h0 + rows).to(torch.int32)
+    bucket.src[peer, :n] = take(q.src)
+    bucket.seq[peer, :n] = take(q.seq)
+    bucket.kind[peer, :n] = take(q.kind)
+    bucket.args[peer, :n] = take(q.args)
+    full = q
+    t = q.time.clone()
+    t[rows, col] = TIME_INVALID
+    q = dataclasses.replace(q, time=t)
+    xchg = ExchangeBuf(bucket=bucket, sent_min=bucket.time.min().reshape(1))
+    with MergeRecorder(merge, events, timed_call=1) as rec:
+        got, _ = eng._xchg_deliver(q, xchg, h0)
+    check(n > 0 and rec.by_hc, f"exchange delivery: {n} events, no merge "
+                               "call captured")
+    valid = full.time != TIME_INVALID
+    check(torch.equal(got.time, full.time),
+          "exchange delivery: queues.time differs from the checkpoint")
+    for f in ("src", "seq", "kind", "args"):
+        a, b = getattr(got, f), getattr(full, f)
+        m = valid if a.dim() == 2 else valid[..., None]
+        check(torch.equal(torch.where(m, a, 0), torch.where(m, b, 0)),
+              f"exchange delivery: queues.{f} differs from the checkpoint")
+    (hc, args), = rec.captured()[:1]
+    return args, n, s * r
+
+
+def phase_shard(merge, events, dev, smi_line, cli_phase=None) -> dict:
+    """Phase 21: `cli.main` on phase 19's call with --overflow drop over
+    --mesh 2 (gloo: two ranks share the card), then --mesh 1 (NCCL)
+    resuming from its 3 s checkpoint, each with the stdout its ranks
+    print captured, the merge launches of every rank counted from zero
+    and required, both held to PIN_CLI_SHARD; then the merge kernel held
+    to its plain version, and timed, on an input captured at the
+    exchange delivery's shape."""
+    import shutil
+    from pathlib import Path
+
+    import torch
+
+    from shadow_tpu_torch import cli
+
+    pins, runs = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = Path(tmp)
+        for label, (n_mesh, backend) in SHARD_MESHES.items():
+            d = base / label
+            d.mkdir()
+            extra = ["--mesh", str(n_mesh)]
+            if label == "resumed":
+                shutil.copy(base / "run" / CLI_MID_CKPT, d / CLI_CKPT)
+                extra += ["--resume", "auto"]
+            (d / "tgen.xml").write_text(tgen_config(TGEN_PAIRS))
+            cwd, last = os.getcwd(), {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            os.chdir(d)
+            try:
+                rc, out = _fd_capture(lambda: cli.main(
+                    SHARD_ARGV + extra, backend=backend, run_info=last))
+            finally:
+                os.chdir(cwd)
+            wall = time.perf_counter() - t0
+            check(rc == 0, f"shard {label}: exit code {rc}")
+            launches = last.get("kernel_launches", {}).get("merge", 0)
+            check(launches > 0, f"shard {label}: no merge launch")
+            pins[label] = shard_pin_fields(out, d)
+            leaves = {}
+            for k, name in enumerate((CLI_MID_CKPT, CLI_CKPT)):
+                with np.load(d / name) as data:
+                    h = json.loads(bytes(data["__header__"]).decode())
+                    leaves[k] = {p: int(data[f"leaf_{i}"])
+                                 for i, p in enumerate(h["paths"])
+                                 if p in (".stats.n_inner_steps",
+                                          ".stats.n_xchg_rounds",
+                                          ".stats.n_sweeps",
+                                          ".stats.n_windows")}
+            delta = {p.rsplit(".", 1)[1]: leaves[1][p] - (
+                leaves[0][p] if label == "resumed" else 0)
+                for p in leaves[1]}
+            steps = delta["n_inner_steps"]
+            runs[label] = {
+                "mesh": n_mesh, "backend": last["backend"],
+                "wall_s": wall, "loop_s": last["loop_s"],
+                "launches": launches,
+                "inner_steps_summed_over_shards": steps,
+                "windows": delta["n_windows"], "sweeps": delta["n_sweeps"],
+                "xchg_rounds": delta["n_xchg_rounds"],
+                "xchg_rounds_per_sweep": (delta["n_xchg_rounds"]
+                                          / max(delta["n_sweeps"], 1)),
+                "ms_per_inner_step": 1e3 * last["loop_s"] / steps,
+                "collectives_per_inner_step": last["collectives"] / steps,
+                "host_reads_per_inner_step": last["host_syncs"] / steps,
+                "collectives": last["collectives"],
+                "host_syncs": last["host_syncs"],
+                "segments": last["segments"],
+                "harvest_reads_per_segment":
+                    last["harvest_reads"] / last["segments"],
+                "events": pins[label]["summary"]["events"],
+                "cross_shard_packets":
+                    pins[label]["summary"]["cross_shard_packets"],
+            }
+            print(f"  shard {label}: {json.dumps(runs[label])} "
+                  f"({smi_line})")
+        args, n_events, batch = xchg_deliver_input(
+            merge, events, dev, base / "run" / CLI_CKPT)
+    got = json.loads(json.dumps(pins))
+    for label in SHARD_MESHES:
+        for key, val in got[label].items():
+            want = (PIN_CLI_SHARD or {}).get(label, {}).get(key)
+            check(val == want,
+                  f"shard {label}: {key} {val} != JAX/CPU {want}")
+    bad = compare_merge(merge, args)
+    check(bad == 0, f"merge kernel != plain on the exchange delivery's "
+                    f"input: {bad} elements differ")
+    print(f"  merge == plain on the exchange delivery's input: "
+          f"h={args[0].shape[0]} hc={args[0].shape[1]} "
+          f"w={args[5].shape[1]} m={args[3].shape[0]} (a flat [S*R] = "
+          f"{batch} batch, {n_events} events)")
+    deliver = time_captured(merge, dev, args, smi_line,
+                            f"captured exchange delivery (m={batch})")
+    phase_s = time.perf_counter() - t_phase
+    beside = (cli_phase or {}).get("runs", {})
+    print(json.dumps({"shard": runs, "phase_s": phase_s,
+                      "cli_phase19_same_call": {
+                          k: {key: r.get(key) for key in (
+                              "wall_s", "loop_s", "ms_per_inner_step",
+                              "host_syncs_per_segment", "inner_steps")}
+                          for k, r in beside.items()},
+                      "card": smi_line}))
+    return {"runs": runs, "phase_s": phase_s, "deliver": deliver}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2291,13 +2588,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (9-20) to run after "
+                    help="comma-separated phases (9-21) to run after "
                          "phases 1-3, skipping the others; prints no "
                          "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= set(range(9, 21)):
-        ap.error("--only takes phases 9 to 20")
+    if not only <= set(range(9, 22)):
+        ap.error("--only takes phases 9 to 21")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2360,6 +2657,8 @@ def main(argv=None) -> int:
                     phase_cli(merge, smi_line)
                 elif p == 20:
                     phase_pcap(merge, smi_line)
+                elif p == 21:
+                    phase_shard(merge, events, dev, smi_line)
                 else:
                     phase_app({11: "tor", 12: "btc", 13: "mixed",
                                15: "tgen_frontier", 16: "tgen_faults"}[p],
@@ -2515,6 +2814,11 @@ def main(argv=None) -> int:
           "a device profile: TGen 4096 hosts")
     pcap_phase = phase_pcap(merge, smi_line, tgen["runs"][0])
 
+    phase("21. sharding: TGen 4096 hosts through cli.main over --mesh 2 "
+          "(gloo, one card), resumed at --mesh 1 (NCCL)")
+    shard_phase = phase_shard(merge, events, dev, smi_line, cli_phase)
+    deliver = shard_phase["deliver"]
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -2532,7 +2836,9 @@ def main(argv=None) -> int:
                      + sum(t["launches"] for t in traced.values())
                      + sum(r["launches"]
                            for r in cli_phase["runs"].values())
-                     + pcap_phase["run"]["launches"]),
+                     + pcap_phase["run"]["launches"]
+                     + sum(r["launches"]
+                           for r in shard_phase["runs"].values())),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -2556,6 +2862,8 @@ def main(argv=None) -> int:
         "launches_cli": {k: r["launches"]
                          for k, r in cli_phase["runs"].items()},
         "launches_cli_pcap": pcap_phase["run"]["launches"],
+        "launches_shard": {k: r["launches"]
+                           for k, r in shard_phase["runs"].items()},
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -2612,6 +2920,12 @@ def main(argv=None) -> int:
         "tgen_cubic_hc": cubic_hc,
         "tgen_cubic_us": cubic["timing"][cubic_hc]["us"],
         "tgen_cubic_bound_us": cubic["timing"][cubic_hc]["bound_us"],
+        "xchg_deliver_hc": int(deliver["hc"]),
+        "xchg_deliver_m": int(deliver["m"]),
+        "xchg_deliver_us": deliver["us"],
+        "xchg_deliver_bound_us": deliver["bound_us"],
+        "xchg_deliver_plain_ms": deliver["plain_ms"],
+        "xchg_deliver_yardstick_ms": deliver["yardstick_ms"],
         "shapes": [{key: row[key] for key in
                     ("hc", "w", "nw", "regime", "us", "warm_us",
                      "bound_us", "share", "warps_per_block")}
@@ -2619,7 +2933,8 @@ def main(argv=None) -> int:
                    + [run["timing"][hc] for run in (tgen, tor, btc, mixed,
                                                     front, faults, cubic)
                       for hc in sorted(run["timing"])]
-                   + [skew["timing"]["loop"], skew["timing"]["refill"]]],
+                   + [skew["timing"]["loop"], skew["timing"]["refill"],
+                      deliver]],
         "build_s": build_s,
     }, {
         "name": "cbrt",

@@ -17,10 +17,21 @@ writes resumes in the other.
 `device="cpu"` (the tests do); without a card it raises, it never falls
 back to the CPU.
 
+`--mesh N` shards the hosts over N ranks (`parallel.mesh.spawn`, one
+process per shard, the port's counterpart of the reference's N devices
+in one process): NCCL with one card per rank on CUDA, gloo on the CPU,
+or gloo on CUDA for ranks that share one card when the caller passes
+`backend="gloo"` to `main` (there is no flag). Rank 0 prints the log,
+the heartbeats and the summary and writes the global checkpoints; every
+rank runs its shard. `--dcn-slices`, `--locality`, `--spmd` and a resume
+of a sharded or locality-ordered checkpoint at any `--mesh` run as in
+the reference; `--collective-timeout T` ends a rank whose collective
+made no progress for T seconds (a lost peer) with a per-shard bundle and
+exit 77.
+
 Refused with exit 2, each naming the ROADMAP.md Queue 1 item that will
-port it: `--mesh`, `--dcn-slices`, `--spmd`, `--locality` and
-`--collective-timeout` (item 7); `--fleet` and `serve` (item 8); native
-`.so` plugins, the process tier (item 9).
+port it: `--spmd constraint` (item 7b); `--fleet` and `serve` (item 8);
+native `.so` plugins, the process tier (item 9).
 """
 
 from __future__ import annotations
@@ -112,8 +123,10 @@ def make_parser() -> argparse.ArgumentParser:
                         "multi-machine design, master.c:414-416)")
     p.add_argument("--spmd", default="auto",
                    choices=("auto", "shard_map", "constraint", "pmap"),
-                   help="SPMD execution path for sharded runs (not "
-                        "ported: ROADMAP.md Queue 1 item 7)")
+                   help="SPMD execution path for sharded runs: auto, "
+                        "shard_map and pmap run one rank per shard; "
+                        "constraint is not ported (ROADMAP.md Queue 1 "
+                        "item 7b)")
     p.add_argument("--runahead", type=float, default=None,
                    help="override the conservative window width in "
                         "MILLISECONDS (options.c --runahead minTimeJump; "
@@ -407,13 +420,9 @@ def _refused(args, cfg=None) -> str | None:
     the run is supported."""
     item = "ROADMAP.md Queue 1 item"
     checks = (
-        (args.mesh != 0, f"--mesh is not ported ({item} 7, sharding)"),
-        (args.dcn_slices != 1,
-         f"--dcn-slices is not ported ({item} 7, sharding)"),
-        (args.spmd != "auto", f"--spmd is not ported ({item} 7, sharding)"),
-        (args.locality, f"--locality is not ported ({item} 7, sharding)"),
-        (args.collective_timeout > 0,
-         f"--collective-timeout is not ported ({item} 7, sharding)"),
+        (args.spmd == "constraint",
+         f"--spmd constraint is not ported ({item} 7b, a global engine "
+         "partitioned by the compiler)"),
         (args.fleet is not None,
          f"--fleet is not ported ({item} 8, fleets and serving)"),
         (args.config == "serve",
@@ -447,14 +456,59 @@ def _build_info(device) -> str:
             f"CUDA {torch.version.cuda}, device {name})")
 
 
-def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
+def _mesh_rank(argv, device, backend):
+    """One rank of a `--mesh N` run: `main` inside the group, returning
+    (exit code, run_info)."""
+    info: dict = {}
+    rc = main(argv, device=device, run_info=info, backend=backend)
+    return rc, info
+
+
+def _launch_mesh(argv, args, device, backend, run_info) -> int:
+    """`--mesh N` outside a process group: start N ranks, each running
+    this command line, and return rank 0's exit code (77 when a rank
+    lost its peer; a rank killed by signal s gives 128 + s)."""
+    from shadow_tpu_torch.parallel.mesh import (
+        GROUP_TIMEOUT_S,
+        SpawnError,
+        default_backend,
+        spawn,
+    )
+    from shadow_tpu_torch.runtime.supervisor import EXIT_PEER_LOST
+
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    backend = backend or default_backend(
+        "cuda" if device is None else device)
+    # the group's own timeout outlasts --collective-timeout, so that the
+    # collective watchdog, not the backend, ends a rank whose peer died
+    timeout = max(GROUP_TIMEOUT_S, 2 * args.collective_timeout + 60)
+    try:
+        rc, info = spawn(_mesh_rank, args.mesh, backend=backend,
+                         device=device, args=(argv, device, backend),
+                         timeout_s=timeout)
+    except SpawnError as e:
+        codes = [c for c in e.exit_codes if c]
+        if EXIT_PEER_LOST in codes:
+            return EXIT_PEER_LOST
+        c = codes[0] if codes else 1
+        return 128 - c if c < 0 else c
+    if run_info is not None:
+        run_info.update(info)
+    return int(rc)
+
+
+def main(argv=None, *, device=None, run_info: dict | None = None,
+         backend: str | None = None) -> int:
     """Run the command line `argv` (sys.argv[1:] by default) on `device`
     (None: CUDA, which must exist; "cpu" for the tests). Returns the exit
     code. A completed run fills `run_info`, when given, with what it
     measured: the segments run, the heartbeat harvest's reads and wall
     seconds (extract + fetch), the engine's reads, the loop's wall
     seconds, the windows dispatched one at a time under `--window` and
-    their widths, and the capture drain's host seconds."""
+    their widths, the capture drain's host seconds and, under `--mesh`,
+    rank 0's collectives and the group's backend. `backend` picks the
+    `--mesh` group's backend ("nccl" or "gloo"; None: NCCL on CUDA, gloo
+    on the CPU)."""
     args = make_parser().parse_args(argv)
     if args.show_build_info:
         print(_build_info(device))
@@ -480,12 +534,29 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                              "exit_history", "mttr_s")}),
               file=sys.stderr, flush=True)
         return int(report["exit_code"])
+    if args.dcn_slices > 1 and not args.mesh:
+        print("error: --dcn-slices needs --mesh N (total devices across "
+              "all slices)", file=sys.stderr)
+        return 2
+    mesh = None
+    if args.mesh:
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            return _launch_mesh(argv, args, device, backend, run_info)
+        from shadow_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(args.mesh, dcn_slices=args.dcn_slices,
+                         backend=backend, device=device)
+        if mesh.rank != 0:
+            # one voice: rank 0 prints the log, heartbeats and summary
+            sys.stdout = sys.stderr = open(os.devnull, "w")
     if args.workers is not None or args.scheduler_policy is not None:
         print("note: --workers/--scheduler-policy are pthread-era flags; "
               "parallelism is the device here", file=sys.stderr)
     from shadow_tpu_torch.core.device import resolve_device
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if args.test:
         cfg = parse_config(example_config())
     elif args.config:
@@ -523,7 +594,9 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
             return 2
         overflow = "drop"
     if overflow is None:
-        overflow = "spill"
+        # the sharded engine does not speak the reservoir's boundary
+        # protocol: meshes keep counted drops unless asked otherwise
+        overflow = "drop" if args.mesh else "spill"
 
     # --xprof is parsed before the build: a malformed span fails at once
     xprof_span = None
@@ -540,7 +613,8 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     t0 = time.perf_counter()
     prof, _phase = _make_profiler(args)
 
-    resume_src = None
+    resume_src = None  # a path, or a list of shard-set member paths
+    ckpt_info: dict = {}
     if args.resume:
         from shadow_tpu_torch.utils.checkpoint import (
             find_resume_checkpoint,
@@ -571,20 +645,21 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                       file=sys.stderr)
         if resume_src is not None:
             try:
-                ckpt_info = read_header_info(resume_src)
+                ckpt_info = read_header_info(
+                    resume_src if isinstance(resume_src, str)
+                    else resume_src[0])
             except ValueError as e:
                 print(f"error: --resume: {e}", file=sys.stderr)
                 return 2
             ckpt_mesh = ckpt_info.get("mesh") or {}
-            if ckpt_mesh.get("n_shards") not in (None, 1):
+            if ckpt_mesh.get("n_shards") not in (None, args.mesh or 1):
                 print(f"shadow_tpu_torch: resharding: checkpoint written "
-                      f"at {ckpt_mesh['n_shards']} shard(s), resuming at 1",
-                      file=sys.stderr)
-            if ckpt_mesh.get("host_order") is not None:
-                print("error: --resume: the checkpoint was written under a "
-                      "locality host order, which is not ported (ROADMAP.md "
-                      "Queue 1 item 7, sharding)", file=sys.stderr)
-                return 2
+                      f"at {ckpt_mesh['n_shards']} shard(s), resuming at "
+                      f"{args.mesh or 1}", file=sys.stderr)
+    # a checkpoint's host permutation is forced on the rebuild: a
+    # locality order recomputed for another shard count would scramble
+    # the gids against its leaves
+    resume_host_order = (ckpt_info.get("mesh") or {}).get("host_order")
 
     def _build(capacity):
         # one closure for the initial build AND the --overflow grow
@@ -599,7 +674,8 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                 if args.runahead is not None else None
             ),
             trace=args.trace, stats=int(args.stats), profiler=prof,
-            overflow=overflow, device=dev,
+            overflow=overflow, device=dev, mesh=mesh, spmd=args.spmd,
+            locality=args.locality, host_order=resume_host_order,
         )
 
     with _phase("build"):
@@ -624,7 +700,9 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     n_hosts = len(sim.names)
     print(f"shadow_tpu_torch {__version__}: {n_hosts} hosts, "
           f"{sim.topo.n_vertices} topology vertices, "
-          f"stoptime {cfg.stoptime:.0f}s, device {dev}", file=sys.stderr)
+          f"stoptime {cfg.stoptime:.0f}s, device {dev}"
+          + (f", mesh {args.mesh} ({mesh.backend})" if mesh else ""),
+          file=sys.stderr)
 
     # the digest ties a checkpoint to the exact build inputs, as the
     # reference's does (the same repr, so either package's checkpoint
@@ -650,18 +728,26 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     if resume_src is not None:
         from shadow_tpu_torch.utils.checkpoint import (
             load_checkpoint,
+            load_shard_set,
             read_extra,
         )
 
         try:
-            # reshard=True: leaves are matched by path, so a reference
-            # checkpoint written on a mesh loads when its exchange
-            # buffer was empty
-            st, meta = load_checkpoint(resume_src, sim.state0, reshard=True)
+            if isinstance(resume_src, list):
+                st, meta = load_shard_set(resume_src, sim.state0, mesh=mesh)
+                extras = {}
+            else:
+                # reshard=True: leaves are matched by path, so a
+                # checkpoint written at S shards restores at this
+                # build's S' when its exchange buffer was empty
+                st, meta = load_checkpoint(resume_src, sim.state0,
+                                           reshard=True, mesh=mesh)
+                extras = read_extra(resume_src)
         except ValueError as e:
             print(f"error: --resume: {e}", file=sys.stderr)
             return 2
-        extras = read_extra(resume_src)
+        resume_name = (f"{len(resume_src)}-member shard set"
+                       if isinstance(resume_src, list) else resume_src)
         parked = int(np.size(extras.get("reservoir_time", ())))
         if sim.pressure is not None:
             # mid-pressure resume: the reservoir rides the checkpoint's
@@ -685,7 +771,7 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                   "it was written from a different config", file=sys.stderr)
             return 2
         sim_s = float(int(st.now)) / SECOND
-        print(f"resumed from {resume_src} at sim time {sim_s:.3f}s "
+        print(f"resumed from {resume_name} at sim time {sim_s:.3f}s "
               f"(meta: {meta})", file=sys.stderr)
     stop_s = cfg.stoptime
     # independent sim-time cadences; the run loop steps to whichever event
@@ -715,9 +801,10 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
         health.relaunch(int(_retry_attempt))
     registry = None
     if metrics_on:
-        registry = MetricsRegistry(version=__version__, n_shards=1)
+        registry = MetricsRegistry(version=__version__,
+                                   n_shards=args.mesh or 1)
     server = None
-    if args.metrics_port is not None:
+    if args.metrics_port is not None and (mesh is None or mesh.rank == 0):
         from shadow_tpu_torch.obs.server import MetricsServer
 
         try:
@@ -745,16 +832,20 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     if sim.pcap_gids:
         from shadow_tpu_torch.utils.pcap import CaptureDrain
 
+        # rank 0 writes the files; another rank's drain is inert (its
+        # rows reach rank 0 through the harvest's gather)
+        gids = sim.pcap_gids if mesh is None or mesh.rank == 0 else ()
         drain = CaptureDrain(
-            [sim.names[g] for g in sim.pcap_gids], sim.pcap_gids,
-            sim.pcap_dir, dns=sim.dns,
+            [sim.names[g] for g in gids], gids, sim.pcap_dir, dns=sim.dns,
         )
         print(f"pcap capture: {len(sim.pcap_gids)} hosts -> {sim.pcap_dir}/",
               file=sys.stderr)
     from shadow_tpu_torch.runtime.harvest import (
         HeartbeatHarvest,
+        fetch_global,
         fetch_tree,
-        queue_fill_ref,
+        fill_refs,
+        reduce_tree,
     )
     from shadow_tpu_torch.runtime.invariants import (
         InvariantViolation,
@@ -766,8 +857,10 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     )
     from shadow_tpu_torch.runtime.supervisor import (
         EXIT_INVARIANT,
+        EXIT_PEER_LOST,
         EXIT_PRESSURE,
         Supervisor,
+        Watchdog,
         write_diagnostic_bundle,
     )
     from shadow_tpu_torch.utils.checkpoint import (
@@ -785,6 +878,66 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                       "flight_recorder": recorder.snapshot()},
     )
     sup_hb = SupervisorHeartbeat(logger, watchdog=sup.watchdog)
+
+    # --collective-timeout: the second deadline (exit 77, not 75), petted
+    # by every completed collective and segment: a rank whose collective
+    # never completes (a dead peer) writes a bundle naming every shard's
+    # hosts and device, then exits 77. A collective that fails outright
+    # waits for it (Comm.hold_on_failure), as a wedged one would.
+    cwd = None
+    last_summary: dict = {}
+    if args.collective_timeout > 0:
+        n_shards = args.mesh or 1
+        per = len(sim.names) // n_shards
+
+        def _peer_info():
+            return {
+                "tier": "device",
+                "mesh_shards": n_shards,
+                "dcn_slices": args.dcn_slices,
+                "per_shard_hosts": per,
+                "rank": mesh.rank if mesh is not None else 0,
+                "backend": mesh.backend if mesh is not None else None,
+                # each rank knows its own device only
+                "shards": [
+                    {"shard": r, "hosts": [r * per, (r + 1) * per],
+                     "device": (str(dev) if mesh is None or r == mesh.rank
+                                else None)}
+                    for r in range(n_shards)],
+                "checkpoint_path": args.checkpoint_path,
+                "config_digest": cfg_digest,
+                "last_summary": dict(last_summary),
+                "flight_recorder": recorder.snapshot(),
+            }
+
+        cwd = Watchdog(args.collective_timeout, diag_dir=args.diag_dir,
+                       label="shadow_tpu_torch", kind="peerlost",
+                       exit_code=EXIT_PEER_LOST, info=_peer_info,
+                       compile_grace=True)
+    cwd_armed = False
+
+    # chaos injector (the tests): wedge the next harvest fetch for N
+    # seconds once the collective deadline is armed, which is what a
+    # lost peer's never-completing collective looks like from here. A
+    # marker file beside the checkpoint makes it one-shot across --retry
+    # relaunches and, under --mesh, picks the one rank that wedges.
+    _chaos_hang_s = float(os.environ.get("SHADOW_TPU_CHAOS_HANG_S") or 0)
+    if _chaos_hang_s > 0:
+        try:
+            os.close(os.open(args.checkpoint_path + ".chaos",
+                             os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+        except FileExistsError:
+            _chaos_hang_s = 0.0
+
+    def _agree(flag: bool) -> bool:
+        """A host decision every rank takes together (a signal reaches
+        the ranks at different segments): true when any rank's is."""
+        if mesh is None:
+            return flag
+        import torch
+
+        return bool(mesh.comm.gany(torch.tensor(
+            bool(flag), device=mesh.device)))
 
     # --window: a fixed width in ms, or the adaptive controller's
     wctl = None
@@ -844,10 +997,12 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                 keep=1 if path else args.checkpoint_keep,
                 extra=(sim.pressure.serialize()
                        if sim.pressure is not None else None),
-                mesh_info={"n_shards": 1, "dcn_slices": 1,
-                           "host_order": None},
+                mesh_info=sim.mesh_info(), mesh=mesh,
             )
         sup_hb.checkpoint_written()
+        if cwd_armed:
+            # checkpoint IO is a legitimate pause
+            cwd.pet(site="checkpoint")
         recorder.record_event("checkpoint", sim_seconds=sim_s,
                               path=path or args.checkpoint_path)
 
@@ -857,6 +1012,7 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
     segments, harvest_s, syncs_done = 0, 0.0, 0
     windows_run, widths = 0, set()
     syncs0 = sim.engine.host_syncs
+    stopped = False
     t1 = time.perf_counter()
     try:
         with sup:
@@ -907,15 +1063,15 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                         windows_run += 1
                         sim.engine.host_syncs += 1
                         if wctl is not None:
-                            got = fetch_tree({
-                                "now": st.now,
+                            got = fetch_global({
+                                "now_ns": st.now,
                                 "executed": st.stats.n_executed.sum(),
                                 "drops": st.queues.drops.sum(),
-                                "fill": queue_fill_ref(st.queues)})
+                                **fill_refs(st.queues, mesh)}, mesh)
                             wctl.update(int(got["executed"]),
                                         int(got["drops"]),
                                         float(got["fill"]))
-                            now_i = int(got["now"])
+                            now_i = int(got["now_ns"])
                         else:
                             now_i = int(st.now)
                         if now_i >= stop_i:
@@ -927,11 +1083,27 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                 t_c = time.perf_counter()
                 consume_hb()
                 t_f = time.perf_counter()
+                if _chaos_hang_s > 0 and (cwd is None or cwd_armed):
+                    _hang, _chaos_hang_s = _chaos_hang_s, 0.0
+                    print(f"shadow_tpu_torch: CHAOS: wedging the harvest "
+                          f"fetch for {_hang:.1f}s", file=sys.stderr,
+                          flush=True)
+                    time.sleep(_hang)
                 with _phase("step"):
                     fetched = harvest.fetch(bundle)
                 harvest_s += (t_c - t_h) + (time.perf_counter() - t_f)
                 segments += 1
                 sim_s = nxt
+                if cwd is not None:
+                    if cwd_armed:
+                        cwd.pet(site="harvest.fetch", sim_seconds=sim_s)
+                    else:
+                        # armed after the first segment, as the reference's
+                        cwd.start()
+                        cwd_armed = True
+                        if mesh is not None:
+                            mesh.comm.pet = cwd.pet
+                            mesh.comm.hold_on_failure = True
                 if sim.pressure is not None and sim.pressure.grow_wanted:
                     # --overflow grow: rebuild the engine at doubled
                     # capacity, carry the live state across, keep the
@@ -965,6 +1137,7 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                         metrics_extras = None
                 else:
                     summary_now = harvest.summary_from(fetched)
+                    last_summary = dict(summary_now)
                     metrics_extras = fetched.get("metrics")
                     if sim.pressure is None:
                         # run()'s loud-overflow probe, from the bundle
@@ -1024,12 +1197,13 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                     # the extraction already reset the trace ring
                     pending_hb = (fetched, int(sim_s * SECOND), summary_now)
                     next_hb += hb
-                if sup.take_checkpoint_request():  # SIGUSR1
+                if _agree(sup.take_checkpoint_request()):  # SIGUSR1
                     write_checkpoint(on_demand=True)
                     print("checkpoint written on SIGUSR1 -> "
                           f"{args.checkpoint_path} (sim {sim_s:.3f}s)",
                           file=sys.stderr)
-                if sup.stop_requested:
+                if _agree(sup.stop_requested):
+                    stopped = True
                     # graceful shutdown: checkpoint regardless of
                     # --checkpoint-interval, then exit 128+signum
                     write_checkpoint(interrupted=sup.stop_signum)
@@ -1096,7 +1270,15 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
         logger.flush()
         if drain is not None:
             try:
-                drain.drain(st.hosts.net.cap)
+                if mesh is None:
+                    drain.drain(st.hosts.net.cap)
+                else:
+                    from shadow_tpu_torch.utils.pcap import CaptureDrain
+
+                    got = reduce_tree({"pcap": CaptureDrain.gather(
+                        st.hosts.net.cap)}, mesh)
+                    if "pcap" in got:
+                        drain.ingest(got["pcap"])
             except Exception:
                 pass
             drain.close()
@@ -1106,19 +1288,32 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                       file=sys.stderr)
         if tdrain is not None:
             try:
-                st = tdrain.drain_state(st)
+                if mesh is None:
+                    st = tdrain.drain_state(st)
+                elif st.trace is not None:
+                    from shadow_tpu_torch.obs.trace import (
+                        TraceDrain,
+                        reset_ring,
+                    )
+
+                    got = reduce_tree({"trace": TraceDrain.gather(
+                        st.trace)}, mesh)
+                    if "trace" in got:
+                        tdrain.ingest(got["trace"])
+                    st = dataclasses.replace(st, trace=reset_ring(st.trace))
             except Exception:
                 pass
-            tdrain.save(
-                args.trace_out,
-                profile=prof.export() if prof is not None else None,
-                extra_meta={
-                    "seed": args.seed, "tier": "device",
-                    # the exported trace names the device capture
-                    **({"xprof_dir": args.xprof_dir}
-                       if xprof_span is not None else {}),
-                },
-            )
+            if mesh is None or mesh.rank == 0:
+                tdrain.save(
+                    args.trace_out,
+                    profile=prof.export() if prof is not None else None,
+                    extra_meta={
+                        "seed": args.seed, "tier": "device",
+                        # the exported trace names the device capture
+                        **({"xprof_dir": args.xprof_dir}
+                           if xprof_span is not None else {}),
+                    },
+                )
             print(f"event trace: {tdrain.n_records} records -> "
                   f"{args.trace_out}"
                   + (f" ({tdrain.lost} lost to ring overrun; raise "
@@ -1126,7 +1321,9 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
                      if tdrain.lost else ""),
                   file=sys.stderr)
     wall = time.perf_counter() - t1
-    if sup.stop_requested:
+    if cwd_armed:
+        cwd.stop()
+    if stopped:
         print(f"interrupted by signal {sup.stop_signum}: checkpoint at "
               f"{args.checkpoint_path} (sim {sim_s:.3f}s of {stop_s:.0f}s); "
               "resume with --resume auto", file=sys.stderr)
@@ -1151,13 +1348,26 @@ def main(argv=None, *, device=None, run_info: dict | None = None) -> int:
         from shadow_tpu_torch.obs.stats import stats_device_refs
 
         refs["stats"] = stats_device_refs(st.splane)
+    if run_info is not None and mesh is not None:
+        # every rank's kernel launches (they launch in their own
+        # processes), summed: what the caller cannot count itself
+        import torch
+
+        from shadow_tpu_torch.core import merge as kmerge
+        from shadow_tpu_torch.transport import cbrt as kcbrt
+
+        counts = mesh.comm.gsum(torch.tensor(
+            [kmerge.launches, kcbrt.launches], device=mesh.device)).tolist()
+        run_info["kernel_launches"] = dict(zip(("merge", "cbrt"), counts))
     if run_info is not None:
         run_info.update(
             segments=segments, harvest_reads=harvest.host_syncs,
             harvest_s=harvest_s, loop_s=wall,
             host_syncs=syncs_done + sim.engine.host_syncs - syncs0,
             windows_run=windows_run, widths=sorted(widths),
-            drain_s=drain.host_s if drain is not None else 0.0)
+            drain_s=drain.host_s if drain is not None else 0.0,
+            collectives=mesh.comm.calls if mesh is not None else 0,
+            backend=mesh.backend if mesh is not None else None)
     got = harvest.fetch(refs)
     executed = int(got["events"])
     summary = {

@@ -3,8 +3,9 @@
 Leaves are keyed by field path ("now", "queues.time",
 "hosts.n_received", "stats.n_by_kind", "hosts.app.subs.0.gid", ...),
 the same paths the reference's EngineState pytree has (a tuple element
-is keyed by its index), with no exchange subtree; a queue's spill ring
-appears as "queues.spill.*", the trace ring as "trace.*" and the stats
+is keyed by its index); a queue's spill ring appears as
+"queues.spill.*", the trace ring as "trace.*", a sharded state's
+exchange buffer as "xchg.bucket.*" and "xchg.sent_min" and the stats
 plane as "splane.*" when they are on. So a state can move between the
 reference and this package leaf for leaf, and `leaves_digest` gives both
 the same fingerprint. A reference GraphNetwork's routing tables come over
@@ -27,8 +28,8 @@ import hashlib
 import numpy as np
 import torch
 
-from shadow_tpu_torch.core.engine import EngineState, Stats
-from shadow_tpu_torch.core.events import EventQueue, SpillRing
+from shadow_tpu_torch.core.engine import EngineState, ExchangeBuf, Stats
+from shadow_tpu_torch.core.events import EventQueue, Events, SpillRing
 from shadow_tpu_torch.models.phold import PholdHost
 from shadow_tpu_torch.obs.stats import StatPlane
 from shadow_tpu_torch.obs.trace import TraceRing
@@ -143,6 +144,11 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,
     def field(name):
         if name == "queues":
             return queues
+        if name == "xchg":
+            if "xchg.sent_min" not in leaves:
+                return None
+            return ExchangeBuf(bucket=build(Events, "xchg.bucket."),
+                               sent_min=tensor("xchg.sent_min"))
         if name in optional:
             cls, probe = optional[name]
             return build(cls, f"{name}.") if probe in leaves else None
@@ -157,6 +163,27 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,
         raise ValueError(f"leaves this package has no field for: "
                          f"{sorted(extra)}")
     return state
+
+
+def shard_leaves(leaves: dict[str, np.ndarray], rank: int,
+                 n_shards: int) -> dict[str, np.ndarray]:
+    """Rank `rank`'s shard of a global state's leaves (a reference run's
+    state on an n_shards mesh, as `engine_state_to_numpy` keys them):
+    the block of rows of every per-host leaf and of the exchange
+    buffer's leaves, the replicated scalars whole. Per-host leaves are
+    those whose leading dim is the queues' host count, as the
+    reference's `state_specs` shards them."""
+    hg = leaves["queues.time"].shape[0]
+    per = hg // n_shards
+    out = {}
+    for key, a in leaves.items():
+        if key.startswith("xchg."):
+            n = a.shape[0] // n_shards
+            a = a[rank * n:(rank + 1) * n]
+        elif a.ndim >= 1 and a.shape[0] == hg:
+            a = a[rank * per:(rank + 1) * per]
+        out[key] = a
+    return out
 
 
 def leaves_digest(leaves: dict[str, np.ndarray],

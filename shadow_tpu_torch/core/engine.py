@@ -56,7 +56,22 @@ queue fill at the dump and frontier run length. With both knobs at 0
 `EngineState.trace` and `splane` are None and the drains run exactly the
 operations and reads they run without them.
 
-Not ported (each raises NotImplementedError): sharding.
+Sharding (`EngineConfig.axis_name`, `n_shards`): the engine is then one
+shard of a block partition, one rank of a `torch.distributed` group
+(`parallel.mesh`), whose `Comm` carries the collectives. Hosts
+[host0, host0 + H) are this shard's, host0 = rank * H. Loops and
+branches whose flag differs between shards (the sweep loop, the flush's
+narrow-or-full choice, the exchange's rounds) read a flag made global
+by a collective first, so every rank issues the same collectives in the
+same order; the chained drain's inner steps and the frontier's rounds
+are shard-local, their count summed once per window. Cross-shard events
+travel in the reference's bucketed exchange (`_exchange_push`): grouped
+by destination shard into an [S, R] bucket and exchanged by all_to_all,
+round after round until none remain, each round's received bucket
+delivered at the next point the queue is read (`ExchangeBuf`). The
+window barrier is a global min that folds in the minimum time sent in
+the undelivered round. A fault schedule stays global; each shard slices
+its rows.
 """
 
 from __future__ import annotations
@@ -72,6 +87,7 @@ from shadow_tpu_torch.core.events import (
     N_ARGS,
     EventQueue,
     Events,
+    group_run_starts,
     pack_srcseq,
     queue_push,
 )
@@ -179,8 +195,8 @@ class Stats:
     n_by_kind: torch.Tensor  # i64[H, NK] executed events per handler kind
     n_sweeps: torch.Tensor  # i64[] drain sweeps (queue merges)
     n_inner_steps: torch.Tensor  # i64[] chained-drain inner steps
-    n_xchg_rounds: torch.Tensor  # i64[] (sharded only; stays 0)
-    n_cross_shard: torch.Tensor  # i64[] (sharded only; stays 0)
+    n_xchg_rounds: torch.Tensor  # i64[] cross-shard all_to_all rounds
+    n_cross_shard: torch.Tensor  # i64[] packets delivered across shards
     n_fault_dropped: torch.Tensor  # i64[H] packets lost to fault overlays
     n_quarantined: torch.Tensor  # i64[H] events voided by host crashes
 
@@ -197,9 +213,46 @@ class Stats:
 
 
 @dataclasses.dataclass(frozen=True)
+class ExchangeBuf:
+    """In-flight cross-shard events: the exchange's double buffer.
+
+    `bucket` holds the [S, R] result of the last all_to_all round of the
+    previous push: events for this shard, exchanged but not yet merged
+    into its queue. They are merged at the next point the queue is read
+    (the next sweep's top, the next window's open, the end of a run),
+    which is exact: no queue operation runs in between, and `queue_push`
+    does not depend on push order. `sent_min` (i64[1]) is the minimum
+    time this shard sent in that round; the global min over shards of it
+    equals the global min of what was received, so the window barrier
+    folds in-flight events in without waiting on the exchange.
+
+    A buffer made by `create` is known to be empty: its delivery is
+    skipped without a read.
+    """
+
+    bucket: Events  # [S, R] received, undelivered cross-shard events
+    sent_min: torch.Tensor  # i64[1] min time sent in the deferred round
+
+    @staticmethod
+    def create(n_shards: int, r: int, n_args: int = N_ARGS, *,
+               device) -> "ExchangeBuf":
+        z = lambda *s: torch.zeros(s, dtype=torch.int32, device=device)
+        buf = ExchangeBuf(
+            bucket=Events(
+                time=torch.full((n_shards, r), TIME_INVALID,
+                                dtype=torch.int64, device=device),
+                dst=z(n_shards, r), src=z(n_shards, r), seq=z(n_shards, r),
+                kind=z(n_shards, r), args=z(n_shards, r, n_args)),
+            sent_min=torch.full((1,), TIME_INVALID, dtype=torch.int64,
+                                device=device))
+        object.__setattr__(buf, "known_empty", True)
+        return buf
+
+
+@dataclasses.dataclass(frozen=True)
 class EngineState:
     """Complete simulation state: the leaves of the reference's
-    EngineState, with no exchange buffer (sharding is not ported)."""
+    EngineState, one shard's when sharded."""
 
     now: torch.Tensor  # i64[] current window start
     queues: EventQueue
@@ -210,6 +263,7 @@ class EngineState:
     cpu_free: torch.Tensor  # i64[H] virtual-CPU available-from time
     fault_epoch: torch.Tensor  # i32[] last fault epoch applied (0 without)
     trace: Any = None  # obs.trace.TraceRing, or None (EngineConfig.trace 0)
+    xchg: Any = None  # ExchangeBuf when sharded, else None
     splane: Any = None  # obs.stats.StatPlane, or None (EngineConfig.stats 0)
 
 
@@ -233,7 +287,7 @@ def state_summary(state: EngineState) -> dict:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    n_hosts: int  # hosts
+    n_hosts: int  # hosts on this shard
     capacity: int  # event queue slots per host
     lookahead: int  # conservative window width, ns
     max_emit: int = 2  # K: max events emitted per handler invocation
@@ -261,9 +315,11 @@ class EngineConfig:
     # Sim-time histograms (obs.stats): > 0 keeps a StatPlane in
     # EngineState.splane; 0 leaves it None and runs no stats op
     stats: int = 0
-    # knobs of paths this package does not port; any other value raises
-    axis_name: str | None = None
-    n_shards: int = 1
+    # mesh axis (or axis tuple) hosts are sharded over; None unsharded.
+    # Set, the engine runs one shard of n_shards over `parallel.mesh`
+    axis_name: Any = None
+    n_shards: int = 1  # shards of the mesh (1 when unsharded)
+    route_bucket: int = 0  # per-peer exchange bucket slots (0: auto)
 
     def __post_init__(self):
         if self.lookahead < 1:
@@ -280,13 +336,10 @@ class EngineConfig:
         if not 0 <= self.trace_len_arg < self.n_args:
             raise ValueError(f"trace_len_arg {self.trace_len_arg} outside "
                              f"[0, {self.n_args})")
-        unported = {
-            "axis_name": self.axis_name is not None,
-            "n_shards": self.n_shards != 1,
-        }
-        for name, set_ in unported.items():
-            if set_:
-                raise NotImplementedError(f"EngineConfig.{name} is not ported")
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        if self.n_shards > 1 and self.axis_name is None:
+            raise ValueError("n_shards > 1 needs an axis_name")
         if self.burst is not None and self.eff_stage_width > BURST_NSEG_MAX:
             # the fold packs its run count into bits 24..30 of the length
             # word; a wider staging buffer could overflow into the sign bit
@@ -366,6 +419,23 @@ def _select_rows(mask: torch.Tensor, new: Any, old: Any) -> Any:
     })
 
 
+def _slice_rows(tree: Any, host0: int, h: int, clone: bool = False) -> Any:
+    """Rows [host0, host0 + h) of every [H, ...] tensor of a dataclass
+    tree (nested dataclasses and tuples followed, None kept); copies
+    with `clone`, else views."""
+    def sl(v):
+        if v is None:
+            return None
+        if dataclasses.is_dataclass(v):
+            return _slice_rows(v, host0, h, clone)
+        if isinstance(v, tuple):
+            return tuple(sl(x) for x in v)
+        return v[host0:host0 + h].clone() if clone else v[host0:host0 + h]
+
+    return dataclasses.replace(tree, **{
+        f.name: sl(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+
+
 def _take_slots(ev: Events, idx: torch.Tensor) -> Events:
     """Reorder each row of [H, S] events by the [H, S] index `idx`."""
     def take(a):
@@ -439,13 +509,20 @@ class Engine:
     `faults`: a CompiledFaults on this engine's device, or None. Crashes
     and bandwidth changes need `fault_reset`, the initial hosts state: a
     restarted host's rows are re-templated from it, and NIC rates scale
-    from its `net.nic_tx`/`net.nic_rx` rates.
+    from its `net.nic_tx`/`net.nic_rx` rates. Both stay global when
+    sharded (every host of every shard); each shard reads its rows.
+
+    `comm`: the `parallel.mesh.Comm` of a sharded engine (cfg.axis_name
+    set); None takes the one of the mesh `parallel.mesh.make_mesh` made
+    in this process. The shard's first host is `host0` = rank * H, the
+    default of every `host0` argument.
     """
 
     def __init__(self, cfg: EngineConfig, handlers: Sequence[Callable],
                  network, cpu_cost=None,
                  batch_handler: Callable | None = None, faults=None,
-                 fault_reset=None, frontier_kinds=None, device=None):
+                 fault_reset=None, frontier_kinds=None, device=None,
+                 comm=None):
         self.cfg = cfg
         self.handlers = tuple(handlers)
         self.n_kinds = len(self.handlers)
@@ -471,6 +548,33 @@ class Engine:
         if cpu_cost.dim() == 1:
             cpu_cost = cpu_cost[:, None].expand(hg, nk)
         self.cpu_cost = cpu_cost
+        self.comm, self.host0, self._xchg_r = None, 0, 0
+        if cfg.axis_name is not None:
+            if comm is None:
+                from shadow_tpu_torch.parallel.mesh import current
+
+                mesh = current()
+                comm = mesh.comm if mesh is not None else None
+            if comm is None:
+                raise RuntimeError(
+                    "a sharded engine (axis_name set) needs a mesh: call "
+                    "parallel.mesh.make_mesh in a rank started by "
+                    "parallel.mesh.spawn")
+            if comm.size != cfg.n_shards:
+                raise ValueError(f"n_shards {cfg.n_shards} != the mesh's "
+                                 f"{comm.size} ranks")
+            self.comm = comm
+            self.host0 = comm.rank * cfg.n_hosts
+            # one bucket width for every exchange of the run (the
+            # deferred bucket is carried state): a quarter of the widest
+            # flat batch spread uniformly over the shards, at least 16
+            if batch_handler is not None:
+                m_ref = cfg.n_hosts * cfg.eff_drain_batch * cfg.max_emit
+            else:
+                m_ref = cfg.n_hosts * max(cfg.eff_stage_width,
+                                          cfg.eff_drain_batch + cfg.max_emit)
+            self._xchg_r = cfg.route_bucket or max(
+                16, -(-m_ref // cfg.n_shards) // 4)
         # build-time flags, as in the reference: one host read each
         self._cpu_enabled = bool(torch.any(cpu_cost != 0))
         self._use_jitter = bool(getattr(network, "has_jitter", False))
@@ -490,10 +594,14 @@ class Engine:
             raise ValueError(
                 f"fault schedule compiled for {faults.alive.shape[1]} "
                 f"hosts, engine has {hg}")
-        # [H, T] liveness per epoch, the quarantine's lookup table (one
-        # shard: the schedule's rows are this engine's)
-        self._alive_ht = (faults.alive.T.contiguous() if self._f_crash
-                          else None)
+        # [H, T] liveness per epoch of this shard's hosts, the
+        # quarantine's lookup table, and the shard's restart template
+        h0, h = self.host0, cfg.n_hosts
+        self._alive_ht = (faults.alive[:, h0:h0 + h].T.contiguous()
+                          if self._f_crash else None)
+        self._tmpl = (_slice_rows(fault_reset, h0, h)
+                      if fault_reset is not None and self.comm is not None
+                      else fault_reset)
         self._fgrp = faults.fgrp.long() if self._f_link else None
         self._trace = cfg.trace > 0
         self._stats = cfg.stats > 0
@@ -510,6 +618,100 @@ class Engine:
         self.host_syncs += 1
         return t.cpu().numpy()
 
+    # -- collectives (identity when unsharded) --------------------------------
+    def _gmin(self, x: torch.Tensor) -> torch.Tensor:
+        return self.comm.gmin(x) if self.comm is not None else x
+
+    def _gany(self, x: torch.Tensor) -> torch.Tensor:
+        return self.comm.gany(x) if self.comm is not None else x
+
+    def _gsum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.comm.gsum(x) if self.comm is not None else x
+
+    def _fresh_xchg(self) -> ExchangeBuf:
+        return ExchangeBuf.create(self.cfg.n_shards, self._xchg_r,
+                                  self.cfg.n_args, device=self.device)
+
+    def _xchg_deliver(self, q: EventQueue, xchg, host0: int):
+        """Merge the in-flight exchange buffer into the local queue and
+        return it emptied; a buffer known to be empty costs nothing, and
+        one that holds no event costs one read (shard-local, no
+        collective)."""
+        if xchg is None or getattr(xchg, "known_empty", False):
+            return q, xchg
+        flat = xchg.bucket.flatten()
+        valid = flat.time != TIME_INVALID
+        if self._read(torch.any(valid)):
+            q = queue_push(q, flat, valid, host0, self._read)
+        return q, self._fresh_xchg()
+
+    def _exchange_push(self, q: EventQueue, xchg, ev: Events,
+                       mask: torch.Tensor, host0: int):
+        """Push a flat routed batch, delivering cross-shard events by the
+        bucketed all_to_all. Returns (queue', xchg', rounds, n_cross).
+
+        Hosts are block-partitioned (dst // H is the owning shard), so
+        same-shard events push at once. The rest are grouped by
+        destination shard into an [S, R] bucket, R slots per peer, and
+        exchanged; while any shard still holds more, another round runs
+        with the remainder (lossless). A round's received bucket is not
+        pushed in that round: it lands in `xchg`, merged at the top of
+        the next round, and the last round's rides out to the next sweep
+        or window. The loop flag is global (a sum over shards), so every
+        rank runs the same rounds; n_cross is the global count."""
+        if self.comm is None:
+            return (queue_push(q, ev, mask, host0, self._read), xchg, 0,
+                    None)
+        cfg, dev = self.cfg, self.device
+        h, s, r = cfg.n_hosts, cfg.n_shards, self._xchg_r
+        m = ev.time.shape[0]
+        dshard = torch.div(ev.dst, h, rounding_mode="floor")
+        in_range = (dshard >= 0) & (dshard < s)
+        is_local = mask & (dshard == self.comm.rank)
+        q = queue_push(q, ev, is_local, host0, self._read)
+        rem = mask & in_range & ~is_local
+        # the global count, and the loop's first flag from the same sum
+        n_cross = self._gsum(torch.sum(rem, dtype=torch.int64))
+        more = self._read(n_cross > 0)
+        pos = torch.arange(m, dtype=torch.int32, device=dev)
+        rounds = 0
+        while more:
+            q, xchg = self._xchg_deliver(q, xchg, host0)
+            dkey = torch.where(rem, dshard, s).to(torch.int32)
+            order = torch.sort(dkey, stable=True).indices
+            sd = dkey[order]
+            rank = pos - group_run_starts(sd)
+            sel = (sd < s) & (rank < r)
+            brow = torch.where(sel, sd, s).long()
+            bcol = torch.clamp(rank, max=r - 1).long()
+            # one [S + 1, R, 5 + A] i64 block: time, dst, src, seq, kind,
+            # args; unsent rows land in the discard row S
+            cols = [ev.time, ev.dst.to(torch.int64), ev.src.to(torch.int64),
+                    ev.seq.to(torch.int64), ev.kind.to(torch.int64)]
+            words = torch.cat([torch.stack(cols, dim=1),
+                               ev.args.to(torch.int64)], dim=1)[order]
+            fill = torch.zeros((1, words.shape[1]), dtype=torch.int64,
+                               device=dev)
+            fill[0, 0] = TIME_INVALID
+            block = fill.expand(s + 1, r, words.shape[1]).clone()
+            block[brow, bcol] = words
+            block = block[:s]
+            recv = self.comm.all_to_all(block)
+            i32 = lambda j: recv[:, :, j].to(torch.int32)
+            xchg = ExchangeBuf(
+                bucket=Events(time=recv[:, :, 0].contiguous(), dst=i32(1),
+                              src=i32(2), seq=i32(3), kind=i32(4),
+                              args=recv[:, :, 5:].to(torch.int32)),
+                # the minimum this shard sent: globally the same as the
+                # minimum received, with no dependence on the exchange
+                sent_min=torch.min(block[:, :, 0]).reshape(1))
+            sent = torch.zeros((m,), dtype=torch.bool, device=dev)
+            sent[order] = sel
+            rem = rem & ~sent
+            more = self._read(self._gany(torch.any(rem)))
+            rounds += 1
+        return q, xchg, rounds, n_cross
+
     def _trace_slack(self) -> int:
         """Scratch columns past the trace ring's capacity: the widest
         single append of this engine's drain, so a full row's writes
@@ -524,8 +726,12 @@ class Engine:
         return 1 + k
 
     def init_state(self, hosts: Any, initial: Events,
-                   host0: int = 0) -> EngineState:
+                   host0: int | None = None) -> EngineState:
+        """The initial state of this shard (`host0` defaults to its
+        first host): `hosts` its rows of the host state, `initial` any
+        batch of initial events (those for other shards are ignored)."""
         cfg, dev = self.cfg, self.device
+        host0 = self.host0 if host0 is None else host0
         h = cfg.n_hosts
         q = EventQueue.create(h, cfg.capacity, cfg.n_args,
                               spill=cfg.spill, device=dev)
@@ -553,6 +759,7 @@ class Engine:
             cpu_free=torch.zeros((h,), dtype=torch.int64, device=dev),
             fault_epoch=torch.zeros((), dtype=torch.int32, device=dev),
             trace=trace,
+            xchg=self._fresh_xchg() if self.comm is not None else None,
             splane=splane,
         )
 
@@ -648,7 +855,7 @@ class Engine:
         nxt = q.min_time()
         if self._cpu_enabled:
             nxt = torch.maximum(nxt, cpu_free)
-        return torch.any(nxt < window_end)
+        return self._gany(torch.any(nxt < window_end))
 
     # -- the chained drain: one event per host per inner step ----------------
     def _trace_rec(self, ev: Events, out: Events, run, emask, dropped,
@@ -955,19 +1162,30 @@ class Engine:
             torch.gather(stage.time, 1, o), dim=1, stable=True).indices)
         return _take_slots(stage, o)
 
-    def _flush(self, q: EventQueue, stage: Events, host0: int) -> EventQueue:
+    def _flush(self, q: EventQueue, xchg, stage: Events, host0: int,
+               stats: Stats):
         """A sweep's end: push the staging leftovers, compacted to a
-        prefix; FLUSH_W columns unless a row holds more."""
+        prefix; FLUSH_W columns unless a row holds more (on any shard,
+        when sharded). Returns (queue', xchg', stats')."""
         stage = self._sort_stage(stage)
         sw = stage.time.shape[1]
         w1 = min(sw, FLUSH_W)
-        if w1 < sw and not self._read(torch.max(torch.sum(
-                stage.time != TIME_INVALID, dim=1, dtype=torch.int32)) > w1):
+        if w1 < sw and not self._read(self._gany(torch.max(torch.sum(
+                stage.time != TIME_INVALID, dim=1, dtype=torch.int32)) > w1)):
             stage = Events(**{f.name: getattr(stage, f.name)[:, :w1]
                               for f in dataclasses.fields(stage)})
         flat = stage.flatten()
-        return queue_push(q, flat, flat.time != TIME_INVALID, host0,
-                          self._read)
+        q, xchg, rounds, nc = self._exchange_push(
+            q, xchg, flat, flat.time != TIME_INVALID, host0)
+        return q, xchg, self._count_xchg(stats, rounds, nc)
+
+    def _count_xchg(self, stats: Stats, rounds: int, nc) -> Stats:
+        """Add a push's exchange rounds and cross-shard packets."""
+        if self.comm is None:
+            return stats
+        return dataclasses.replace(
+            stats, n_xchg_rounds=stats.n_xchg_rounds + rounds,
+            n_cross_shard=stats.n_cross_shard + nc)
 
     def _drain_window(self, st: EngineState, window_end, host0: int
                       ) -> EngineState:
@@ -987,9 +1205,11 @@ class Engine:
         al_sh = self._alive_ht
         q, hosts, stats = st.queues, st.hosts, st.stats
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
-        trace, splane = st.trace, st.splane
+        trace, splane, xchg = st.trace, st.splane, st.xchg
 
         while self._read(self._drain_flag(q, cpu_free, window_end)):
+            # the previous sweep's in-flight exchange lands first
+            q, xchg = self._xchg_deliver(q, xchg, host0)
             # 1. dump each host's earliest-b below-barrier prefix
             splane = self._observe_qfill(splane, q, window_end, b)
             q, stage, qh_t, qh_ss = self._dump(q, window_end, gids, b, sw)
@@ -1022,12 +1242,12 @@ class Engine:
                                                qh_t, qh_ss, sw)
 
             # 3. flush the leftovers
-            q = self._flush(q, stage, host0)
+            q, xchg, stats = self._flush(q, xchg, stage, host0, stats)
             stats = dataclasses.replace(stats,
                                         n_sweeps=stats.n_sweeps + 1)
 
         return self._end_window(st, q, hosts, src_seq, exec_cnt, stats,
-                                cpu_free, trace, splane)
+                                cpu_free, trace, splane, xchg, host0)
 
     def _observe_qfill(self, splane, q: EventQueue, window_end, b: int):
         """Queue fill at the dump (before the prefix clears), over the
@@ -1040,9 +1260,20 @@ class Engine:
             torch.any(q.time[:, :b] < window_end, dim=1))
 
     def _end_window(self, st: EngineState, q, hosts, src_seq, exec_cnt,
-                    stats, cpu_free, trace, splane) -> EngineState:
+                    stats, cpu_free, trace, splane, xchg,
+                    host0: int) -> EngineState:
         """The drained window's state: n_windows counted, and the
-        per-window occupancy sampled (hosts that ran something)."""
+        per-window occupancy sampled (hosts that ran something). When
+        sharded, the shard-local inner steps are summed over the shards,
+        and with a CPU model the in-flight exchange lands first (the
+        barrier's sent minimum cannot see a destination's busy CPU)."""
+        if self.comm is not None:
+            if self._cpu_enabled:
+                q, xchg = self._xchg_deliver(q, xchg, host0)
+        if self.comm is not None and self.batch_handler is None:
+            stats = dataclasses.replace(
+                stats, n_inner_steps=st.stats.n_inner_steps + self._gsum(
+                    stats.n_inner_steps - st.stats.n_inner_steps))
         if splane is not None:
             occ = stats.n_executed - st.stats.n_executed
             splane = splane.observe("occ", occ, occ > 0)
@@ -1050,7 +1281,7 @@ class Engine:
             st, queues=q, hosts=hosts, src_seq=src_seq, exec_cnt=exec_cnt,
             stats=dataclasses.replace(stats,
                                       n_windows=stats.n_windows + 1),
-            cpu_free=cpu_free, trace=trace, splane=splane,
+            cpu_free=cpu_free, trace=trace, xchg=xchg, splane=splane,
         )
 
     # -- the frontier drain: runs of equal-time, same-kind events -----------
@@ -1090,9 +1321,10 @@ class Engine:
         slot = torch.arange(sw, dtype=torch.int32, device=dev)[None, :]
         q, hosts, stats = st.queues, st.hosts, st.stats
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
-        trace, splane = st.trace, st.splane
+        trace, splane, xchg = st.trace, st.splane, st.xchg
 
         while self._read(self._drain_flag(q, cpu_free, window_end)):
+            q, xchg = self._xchg_deliver(q, xchg, host0)
             # 1. the frontier dump, as on the chained drain
             splane = self._observe_qfill(splane, q, window_end, b)
             q, stage, qh_t, qh_ss = self._dump(q, window_end, gids, b, sw)
@@ -1176,12 +1408,12 @@ class Engine:
                 sm = self._stage_min(stage)
 
             # 4. flush the leftovers, as on the chained drain
-            q = self._flush(q, stage, host0)
+            q, xchg, stats = self._flush(q, xchg, stage, host0, stats)
             stats = dataclasses.replace(stats,
                                         n_sweeps=stats.n_sweeps + 1)
 
         return self._end_window(st, q, hosts, src_seq, exec_cnt, stats,
-                                cpu_free, trace, splane)
+                                cpu_free, trace, splane, xchg, host0)
 
     # -- the batched drain ---------------------------------------------------
     def _sweep(self, st: EngineState, window_end, host0: int) -> EngineState:
@@ -1193,7 +1425,9 @@ class Engine:
         cfg, dev = self.cfg, self.device
         h, k, c = cfg.n_hosts, cfg.max_emit, cfg.capacity
         b = cfg.eff_drain_batch
-        q, cpu_free = st.queues, st.cpu_free
+        # the previous sweep's in-flight exchange lands first
+        q, xchg = self._xchg_deliver(st.queues, st.xchg, host0)
+        cpu_free = st.cpu_free
         gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
         gids_hb = gids[:, None].expand(h, b)
         bt = q.time[:, :b]
@@ -1297,12 +1531,13 @@ class Engine:
                    < n_exec[:, None])
         q = dataclasses.replace(
             q, time=torch.where(cleared, TIME_INVALID, q.time))
-        q = queue_push(q, out.flatten(), final_mask.reshape(-1), host0,
-                       self._read)
+        q, xchg, rounds, nc = self._exchange_push(
+            q, xchg, out.flatten(), final_mask.reshape(-1), host0)
         return dataclasses.replace(
             st, queues=q, hosts=hosts, src_seq=src_seq,
-            exec_cnt=st.exec_cnt + n_exec, stats=stats, cpu_free=cpu_free,
-            trace=trace, splane=splane,
+            exec_cnt=st.exec_cnt + n_exec,
+            stats=self._count_xchg(stats, rounds, nc), cpu_free=cpu_free,
+            trace=trace, xchg=xchg, splane=splane,
         )
 
     def _drain_window_batched(self, st: EngineState, window_end,
@@ -1315,17 +1550,21 @@ class Engine:
             st = self._sweep(st, window_end, host0)
         return self._end_window(st0, st.queues, st.hosts, st.src_seq,
                                 st.exec_cnt, st.stats, st.cpu_free,
-                                st.trace, st.splane)
+                                st.trace, st.splane, st.xchg, host0)
 
     # -- windows -------------------------------------------------------------
     def _next_time(self, st: EngineState) -> torch.Tensor:
         """Global earliest executable time: per host the earliest pending
         event, deferred to when its virtual CPU frees (TIME_INVALID when
-        every queue is empty)."""
+        every queue is empty). Sharded, the in-flight exchange's sent
+        minimum folds in, then the min is taken over the shards."""
         nxt = st.queues.min_time()
         if self._cpu_enabled:
             nxt = torch.maximum(nxt, st.cpu_free)
-        return torch.min(nxt)
+        m = torch.min(nxt)
+        if st.xchg is not None:
+            m = torch.minimum(m, st.xchg.sent_min[0])
+        return self._gmin(m)
 
     def _opens(self, st: EngineState, nxt, stop):
         """Whether a window opens at `nxt` (nxt < stop), in one counted
@@ -1353,9 +1592,11 @@ class Engine:
         template's."""
         f = self.faults
         hosts, q, stats = st.hosts, st.queues, st.stats
-        tmpl = self.fault_reset
+        tmpl = self._tmpl
+        h0, h = self.host0, self.cfg.n_hosts
         if self._f_crash:
-            reset = torch.any(~f.alive[mark + 1:e + 1], dim=0)  # [H]
+            reset = torch.any(~f.alive[mark + 1:e + 1, h0:h0 + h],
+                              dim=0)  # [H]
             wiped = torch.sum(reset[:, None] & (q.time != TIME_INVALID),
                               dim=1, dtype=torch.int64)
             q = dataclasses.replace(q, time=torch.where(
@@ -1364,7 +1605,7 @@ class Engine:
             stats = dataclasses.replace(
                 stats, n_quarantined=stats.n_quarantined + wiped)
         if self._f_bw:
-            bw_e = f.bw_scale[e]
+            bw_e = f.bw_scale[e, h0:h0 + h]
             net = hosts.net
             hosts = dataclasses.replace(hosts, net=dataclasses.replace(
                 net,
@@ -1389,36 +1630,52 @@ class Engine:
         if window is None:
             window = self.cfg.lookahead
         window_end = torch.clamp(nxt + window, max=stop)
+        if st.xchg is not None:
+            # the previous window's in-flight exchange lands before the
+            # fault epoch's wipe and the drain's first flag
+            q, xchg = self._xchg_deliver(st.queues, st.xchg, host0)
+            st = dataclasses.replace(st, queues=q, xchg=xchg)
         if epochs is not None and epochs[0] != epochs[1]:
             st = self._apply_fault_epoch(st, *epochs)
         st = self._drain_window(st, window_end, host0)
         return dataclasses.replace(st, now=window_end)
 
-    def _land(self, st: EngineState, stop: int) -> EngineState:
+    def _land(self, st: EngineState, stop: int, host0: int
+              ) -> EngineState:
         """`st` with its clock on `stop`, filled on the device (a Python
-        int is passed to the ops, never copied to the device)."""
+        int is passed to the ops, never copied to the device). The
+        in-flight exchange lands first, so the final queues are those
+        of an unsharded run."""
+        if st.xchg is not None:
+            q, xchg = self._xchg_deliver(st.queues, st.xchg, host0)
+            st = dataclasses.replace(st, queues=q, xchg=xchg)
         return dataclasses.replace(st, now=torch.full(
             (), stop, dtype=torch.int64, device=self.device))
 
-    def step_window(self, st: EngineState, stop: int, host0: int = 0,
+    def step_window(self, st: EngineState, stop: int,
+                    host0: int | None = None,
                     window: int | None = None) -> EngineState:
         """Advance one conservative window (`window` wide, the lookahead
         by default: see `_advance`); when no event below `stop` remains,
-        land on `stop`."""
+        land on `stop`. `host0` defaults to this shard's."""
         stop = int(stop)
+        host0 = self.host0 if host0 is None else host0
         nxt = self._next_time(st)
         opens, epochs = self._opens(st, nxt, stop)
         if opens:
             return self._advance(st, nxt, stop, host0, epochs, window)
-        return self._land(st, stop)
+        return self._land(st, stop, host0)
 
-    def run(self, st: EngineState, stop: int, host0: int = 0) -> EngineState:
-        """Run until no pending event is earlier than `stop`."""
+    def run(self, st: EngineState, stop: int,
+            host0: int | None = None) -> EngineState:
+        """Run until no pending event is earlier than `stop`. `host0`
+        defaults to this shard's."""
         stop = int(stop)
+        host0 = self.host0 if host0 is None else host0
         nxt = self._next_time(st)
         opens, epochs = self._opens(st, nxt, stop)
         while opens:
             st = self._advance(st, nxt, stop, host0, epochs)
             nxt = self._next_time(st)
             opens, epochs = self._opens(st, nxt, stop)
-        return self._land(st, stop)
+        return self._land(st, stop, host0)

@@ -124,6 +124,8 @@ def build(
     mean_delay_ns: int = 10 * MILLISECOND,
     msgs_per_host: int = 1,
     seed: int = 0,
+    axis_name=None,
+    n_shards: int = 1,
     drain_batch: int = 24,
     batched: bool = False,
     trace: int = 0,
@@ -141,6 +143,10 @@ def build(
     that many slots (runtime.pressure); `trace` a trace ring of that many
     records per host (obs.trace), `stats` the sim-time histograms
     (obs.stats). `device=None` runs on CUDA.
+
+    With `axis_name` set, `n_hosts` is the per-shard host count of an
+    `n_shards` mesh (`parallel.mesh.make_mesh`, in a rank started by
+    `parallel.mesh.spawn`), and `init()` builds this rank's shard.
     """
     dev = resolve_device(device)
     cfg = EngineConfig(
@@ -150,6 +156,8 @@ def build(
         max_emit=1,
         n_args=N_PHOLD_ARGS,
         seed=seed,
+        axis_name=axis_name,
+        n_shards=n_shards,
         drain_batch=drain_batch,
         trace=trace,
         stats=stats,
@@ -157,15 +165,17 @@ def build(
     )
     eng = Engine(
         cfg,
-        [make_handler(n_hosts, mean_delay_ns, hot_hosts, hot_weight)],
+        [make_handler(n_hosts * n_shards, mean_delay_ns, hot_hosts,
+                      hot_weight)],
         ConstantNetwork(latency_ns),
         batch_handler=(make_batch_handler(
-            n_hosts, mean_delay_ns, hot_hosts, hot_weight)
+            n_hosts * n_shards, mean_delay_ns, hot_hosts, hot_weight)
             if batched else None),
         device=dev,
     )
 
-    def init(host0: int = 0):
+    def init(host0: int | None = None):
+        host0 = eng.host0 if host0 is None else host0
         shape = (n_hosts, msgs_per_host)
         gids = host0 + torch.arange(n_hosts, dtype=torch.int32, device=dev)
         ev = Events(

@@ -19,6 +19,16 @@ object's `host_syncs`.
 
 The trace ring's reset rides the extraction: the bundle keeps the
 pre-reset record columns, and the returned state carries the reset ring.
+
+Sharded (a Simulation with a `mesh`), each rank extracts its shard's
+bundle and the fetch makes it global before the copy: the per-host
+subtrees (tracker, trace, capture and pressure rows) gather to rank 0 in
+one collective, the counters sum over the ranks in another (the clock,
+window and sweep counts and the cross-shard count are replicated, the
+spill high-water mark takes a max), and the queue fill is the global
+valid count times the f32 reciprocal of the global slot count. Every
+rank gets the reduced counters, so each takes the same decisions; only
+rank 0 gets the per-host rows, the one host read of the segment there.
 """
 
 from __future__ import annotations
@@ -100,6 +110,69 @@ def fetch_tree(tree: dict, staging: _Staging | None = None) -> dict:
     return _unflatten(out)
 
 
+# bundle subtrees of per-host rows, gathered (not reduced) when sharded
+_PER_HOST = ("tracker", "trace", "pcap", "pressure")
+# counters every shard holds the same value of (the others are summed;
+# the spill ring's high-water mark is a max, but a spill ring runs on one
+# shard only)
+_REPLICATED = ("now_ns", "windows", "sweeps", "cross_shard",
+               "cross_shard_packets")
+
+
+def _f32_fill(count, numel: int) -> np.float32:
+    """`queue_fill_ref` on the host: the valid count (exact in f32 below
+    2^24) times the f32 reciprocal of the slot count."""
+    return np.float32(count) * (np.float32(1.0) / np.float32(numel))
+
+
+def reduce_tree(tree: dict, mesh, staging: "_Staging | None" = None
+                ) -> dict:
+    """A sharded bundle made global, as numpy: per-host subtrees
+    (`_PER_HOST`) gathered to rank 0 (absent elsewhere), the rest
+    reduced over the ranks on every rank (a sum, or rank 0's value for
+    `_REPLICATED`), and "fill_count" turned into the global "fill". Every
+    rank must call it; the copy to the host is one per rank."""
+    comm = mesh.comm
+    items = _flatten(tree)
+    gath = [(p, t) for p, t in items if p[0] in _PER_HOST]
+    red = [(p, t) for p, t in items if p[0] not in _PER_HOST]
+    out = [(p, t) for p, t in red if p[-1] in _REPLICATED]
+    sums = [(p, t) for p, t in red if p[-1] not in _REPLICATED]
+    if sums:
+        if any(t.dtype.is_floating_point for _, t in sums):
+            raise TypeError("a sharded bundle sums integer counters only")
+        flat = comm.gsum(torch.cat([t.reshape(-1).to(torch.int64)
+                                    for _, t in sums]))
+        off = 0
+        for p, t in sums:
+            n = t.numel()
+            out.append((p, flat[off:off + n].reshape(t.shape).to(t.dtype)))
+            off += n
+    got = fetch_tree(_unflatten(out), staging)
+    if "fill_count" in got:
+        got["fill"] = _f32_fill(int(got.pop("fill_count")),
+                                int(got.pop("fill_slots")))
+    if gath:
+        parts, layout = [], []
+        for p, t in gath:
+            t = t.detach().contiguous()
+            layout.append((p, numpy_dtype(t), tuple(t.shape),
+                           t.numel() * t.element_size()))
+            parts.append(t.reshape(-1).view(torch.uint8))
+        bufs = comm.gather(torch.cat(parts))
+        if bufs is not None:
+            raws = [b.cpu().numpy() for b in bufs]
+            rows, off = [], 0
+            for p, dtype, shape, nbytes in layout:
+                rows.append((p, np.concatenate(
+                    [r[off:off + nbytes].view(dtype).reshape(shape)
+                     for r in raws])))
+                off += nbytes
+            for k, v in _unflatten(rows).items():
+                got[k] = v
+    return got
+
+
 def queue_fill_ref(q) -> torch.Tensor:
     """The mean slot occupancy of the queues as a 0-d f32 tensor, as the
     reference computes its `jnp.mean` of the f32 mask: the valid-slot
@@ -109,6 +182,25 @@ def queue_fill_ref(q) -> torch.Tensor:
     recip = np.float32(1.0) / np.float32(q.time.numel())
     return n.to(torch.float32) * torch.full(
         (), float(recip), dtype=torch.float32, device=q.time.device)
+
+
+def fill_refs(q, mesh=None) -> dict:
+    """Device refs of the queue fill: {"fill": queue_fill_ref(q)}, or
+    under a mesh the shard's counts, which `reduce_tree` turns into the
+    global fill."""
+    if mesh is None:
+        return {"fill": queue_fill_ref(q)}
+    return {"fill_count": torch.sum(q.time != TIME_INVALID,
+                                    dtype=torch.int64),
+            "fill_slots": torch.full((), q.time.numel(), dtype=torch.int64,
+                                     device=q.time.device)}
+
+
+def fetch_global(tree: dict, mesh=None, staging=None) -> dict:
+    """`fetch_tree`, or under a mesh `reduce_tree`."""
+    if mesh is None:
+        return fetch_tree(tree, staging)
+    return reduce_tree(tree, mesh, staging)
 
 
 class HeartbeatHarvest:
@@ -131,6 +223,7 @@ class HeartbeatHarvest:
         self.metrics = metrics
         self.host_syncs = 0
         self._staging = _Staging()
+        self.mesh = getattr(sim, "mesh", None)
 
     def rebind(self, sim) -> None:
         """Point at a rebuilt Simulation (the --overflow grow
@@ -157,7 +250,7 @@ class HeartbeatHarvest:
                 "queue_drops": q.drops.sum(),
             },
             # obs.profiler.queue_fill's reduction
-            "fill": queue_fill_ref(q),
+            **fill_refs(q, self.mesh),
         }
         if q.spill is not None:
             ring = q.spill
@@ -175,6 +268,16 @@ class HeartbeatHarvest:
         if full:
             if self.tracker is not None:
                 bundle["tracker"] = self.tracker.gather(state)
+                ram = getattr(self.tracker, "_ram_static", None)
+                if ram is not None and self.mesh is not None:
+                    # the ram rows' bytes per host are the global state's
+                    from shadow_tpu_torch.parallel.mesh import global_specs
+
+                    total = sum(int(np.prod(shape)) * dtype.itemsize
+                                for _, shape, dtype
+                                in global_specs(state, self.mesh))
+                    self.tracker._ram_static = ram[:2] + (
+                        total // max(len(self.tracker.names), 1),)
             if self.tdrain is not None and state.trace is not None:
                 from shadow_tpu_torch.obs.trace import TraceDrain, reset_ring
 
@@ -190,10 +293,11 @@ class HeartbeatHarvest:
     # -- host half -------------------------------------------------------
 
     def fetch(self, bundle: dict) -> dict:
-        """The segment's one device-to-host copy, counted."""
+        """The segment's one device-to-host copy, counted (made global
+        first when sharded: `reduce_tree`)."""
         self.host_syncs += 1
         self.sim.engine.host_syncs += 1
-        return fetch_tree(bundle, self._staging)
+        return fetch_global(bundle, self.mesh, self._staging)
 
     def summary_from(self, fetched: dict) -> dict:
         """`Simulation.summary`'s dict from a fetched bundle (no state

@@ -25,9 +25,19 @@ key), packet capture (`logpcap`/`pcapdir`: a capture ring per host,
 `Simulation.pcap_gids` and `pcap_dir`) and per-window widths
 (`dispatch`/`step_window` with `window_ns`, one window per call).
 `Simulation.dispatch` runs a segment with no overflow probe (the CLI's
-run loop, `cli.py`, which re-templates a "grow" run itself). Not ported,
-each raising NotImplementedError: sharding (`mesh`, `locality`,
-`host_order`).
+run loop, `cli.py`, which re-templates a "grow" run itself).
+
+Sharding (`mesh`, a `parallel.mesh.Mesh` made in a rank started by
+`parallel.mesh.spawn`): the host count pads to a multiple of the shard
+count, the whole build runs on every rank, and each rank keeps its block
+of host rows, runs its shard (`run`, `step_window`, `dispatch`) and
+meets the others in the engine's collectives; `Simulation.gather_state`
+gives the global view on rank 0. `locality=True` reorders hosts so that
+config-visible traffic partners share a shard (`parallel.partition`);
+`host_order` forces a stored order (a checkpoint's). `spmd="constraint"`
+(the reference's GSPMD-partitioned global engine) is not ported:
+ROADMAP.md Queue 1 item 7b. Spill and grow modes are refused on a mesh
+of more than one shard, as in the reference.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from shadow_tpu_torch.core.engine import (
     Engine,
     EngineConfig,
     _select_rows,
+    _slice_rows,
     state_summary,
 )
 from shadow_tpu_torch.core.events import Events
@@ -170,6 +181,54 @@ class Simulation:
     # queue overflow is loud by default: the reference's event heaps are
     # unbounded, so a counted drop would silently change the run
     strict_overflow: bool = True
+    mesh: Any = None  # parallel.mesh.Mesh when sharded
+    spmd: str = "auto"
+    # the host permutation applied at build time (position i holds the
+    # config host formerly gid host_order[i]): the locality layout, a
+    # checkpoint's stored order, or None for config order
+    host_order: tuple | None = None
+
+    @property
+    def spmd_path(self) -> str | None:
+        """The sharding path: None unsharded, else `select_spmd(spmd)`
+        ("shard_map" for "auto"). "shard_map" and "pmap" run the same
+        per-rank program; the pmap path keeps the reference's refusals
+        (a 2-D mesh, per-window widths)."""
+        if self.mesh is None:
+            return None
+        from shadow_tpu_torch.parallel.mesh import select_spmd
+
+        return select_spmd(self.spmd)
+
+    def mesh_info(self) -> dict:
+        """The checkpoint header's mesh identity: what a resume on
+        another shard count needs to force this build's host layout."""
+        return {
+            "n_shards": self.mesh.size if self.mesh is not None else 1,
+            "dcn_slices": (self.mesh.dcn_slices if self.mesh is not None
+                           else 1),
+            "host_order": (list(self.host_order)
+                           if self.host_order is not None else None),
+        }
+
+    def gather_state(self, state=None):
+        """The global view of `state` (state0 by default): numpy leaves
+        keyed by field path in the reference's flatten order, as
+        `convert.engine_state_to_numpy` gives them. Sharded, every rank
+        must call it and rank 0 gets the view (None elsewhere)."""
+        from shadow_tpu_torch import convert
+
+        st = self.state0 if state is None else state
+        if self.mesh is None:
+            return convert.engine_state_to_numpy(st)
+        from shadow_tpu_torch.parallel.mesh import gather_state
+
+        return gather_state(st, self.mesh)
+
+    def _global_sum(self, t: torch.Tensor) -> int:
+        """A sum over every shard's hosts, on the host."""
+        eng = self.engine
+        return int(eng._gsum(t) if eng.comm is not None else t)
 
     def run(self, stop_ns: int | None = None, state=None):
         """Run to the stop time (the config's by default) from `state`
@@ -195,7 +254,7 @@ class Simulation:
         with self._phase():
             out = self.engine.run(st, stop)
         if self.overflow == "strict" or self.strict_overflow:
-            drops = int(out.queues.drops.sum())
+            drops = self._global_sum(out.queues.drops.sum())
             if drops > 0:
                 self.check_drops(drops, self.summary(out))
         return out
@@ -228,6 +287,7 @@ class Simulation:
                 "reservoir refills are host-side window-boundary work — "
                 "use run()")
         if window_ns is not None:
+            self._check_window()
             return self.engine.step_window(state, stop_ns,
                                            window=int(window_ns))
         with self._phase():
@@ -240,10 +300,21 @@ class Simulation:
         the window's end, so the run stays causal but coarsens packet
         timing by up to the width; None keeps the lookahead."""
         st = self.state0 if state is None else state
+        if window_ns is not None:
+            self._check_window()
         with self._phase():
             return self.engine.step_window(
                 st, self.stop_ns if stop_ns is None else stop_ns,
                 window=None if window_ns is None else int(window_ns))
+
+    def _check_window(self):
+        """Per-window widths are refused on the pmap path, as the
+        reference refuses them there."""
+        if self.spmd_path == "pmap":
+            raise ValueError(
+                "adaptive windows (--window auto) need the shard_map or "
+                "constraint SPMD path; the pmap fallback runs fixed "
+                "windows only (selected spmd='pmap')")
 
     @contextlib.contextmanager
     def _phase(self):
@@ -263,6 +334,11 @@ class Simulation:
         in spill mode; the profiler's wall-clock aggregates under
         "profile" when one is attached)."""
         out = state_summary(state)
+        if self.engine.comm is not None:
+            # the summed counters over every shard (the rest replicate)
+            for key, t in (("executed", state.stats.n_executed.sum()),
+                           ("queue_drops", state.queues.drops.sum())):
+                out[key] = self._global_sum(t)
         if self.profiler is not None:
             out["profile"] = self.profiler.summary()
         if self.pressure is not None:
@@ -451,19 +527,29 @@ def default_registry() -> dict[str, Callable]:
     }
 
 
-def _refuse_unported(*, mesh, locality, host_order, overflow):
+def _check_mesh_knobs(*, mesh, spmd, overflow):
     if overflow not in OVERFLOW_MODES:
         raise ValueError(
             f"overflow must be one of {OVERFLOW_MODES}, got {overflow!r}")
-    unported = {
-        "mesh (sharding)": mesh is not None,
-        "locality": bool(locality),
-        "host_order": host_order is not None,
-    }
-    for name, set_ in unported.items():
-        if set_:
-            raise NotImplementedError(f"build_simulation: {name} is not "
-                                      "ported")
+    from shadow_tpu_torch.parallel.mesh import select_spmd
+
+    path = select_spmd(spmd)
+    if path == "constraint":
+        raise NotImplementedError(
+            "spmd='constraint' (a global engine partitioned by the "
+            "compiler) is not ported (ROADMAP.md Queue 1 item 7b); "
+            "spmd='auto' runs one rank per shard")
+    if path == "pmap" and mesh is not None and len(mesh.axis_names) == 2:
+        raise NotImplementedError(
+            "the pmap fallback is single-axis only: a multi-slice "
+            "(dcn x hosts) mesh must run through the SPMD paths — build "
+            "with spmd='auto' or spmd='shard_map' instead of spmd='pmap'")
+    if overflow in ("spill", "grow") and mesh is not None and mesh.size > 1:
+        # the reservoir's window-boundary harvest would need a cross-
+        # shard protocol the controller does not speak
+        raise ValueError(
+            f"--overflow {overflow} is not supported on sharded meshes "
+            "yet; use strict or drop (or run unsharded)")
 
 
 def _bucket(n_hosts: int) -> int:
@@ -502,14 +588,20 @@ def build_simulation(
     overflow: str = "drop",
     spill_len: int = 0,
     host_order: Any = None,
+    spmd: str = "auto",
     device=None,
 ) -> Simulation:
     """Config -> Simulation on `device` (None: CUDA, which must exist;
     pass "cpu" to run on the CPU).
 
-    The keywords are the reference's, less those that act only on
-    meshes or an app model passed in whole, which come with the code
-    that reads them.
+    The keywords are the reference's, less `app_model`. `mesh` (a
+    `parallel.mesh.Mesh`) shards the hosts: the Simulation then runs
+    this rank's shard on the mesh's device. `locality=True` (a mesh of
+    more than one shard) reorders hosts so config-visible traffic
+    partners share a shard; gids and `names` follow that layout.
+    `host_order` forces a stored permutation (a checkpoint's), on any
+    mesh. `spmd` is the reference's execution path: "auto", "shard_map"
+    and "pmap" run the one per-rank program, "constraint" is refused.
 
     `overflow="spill"` gives every queue an overflow ring of `spill_len`
     slots (4 x capacity by default) and a PressureController, and `run`
@@ -520,16 +612,58 @@ def build_simulation(
     drain; it requires a TCP stack with fuse_rx=True and a model that
     declares `frontier_safe` (every local emit at dt >= 1).
     """
-    _refuse_unported(mesh=mesh, locality=locality, host_order=host_order,
-                     overflow=overflow)
+    _check_mesh_knobs(mesh=mesh, spmd=spmd, overflow=overflow)
     if qdisc not in ("fifo", "rr"):
         raise ValueError(f"unknown qdisc {qdisc!r}")
-    dev = resolve_device(device)
+    if mesh is not None:
+        if device is not None and torch.device(device).type != \
+                mesh.device.type:
+            raise ValueError(f"device {device!r} differs from the mesh's "
+                             f"{mesh.device}")
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
     if registry is None:
         registry = default_registry()
     topo = Topology.from_graphml(cfg.topology_source())
     hosts = expand_hosts(cfg)
-    n_hosts = _bucket(len(hosts)) if shape_bucket else len(hosts)
+    n_shards = mesh.size if mesh is not None else 1
+    applied_order: tuple | None = None
+    if host_order is not None:
+        from shadow_tpu_torch.parallel.partition import apply_order
+
+        perm = [int(g) for g in host_order]
+        if sorted(perm) != list(range(len(hosts))):
+            raise ValueError(
+                f"host_order must be a permutation of range({len(hosts)}) "
+                "— was the checkpoint written from the same config?")
+        hosts = apply_order(hosts, perm)
+        applied_order = tuple(perm)
+    elif locality and n_shards <= 1:
+        # an option that would silently change nothing fails instead
+        raise ValueError("locality=True requires a multi-device mesh")
+    elif locality:
+        from shadow_tpu_torch.parallel.partition import (
+            apply_order,
+            locality_order,
+            traffic_edges_from_config,
+        )
+
+        perm = locality_order(len(hosts), traffic_edges_from_config(hosts),
+                              n_shards, dcn_slices=mesh.dcn_slices)
+        hosts = apply_order(hosts, perm)
+        applied_order = tuple(perm)
+    n_hosts = len(hosts)
+    if shape_bucket:
+        # the ladder, then up to a multiple of the shard count
+        n_hosts = _bucket(n_hosts)
+        if n_hosts % n_shards:
+            n_hosts = (n_hosts // n_shards + 1) * n_shards
+    elif n_hosts % n_shards:
+        raise ValueError(
+            f"{len(hosts)} hosts not divisible by mesh size {n_shards} "
+            "(enable shape_bucket to auto-pad)")
+    per_shard = n_hosts // n_shards
 
     # -- attachment + DNS
     dns = DNS()
@@ -725,8 +859,12 @@ def build_simulation(
         frontier_kinds = stack.frontier_kinds() + tuple(
             kind_base + int(i) for i in model.frontier_kinds())
     ecfg = EngineConfig(
-        n_hosts=n_hosts, capacity=capacity, lookahead=lookahead,
+        n_hosts=per_shard, capacity=capacity, lookahead=lookahead,
         max_emit=max_emit, n_args=N_PKT_ARGS, seed=seed, burst=burst,
+        axis_name=(None if mesh is None else
+                   (mesh.axis_names[0] if len(mesh.axis_names) == 1
+                    else tuple(mesh.axis_names))),
+        n_shards=n_shards,
         spill=spill, frontier=int(frontier), trace=int(trace),
         trace_len_arg=A_LEN, stats=int(stats),
     )
@@ -773,6 +911,7 @@ def build_simulation(
         # crashed-and-restarted host comes back with boot-fresh state
         fault_reset=hosts_state if faults is not None else None,
         frontier_kinds=frontier_kinds, device=dev,
+        comm=mesh.comm if mesh is not None else None,
     )
 
     # -- initial events: process starts at their starttime, with a
@@ -795,7 +934,14 @@ def build_simulation(
     on = lambda a: torch.from_numpy(a).to(dev)
     init = Events(time=on(times), dst=on(dsts), src=on(dsts), seq=on(seqs),
                   kind=on(kinds), args=on(argw))
-    st0 = eng.init_state(hosts_state, init)
+    if mesh is not None:
+        # this rank's rows of the global build; initial events for other
+        # shards are ignored by the push
+        st0 = eng.init_state(
+            _slice_rows(hosts_state, eng.host0, per_shard, clone=True),
+            init)
+    else:
+        st0 = eng.init_state(hosts_state, init)
     if len(pcap_dirs) > 1:
         raise ValueError(
             f"hosts disagree on pcapdir ({sorted(pcap_dirs)}); captures "
@@ -811,6 +957,7 @@ def build_simulation(
         faults=faults, profiler=profiler,
         pcap_gids=tuple(int(g) for g in np.nonzero(pcap_mask)[0]),
         pcap_dir=(pcap_dirs.pop() if pcap_dirs else "shadow.pcap.d"),
+        mesh=mesh, spmd=spmd, host_order=applied_order,
     )
 
 

@@ -6,10 +6,20 @@ by index (`leaf_<i>`) in the reference's pytree flatten order, under
 the reference's `keystr` paths (`convert.state_tensors`, `convert.keystr`),
 uint64 leaves as uint64, plus a JSON header (`__header__`) recording
 the leaf paths, shapes, dtypes and CRC32s, a free-form user dict (config
-digest, sim time, seed), the writer's mesh (`n_shards: 1` here) and
-whether the cross-shard exchange buffer was empty. So a checkpoint
-either package writes loads in the other, and a resumed run continues
-bit for bit.
+digest, sim time, seed), the writer's mesh (`n_shards`, `dcn_slices`,
+`host_order`) and whether the cross-shard exchange buffer was empty. So
+a checkpoint either package writes loads in the other, and a resumed run
+continues bit for bit.
+
+Sharded runs (`parallel.mesh`): a state is one rank's shard. Pass the
+rank's `mesh` and `save_checkpoint` gathers the global view, which rank
+0 writes in the reference's layout; `load_checkpoint` then checks the
+file against the global shapes and returns the rank's shard. A shard set
+(`save_checkpoint(shard=(i, n))`, one member per rank, named by
+`shard_member_path`) is resumed whole or not at all
+(`find_resume_checkpoint`, `load_shard_set`). With `reshard=True` a
+checkpoint written at S shards restores at S', the exchange buffer taken
+fresh, provided it held no event in flight.
 
 Integrity and rotation: every leaf carries a CRC32 in the header,
 verified on load; `keep=N` rotates generations (`path` newest, `path.1`
@@ -24,9 +34,8 @@ reservoir) and i64 queue drops (a narrower integer leaf is widened on
 load), v6 the mesh header, v7 the serving plane's manifest. This module
 writes v7 and loads v3-v7.
 
-Not ported, each raising NotImplementedError: shard sets (`shard=`,
-`load_shard_set`, `shard_member_path`; ROADMAP item 7, sharding) and
-the serving plane's manifest (`serve_manifest=`; ROADMAP item 8).
+Not ported, raising NotImplementedError: the serving plane's manifest
+(`serve_manifest=`; ROADMAP item 8).
 """
 
 from __future__ import annotations
@@ -70,9 +79,6 @@ def _savez(f, **arrs) -> None:
             with zf.open(name + ".npy", "w", force_zip64=True) as g:
                 np.lib.format.write_array(g, np.asanyarray(a),
                                           allow_pickle=False)
-
-_NO_SHARDS = ("sharded checkpoint sets are not ported (ROADMAP.md "
-              "Queue 1 item 7, sharding)")
 
 
 def _crc(arr: np.ndarray) -> int:
@@ -139,7 +145,7 @@ def _xchg_empty(paths: list[str], leaves: list[np.ndarray]) -> bool:
     """True when the cross-shard exchange buffer holds no in-flight
     events: every occupancy-bearing xchg leaf (`.time` slots and the
     `sent_min` barrier) is all TIME_INVALID (int max). A tree without
-    an exchange buffer (every state of this package) is empty."""
+    an exchange buffer (an unsharded state) is empty."""
     empty = True
     for pth, arr in zip(paths, leaves):
         if not _is_xchg(pth):
@@ -165,9 +171,8 @@ def _spill_empty(paths: list[str], leaves: list[np.ndarray]) -> bool:
 
 
 def shard_member_path(path: str, index: int, count: int) -> str:
-    """File name of one member of a sharded checkpoint set: not
-    ported."""
-    raise NotImplementedError(_NO_SHARDS)
+    """File name of one member of a sharded checkpoint set."""
+    return f"{path}.shard{index}of{count}"
 
 
 def _write_atomic(path: str, arrs: dict[str, np.ndarray],
@@ -210,7 +215,8 @@ def save_checkpoint(path: str, state: Any, meta: dict | None = None,
                     extra: dict[str, np.ndarray] | None = None,
                     mesh_info: dict | None = None,
                     shard: tuple[int, int] | None = None,
-                    serve_manifest: dict | None = None) -> None:
+                    serve_manifest: dict | None = None,
+                    mesh: Any = None) -> None:
     """Write the EngineState `state` to `path` as .npz.
 
     `keep > 1` rotates: the previous `path` becomes `path.1` (and so on
@@ -219,15 +225,27 @@ def save_checkpoint(path: str, state: Any, meta: dict | None = None,
     reservoir, `PressureController.serialize()`): CRC'd like leaves,
     left out of the template match on load. `mesh_info` records the
     writer's mesh ({"n_shards", "dcn_slices", "host_order"}).
-    `shard=` and `serve_manifest=` are not ported.
+
+    `mesh` (a sharded state's `parallel.mesh.Mesh`): every rank calls,
+    the global view is gathered and rank 0 writes it. `shard=(i, n)`
+    instead writes `state` as member i of a set of n, to
+    `shard_member_path(path, i, n)` (no rotation: a set is resumed
+    whole or not at all). `serve_manifest=` is not ported.
     """
-    if shard is not None:
-        raise NotImplementedError(_NO_SHARDS)
     if serve_manifest is not None:
         raise NotImplementedError(
             "the serving plane's checkpoint manifest is not ported "
             "(ROADMAP.md Queue 1 item 8, fleets and serving)")
-    paths, leaves = state_leaves(state)
+    if mesh is not None and shard is None:
+        from shadow_tpu_torch.parallel.mesh import gather_state
+
+        got = gather_state(state, mesh)
+        if got is None:
+            return
+        paths = [convert.keystr(k) for k in got]
+        leaves = list(got.values())
+    else:
+        paths, leaves = state_leaves(state)
     extra = {k: np.asarray(v) for k, v in (extra or {}).items()}
     header = {
         "format_version": FORMAT_VERSION,
@@ -242,6 +260,13 @@ def save_checkpoint(path: str, state: Any, meta: dict | None = None,
     }
     if mesh_info is not None:
         header["mesh"] = dict(mesh_info)
+    if shard is not None:
+        i, n = shard
+        if not 0 <= i < n:
+            raise ValueError(f"shard index {i} out of range for set of {n}")
+        header["shard"] = [i, n]
+        path = shard_member_path(path, i, n)
+        keep = 1
     arrs = {f"leaf_{i}": x for i, x in enumerate(leaves)}
     arrs.update({f"extra_{k}": v for k, v in extra.items()})
     arrs["__header__"] = np.frombuffer(
@@ -340,36 +365,60 @@ def read_header_info(path: str) -> dict:
     }
 
 
+def _shard_sets(path: str) -> dict[int, dict[int, str]]:
+    """{set_size: {member_index: member_path}} for files named
+    `<path>.shard<i>of<n>` next to `path`."""
+    base = os.path.basename(path)
+    d = os.path.dirname(os.path.abspath(path))
+    sets: dict[int, dict[int, str]] = {}
+    if os.path.isdir(d):
+        pat = re.compile(re.escape(base) + r"\.shard(\d+)of(\d+)$")
+        for name in os.listdir(d):
+            m = pat.match(name)
+            if m:
+                i, n = int(m.group(1)), int(m.group(2))
+                sets.setdefault(n, {})[i] = os.path.join(
+                    os.path.dirname(path) or ".", name)
+    return sets
+
+
 def find_resume_checkpoint(path: str):
     """`--resume auto`: the newest checkpoint of `path` that verifies.
 
     Candidates, newest mtime first: the rotation generations (`path`,
-    `path.1`, ...) and the crash-time `path.emergency` file. Returns
-    (chosen path, meta, skipped) where `skipped` lists (path, reason)
-    for newer candidates that failed; None when nothing checkpoint-like
-    exists; raises ValueError when candidates exist but none verifies.
-    Members of a sharded set (`path.shard<i>of<n>`) are reported in
-    `skipped`: sets are not ported.
+    `path.1`, ...), the crash-time `path.emergency` file and complete
+    shard sets (`path.shard<i>of<n>`, every member present and
+    verifying: all or none; a torn set is reported in `skipped`).
+    Returns (chosen, meta, skipped) where `chosen` is a path, or the
+    list of member paths (in shard order) of a set of more than one, to
+    load with `load_shard_set`; `skipped` lists (path, reason) for newer
+    candidates that failed. None when nothing checkpoint-like exists;
+    raises ValueError when candidates exist but none verifies.
     """
     skipped: list[tuple[str, str]] = []
-    # (mtime, tiebreak, path): the tiebreak keeps the generation order
-    # when mtimes collide
-    cands: list[tuple[float, int, str]] = []
+    # (mtime, tiebreak, chosen, member paths): the tiebreak keeps the
+    # generation order when mtimes collide
+    cands: list[tuple[float, int, Any, list[str]]] = []
     for i, p in enumerate(checkpoint_generations(path)):
-        cands.append((os.path.getmtime(p), i, p))
+        cands.append((os.path.getmtime(p), i, p, [p]))
     emerg = path + ".emergency"
     if os.path.exists(emerg):
         # written at crash time, so usually the newest and furthest
         # along; ties with the bare path prefer the emergency file
-        cands.append((os.path.getmtime(emerg), -1, emerg))
-    d = os.path.dirname(os.path.abspath(path))
-    if os.path.isdir(d):
-        pat = re.compile(re.escape(os.path.basename(path))
-                         + r"\.shard\d+of\d+$")
-        for name in sorted(os.listdir(d)):
-            if pat.match(name):
-                skipped.append((os.path.join(os.path.dirname(path) or ".",
-                                             name), _NO_SHARDS))
+        cands.append((os.path.getmtime(emerg), -1, emerg, [emerg]))
+    for n, members in sorted(_shard_sets(path).items()):
+        if sorted(members) != list(range(n)):
+            got = ", ".join(
+                os.path.basename(members[i]) for i in sorted(members))
+            skipped.append((
+                shard_member_path(path, 0, n).replace("0of", "*of", 1),
+                f"incomplete shard set: {len(members)} of {n} members "
+                f"present ({got}) — refusing to resume a torn state",
+            ))
+            continue
+        paths_n = [members[i] for i in range(n)]
+        cands.append((max(os.path.getmtime(p) for p in paths_n), 0,
+                      paths_n if n > 1 else paths_n[0], paths_n))
     if not cands:
         if skipped:
             raise ValueError(
@@ -378,23 +427,29 @@ def find_resume_checkpoint(path: str):
             )
         return None
     cands.sort(key=lambda c: (-c[0], c[1]))
-    for _, _, p in cands:
+    for _, _, chosen, member_paths in cands:
         try:
-            meta = verify_checkpoint(p)
+            meta = {}
+            for p in member_paths:
+                meta = verify_checkpoint(p)
         except ValueError as e:
-            skipped.append((p, str(e)))
+            skipped.append((member_paths[0] if len(member_paths) == 1
+                            else str(member_paths), str(e)))
             continue
-        if read_header_info(p).get("serve") is not None:
+        serve_member = next(
+            (p for p in member_paths
+             if read_header_info(p).get("serve") is not None), None)
+        if serve_member is not None:
             # a serving-plane lane snapshot is a lane-stacked batch
             # state, not a batch-run state: refuse it by name
             skipped.append((
-                p,
+                serve_member,
                 "serving-plane lane snapshot (v7 'serve' manifest) — "
                 "batch-run --resume auto cannot load a lane-stacked "
                 "batch state",
             ))
             continue
-        return p, meta, skipped
+        return chosen, meta, skipped
     raise ValueError(
         "no verifiable checkpoint generation:\n  "
         + "\n  ".join(f"{p}: {r}" for p, r in skipped)
@@ -437,26 +492,82 @@ def _build(template, paths: list[str], arrays: list[np.ndarray]):
         leaves, template.now.device, hosts=template.hosts)
 
 
+def _target(template, mesh):
+    """(keystr paths, (shape, dtype) specs, fresh) of the state a file
+    restores into: the template's own or, with a mesh, the global view
+    of the template's shards. fresh(path) gives that view's leaf of a
+    fresh build (the template is one): the exchange buffer and spill
+    ring a mesh-crossing restore takes new."""
+    if mesh is None:
+        paths, specs = _template_specs(template)
+        local = None
+
+        def fresh(pth):
+            nonlocal local
+            if local is None:
+                local = convert.engine_state_to_numpy(template)
+            return local[convert.key_of(pth)]
+        return paths, specs, fresh
+    from shadow_tpu_torch.parallel.mesh import global_specs
+
+    g = global_specs(template, mesh)
+    paths = [convert.keystr(k) for k, _, _ in g]
+    specs = [(shape, dtype) for _, shape, dtype in g]
+    local = None
+
+    def fresh(pth):
+        nonlocal local
+        if local is None:
+            local = convert.engine_state_to_numpy(template)
+        a = local[convert.key_of(pth)]
+        want = specs[paths.index(pth)][0]
+        return np.concatenate([a] * (want[0] // a.shape[0])) \
+            if a.shape != want else a
+    return paths, specs, fresh
+
+
+def _restore(template, mesh, paths: list[str], arrays: list[np.ndarray]):
+    """The state of the template's shape (its shard of the global
+    `arrays`, with a mesh) from leaves in the target's order."""
+    if mesh is None:
+        return _build(template, paths, arrays)
+    from shadow_tpu_torch.parallel.mesh import scatter_state
+
+    return scatter_state({convert.key_of(p): a
+                          for p, a in zip(paths, arrays)}, template, mesh)
+
+
 def load_checkpoint(path: str, template: Any, *,
-                    reshard: bool = False) -> tuple[Any, dict]:
+                    reshard: bool = False, mesh: Any = None
+                    ) -> tuple[Any, dict]:
     """Load a checkpoint into the structure of `template` (an
     EngineState of this package, e.g. a rebuilt Simulation's state0).
 
     Returns (state, meta). Raises ValueError on container corruption,
     a per-leaf CRC mismatch or a structural mismatch.
 
+    With `mesh` (a sharded template, one rank's shard), the file holds
+    the global state and is checked against the global shapes; every
+    rank reads it and gets its own shard back.
+
     With `reshard=True` leaves are matched by tree path, and the two
     subtrees that depend on the writer's mesh may differ: the exchange
-    buffer (`.xchg`, which only a sharded reference run has) and the
-    spill ring (`.queues.spill`, absent from a sharded reference run's
-    default mode). Each is taken fresh from the template when the
+    buffer (`.xchg`, whose shape is the writer's shard count's, absent
+    when unsharded) and the spill ring (`.queues.spill`, absent from
+    sharded runs). Each is taken fresh from the template when the
     checkpoint's held nothing, and refused loudly when it did.
     """
     header, leaves = _read_raw(path)
-    paths, specs = _template_specs(template)
+    paths, specs, fresh = _target(template, mesh)
     crcs = header.get("crc32") or [None] * len(leaves)
-    if header["paths"] == paths and header["n_leaves"] == len(paths):
-        return (_build(template, paths, [
+    exact = header["paths"] == paths and header["n_leaves"] == len(paths)
+    if exact and reshard:
+        # the same tree, but maybe another shard count: an exchange
+        # buffer of another shape takes the portable path below
+        exact = all(arr.shape == spec[0] for pth, arr, spec
+                    in zip(paths, leaves, specs) if _is_xchg(pth))
+    if exact:
+        return (_restore(template, mesh, paths, [
             _check_leaf(arr, spec, pth, want_crc, path, i)
             for i, (spec, pth, arr, want_crc) in enumerate(
                 zip(specs, paths, leaves, crcs))
@@ -478,7 +589,7 @@ def load_checkpoint(path: str, template: Any, *,
         )
     # --- mesh-portable path: match leaves by tree path
     c_non_xchg = [p for p in header["paths"] if not _is_xchg(p)]
-    t_non_xchg = list(paths)
+    t_non_xchg = [p for p in paths if not _is_xchg(p)]
     spill_mismatch = (
         c_non_xchg != t_non_xchg
         and [p for p in c_non_xchg if not _is_spill(p)]
@@ -514,28 +625,107 @@ def load_checkpoint(path: str, template: Any, *,
         )
     by_path = {p: (arr, crc)
                for p, arr, crc in zip(header["paths"], leaves, crcs)}
-    fresh = None
     out = []
     for i, (spec, pth) in enumerate(zip(specs, paths)):
-        mesh_shaped = spill_mismatch and _is_spill(pth)
+        mesh_shaped = _is_xchg(pth) or (spill_mismatch and _is_spill(pth))
         if pth in by_path and (not mesh_shaped
                                or by_path[pth][0].shape == spec[0]):
             arr, want_crc = by_path[pth]
             out.append(_check_leaf(arr, spec, pth, want_crc, path, i))
         elif mesh_shaped:
-            # the template's own empty spill ring: the checkpoint's was
-            # verified empty above, so no event is lost
-            if fresh is None:
-                fresh = convert.engine_state_to_numpy(template)
-            out.append(fresh[convert.key_of(pth)])
+            # the target's own empty exchange buffer or spill ring: the
+            # checkpoint's was verified empty above, so nothing is lost
+            out.append(fresh(pth))
         else:
             raise ValueError(f"leaf {pth} missing from checkpoint {path!r}")
-    return _build(template, paths, out), header.get("meta", {})
+    return _restore(template, mesh, paths, out), header.get("meta", {})
 
 
-def load_shard_set(member_paths: list[str], template: Any):
-    """Load a complete sharded checkpoint set: not ported."""
-    raise NotImplementedError(_NO_SHARDS)
+def load_shard_set(member_paths: list[str], template: Any, *,
+                   mesh: Any = None) -> tuple[Any, dict]:
+    """Load a complete shard set (one file per rank, from
+    `save_checkpoint(shard=(i, n))`) into `template` (unsharded, or one
+    rank's shard with its `mesh`: the set may have been written at any
+    shard count).
+
+    Per-host leaves (leading dim = global hosts / n in every member)
+    concatenate in member order; replicated leaves must agree bit for
+    bit across members and come from member 0; the exchange buffer must
+    be empty in every member and comes fresh from the template. Returns
+    (state, meta of member 0). Extras are refused (the pressure
+    reservoir never coexists with a sharded mesh).
+    """
+    n = len(member_paths)
+    read = [_read_raw(p) for p in member_paths]
+    for p, (hdr, lvs) in zip(member_paths, read):
+        shard = hdr.get("shard")
+        if shard is not None and shard[1] != n:
+            raise ValueError(
+                f"{p!r} belongs to a set of {shard[1]}, got {n} members")
+        if hdr.get("extra"):
+            raise ValueError(
+                f"{p!r} carries extra arrays; sharded sets cannot hold "
+                "a pressure reservoir")
+        if hdr["paths"] != read[0][0]["paths"]:
+            raise ValueError(
+                f"{p!r}: leaf paths differ from {member_paths[0]!r}")
+        if not _xchg_empty(hdr["paths"], lvs):
+            raise ValueError(
+                f"{p!r} holds in-flight cross-shard events — the set "
+                "cannot restore onto a different mesh")
+    c_paths = read[0][0]["paths"]
+    paths, specs, fresh = _target(template, mesh)
+    c_non_xchg = [p for p in c_paths if not _is_xchg(p)]
+    t_non_xchg = [p for p in paths if not _is_xchg(p)]
+    # members come from sharded builds, which refuse spill modes: an
+    # unsharded target may still carry the (default) spill ring, which
+    # starts fresh like the exchange buffer
+    spill_mismatch = (
+        c_non_xchg != t_non_xchg
+        and c_non_xchg == [p for p in t_non_xchg if not _is_spill(p)]
+    )
+    if spill_mismatch:
+        t_non_xchg = [p for p in t_non_xchg if not _is_spill(p)]
+    if c_non_xchg != t_non_xchg:
+        raise ValueError(
+            "shard set differs from template beyond the exchange buffer "
+            "— was it written from the same config?")
+    idx = {p: i for i, p in enumerate(c_paths)}
+    out = []
+    for spec, pth in zip(specs, paths):
+        if _is_xchg(pth) or (spill_mismatch and _is_spill(pth)):
+            out.append(fresh(pth))
+            continue
+        i = idx[pth]
+        want_shape = spec[0]
+        members = []
+        for p, (hdr, lvs) in zip(member_paths, read):
+            crc = (hdr.get("crc32") or [None] * len(lvs))[i]
+            arr = lvs[i]
+            if crc is not None and _crc(arr) != crc:
+                raise ValueError(
+                    f"checkpoint {p!r}: CRC mismatch on leaf {i} ({pth}) "
+                    "— the file was damaged after it was written")
+            members.append(arr)
+        shapes = {m.shape for m in members}
+        if len(shapes) == 1 and members[0].shape == want_shape:
+            for p, m in zip(member_paths[1:], members[1:]):
+                if not np.array_equal(members[0], m):
+                    raise ValueError(
+                        f"replicated leaf {pth} differs between "
+                        f"{member_paths[0]!r} and {p!r}")
+            arr = members[0]
+        elif (len(shapes) == 1 and want_shape
+                and members[0].shape[1:] == want_shape[1:]
+                and members[0].shape[0] * n == want_shape[0]):
+            arr = np.concatenate(members, axis=0)
+        else:
+            raise ValueError(
+                f"leaf {pth}: member shape {members[0].shape} does not "
+                f"tile template {want_shape} across {n} shards")
+        out.append(_check_leaf(arr, spec, pth, None, member_paths[0], pth))
+    return (_restore(template, mesh, paths, out),
+            read[0][0].get("meta", {}))
 
 
 def transfer_state(state: Any, template: Any) -> Any:

@@ -33,6 +33,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -373,27 +374,26 @@ def test_metrics_port_scrape_passes_validation(tmp_path, monkeypatch):
 REFUSED = {
     "serve": ["serve"],
     "fleet": ["--test", "--fleet", "lanes=2"],
-    "mesh": ["--test", "--mesh", "2"],
-    "dcn_slices": ["--test", "--dcn-slices", "2"],
-    "spmd": ["--test", "--spmd", "pmap"],
-    "locality": ["--test", "--locality"],
-    "collective_timeout": ["--test", "--collective-timeout", "5"],
+    "mesh": ["--test", "--mesh", "2", "--spmd", "constraint"],
+    "spmd": ["--test", "--spmd", "constraint"],
     "native_plugin": ["native.xml"],
 }
-REFUSED_ITEM = {"serve": 8, "fleet": 8, "mesh": 7, "dcn_slices": 7,
-                "spmd": 7, "locality": 7, "collective_timeout": 7,
-                "native_plugin": 9}
+REFUSED_ITEM = {"serve": "8", "fleet": "8", "mesh": "7b", "spmd": "7b",
+                "native_plugin": "9"}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_refused_flags_exit_2(name, tmp_path):
     # capture, --window, --retry and --xprof run (tests/test_torch_pcap*.py,
-    # test_torch_window.py, test_torch_retry.py)
+    # test_torch_window.py, test_torch_retry.py), and so do --mesh,
+    # --dcn-slices, --locality and --collective-timeout
+    # (tests/test_torch_shard_cli.py): only --spmd constraint is refused
     (tmp_path / "native.xml").write_text(PHOLD.replace(
         'path="shadow-plugin-test-phold"', 'path="libphold.so"'))
     t = run_cli("torch", tmp_path, REFUSED[name])
     assert t["rc"] == 2 and t["summary"] is None
-    assert f"ROADMAP.md Queue 1 item {REFUSED_ITEM[name]}" in t["err"]
+    assert re.search(rf"ROADMAP\.md Queue 1 item {REFUSED_ITEM[name]}\b",
+                     t["err"])
 
 
 def test_no_card_no_fallback_and_build_info(capsys):

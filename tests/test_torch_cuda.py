@@ -799,3 +799,81 @@ def test_retry_on_cuda_resumes_to_the_uninterrupted_state(tmp_path,
     assert "resumed from r.ckpt.npz at sim time 1.000s" in logs["retry"]
     assert chip_smoke.checkpoint_digest(tmp_path / "retry" / "r.ckpt.npz") \
         == chip_smoke.checkpoint_digest(tmp_path / "straight" / "r.ckpt.npz")
+
+
+# -- sharding (parallel.mesh): ranks on the card -----------------------------
+SHARD_TEXT = chip_smoke.tgen_config(16).replace(
+    f'stoptime="{chip_smoke.TGEN_STOP_S}"', 'stoptime="6"')
+SHARD_KW = dict(seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
+                capacity=chip_smoke.TGEN_CAPACITY)
+MESH_SHAPED = ("xchg.bucket.time", "xchg.bucket.dst", "xchg.bucket.src",
+               "xchg.bucket.seq", "xchg.bucket.kind", "xchg.bucket.args",
+               "xchg.sent_min", "stats.n_inner_steps",
+               "stats.n_xchg_rounds", "stats.n_cross_shard")
+
+
+def _spawn(fn, n, backend, device, *args):
+    from shadow_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.spawn(fn, n, backend=backend, device=device, args=args)
+
+
+def _equal(a: dict, b: dict, skip=()):
+    assert {k for k in a if k not in skip} == {k for k in b if k not in skip}
+    for key in a:
+        if key not in skip:
+            assert a[key].dtype == b[key].dtype, key
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+def test_two_ranks_on_one_card_over_gloo_match_cpu():
+    """Two ranks sharing the card (gloo, host-staged collectives) end in
+    the CPU's two-rank state, leaf for leaf; every pair crosses shards."""
+    import torch_shard_harness as harness
+
+    _need_card()
+    got = {dev: _spawn(harness.sim_rank, 2, "gloo", dev, 2, SHARD_TEXT,
+                       SHARD_KW, (), 1, 4 * chip_smoke.SECOND, dev)[0]
+           for dev in ("cuda", "cpu")}
+    _equal(got["cuda"], got["cpu"])
+    assert got["cpu"]["stats.n_cross_shard"] > 0
+
+
+def test_mesh1_over_nccl_matches_unsharded():
+    """One rank over NCCL equals the unsharded run on the card outside
+    the mesh-shaped leaves."""
+    import torch_shard_harness as harness
+    from shadow_tpu_torch import config, sim
+
+    _need_card()
+    stop = 4 * chip_smoke.SECOND
+    mesh1 = _spawn(harness.sim_rank, 1, "nccl", "cuda", 1, SHARD_TEXT,
+                   SHARD_KW, (), 1, stop, "cuda")[0]
+    s = sim.build_simulation(config.parse_config(SHARD_TEXT), device="cuda",
+                             **SHARD_KW)
+    plain = convert.engine_state_to_numpy(s.run(stop))
+    _equal(mesh1, plain, skip=MESH_SHAPED)
+    assert mesh1["xchg.sent_min"].shape == (1,)
+
+
+def test_shard_set_written_on_card_resumes_on_cpu(tmp_path):
+    """A shard set written by two ranks on the card resumes unsharded on
+    the CPU to the state of an unsharded CPU run with the same stops."""
+    import torch_shard_harness as harness
+    from shadow_tpu_torch import config, sim
+    from shadow_tpu_torch.utils import checkpoint
+
+    _need_card()
+    t1, t2 = 4 * chip_smoke.SECOND, 5 * chip_smoke.SECOND
+    path = str(tmp_path / "set.ckpt.npz")
+    _spawn(harness.resume_rank, 2, "gloo", "cuda", 2, SHARD_TEXT, SHARD_KW,
+           None, (t1,), (path, True), -1, "cuda")
+    found, _, skipped = checkpoint.find_resume_checkpoint(path)
+    assert len(found) == 2 and not skipped
+    s = sim.build_simulation(config.parse_config(SHARD_TEXT), device="cpu",
+                             **SHARD_KW)
+    st, _ = checkpoint.load_shard_set(found, s.state0)
+    resumed = convert.engine_state_to_numpy(s.run(t2, state=st))
+    straight = convert.engine_state_to_numpy(
+        s.run(t2, state=s.run(t1)))
+    _equal(resumed, straight, skip=MESH_SHAPED)

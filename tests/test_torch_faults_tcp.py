@@ -169,8 +169,9 @@ def test_tgen_faults_bench_shape_parity_and_pin():
     ts = tsim.build_simulation(tconfig.parse_config(text), device="cpu",
                                **kw)
     ts.strict_overflow = js.strict_overflow = False
-    lj = jax_leaves(js.run())
-    lt = convert.engine_state_to_numpy(ts.run())
+    stop = chip_smoke.FAULTS_STOP_S * SECOND
+    lj = jax_leaves(js.run(stop))
+    lt = convert.engine_state_to_numpy(ts.run(stop))
     assert_leaves_equal(lj, lt)
     pin = chip_smoke.tgen_faults_pin(lj)
     assert pin == chip_smoke.PIN_TGEN_FAULTS

@@ -4,7 +4,9 @@
   interpreter puts neither `jax` nor `shadow_tpu` in sys.modules;
 - no source file of the package, nor chip_smoke.py, imports them;
 - the entry points default to CUDA and, with no card, raise instead of
-  running on the CPU.
+  running on the CPU; so do a mesh's ranks, whose backend is chosen and
+  never tried (a rank started by `parallel.mesh.spawn` imports no JAX
+  either).
 """
 
 import ast
@@ -59,6 +61,8 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.tools.convert_config\n"
         "import shadow_tpu_torch.tools.generate_config\n"
         "import shadow_tpu_torch.tools.generate_topology\n"
+        "import shadow_tpu_torch.parallel.mesh\n"
+        "import shadow_tpu_torch.parallel.partition\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -86,6 +90,17 @@ def test_no_jax_imports_in_source(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: {name}"
 
 
+def test_spawned_ranks_import_no_jax():
+    """A rank started by `parallel.mesh.spawn` (a fresh interpreter)
+    imports the sharded port and the JAX-free harness, and no JAX."""
+    from shadow_tpu_torch.parallel import mesh as pmesh
+    import torch_shard_harness as harness
+
+    bad = pmesh.spawn(harness.modules_rank, 2, backend="gloo",
+                      device="cpu", args=(FORBIDDEN,))
+    assert bad == []
+
+
 def test_default_device_is_cuda_without_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
@@ -103,6 +118,16 @@ def test_default_device_is_cuda_without_fallback():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--test", "--stoptime", "1"])
+    # a mesh too: its ranks run on CUDA unless told the CPU, and the
+    # backend is chosen, never tried: NCCL is refused for CPU ranks
+    from shadow_tpu_torch.parallel import mesh as pmesh
+
+    assert pmesh.default_backend("cuda") == "nccl"
+    assert pmesh.default_backend("cpu") == "gloo"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pmesh.rank_device(0, None, "nccl")
+    with pytest.raises(ValueError, match="NCCL runs CUDA ranks only"):
+        pmesh.spawn(print, 1, backend="nccl", device="cpu")
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

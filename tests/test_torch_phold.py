@@ -162,9 +162,14 @@ def test_state_summary_matches_reference():
 
 
 def test_unported_knobs_raise():
-    for knob in (dict(n_shards=2), dict(axis_name="x")):
-        with pytest.raises(NotImplementedError):
-            tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, **knob)
+    # sharding is ported (tests/test_torch_shard.py): a shard count needs
+    # an axis, and a sharded engine needs a mesh to run its collectives on
+    with pytest.raises(ValueError, match="axis_name"):
+        tengine.EngineConfig(n_hosts=4, capacity=8, lookahead=1, n_shards=2)
+    with pytest.raises(RuntimeError, match="needs a mesh"):
+        tengine.Engine(tengine.EngineConfig(n_hosts=4, capacity=8,
+                                            lookahead=1, axis_name="x"),
+                       [None], tengine.ConstantNetwork(1), device="cpu")
     # tracing and the stats plane are ported (tests/test_torch_trace.py,
     # tests/test_torch_stats.py); their knobs are range-checked as in the
     # reference

@@ -12,7 +12,8 @@
   reference compile);
 - the slow pins: chip_smoke.py's PHOLD-net runs at 4096 hosts (the main
   run and both variants) in both packages, against its constants;
-- the knobs the port does not have (sharding) raise NotImplementedError.
+- the knob the port does not have (`spmd="constraint"`) raises
+  NotImplementedError.
 
 Every comparison is exact, dtypes included.
 """
@@ -249,9 +250,14 @@ def test_step_window_and_state_carry(sim_dir):
 
 def test_unported_knobs_raise():
     cfg = tconfig.parse_config(texamples.phold_example(8, 1, 2))
-    for kw in (dict(mesh=object()), dict(locality=True),
-               dict(host_order=[0])):
-        with pytest.raises(NotImplementedError):
+    # sharding is ported (tests/test_torch_shard.py): the global engine
+    # partitioned by the compiler is not, and the sharding knobs are
+    # checked as the reference checks them
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        tsim.build_simulation(cfg, device="cpu", spmd="constraint")
+    for kw, err in ((dict(locality=True), "requires a multi-device mesh"),
+                    (dict(host_order=[0]), "permutation")):
+        with pytest.raises(ValueError, match=err):
             tsim.build_simulation(cfg, device="cpu", **kw)
     # overflow="grow" is ported (the CLI re-templates it,
     # tests/test_torch_cli.py): a spill ring and a grow-mode controller
