@@ -30,8 +30,10 @@ view back into one rank's shard, for resumes.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import datetime
+import functools
 import os
 import pickle
 import shutil
@@ -335,6 +337,10 @@ def spawn(fn: Callable, n: int, *, backend: str | None = None,
         raise ValueError("NCCL runs CUDA ranks only; use gloo on the CPU")
     timeout_s = float(timeout_s or GROUP_TIMEOUT_S)
     tmp = tempfile.mkdtemp(prefix="shadow_tpu_torch_mesh_")
+    # the store's directory goes on every way out: the `finally` below,
+    # or the interpreter's exit if this process ends before it runs
+    cleanup = functools.partial(shutil.rmtree, tmp, ignore_errors=True)
+    atexit.register(cleanup)
     store, result = os.path.join(tmp, "store"), os.path.join(tmp, "result")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_entry, args=(
@@ -375,7 +381,8 @@ def spawn(fn: Callable, n: int, *, backend: str | None = None,
             return pickle.load(f)
     finally:
         sys.path[:] = saved
-        shutil.rmtree(tmp, ignore_errors=True)
+        cleanup()
+        atexit.unregister(cleanup)
 
 
 # -- the global view ---------------------------------------------------------

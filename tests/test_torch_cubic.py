@@ -313,16 +313,17 @@ TGEN_KW = dict(seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
 
 
 def test_tgen_faults_cubic_at_32_pairs_matches_reference():
-    """Phase 17(c)'s config at 32 pairs: the faults put CUBIC into
-    congestion avoidance with a loss epoch, so the cube root runs on
-    nonzero inputs."""
+    """Phase 17(c)'s config at 32 pairs to 6 s: by then the faults (from
+    4 s) have put CUBIC into congestion avoidance with a loss epoch, so
+    the cube root runs on nonzero inputs."""
     text = chip_smoke.tgen_faults_config(32)
+    stop = 6 * chip_smoke.SECOND
     js = jsim.build_simulation(jconfig.parse_config(text), **TGEN_KW)
-    lj = jax_leaves(js.run())
+    lj = jax_leaves(js.run(stop))
     ts = tsim.build_simulation(tconfig.parse_config(text), device="cpu",
                                **TGEN_KW)
     assert ts.stack.tcp.cc is ttcp.CubicCC
-    lt = convert.engine_state_to_numpy(ts.run())
+    lt = convert.engine_state_to_numpy(ts.run(stop))
     assert_leaves_equal(lj, lt)
     assert lt["hosts.net.tcb.n_retx"].sum() > 0
     assert (lt["hosts.net.tcb.cc_wmax"] > lt["hosts.net.tcb.cwnd"]).any()

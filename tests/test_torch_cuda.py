@@ -813,9 +813,12 @@ MESH_SHAPED = ("xchg.bucket.time", "xchg.bucket.dst", "xchg.bucket.src",
 
 
 def _spawn(fn, n, backend, device, *args):
+    import torch_shard_harness as harness
+
     from shadow_tpu_torch.parallel import mesh as pmesh
 
-    return pmesh.spawn(fn, n, backend=backend, device=device, args=args)
+    return pmesh.spawn(fn, n, backend=backend, device=device, args=args,
+                       timeout_s=harness.SPAWN_TIMEOUT_S)
 
 
 def _equal(a: dict, b: dict, skip=()):

@@ -76,12 +76,14 @@ def runs(tmp_path_factory):
     end = jax_leaves(sim.run(END, state=sim.run(LATE, state=mid)))
     port4 = pmesh.spawn(harness.resume_rank, 4, backend="gloo",
                         device="cpu",
-                        args=(4, CHURN, BUILD, None, (MID, LATE, END)))
+                        args=(4, CHURN, BUILD, None, (MID, LATE, END)),
+                        timeout_s=harness.SPAWN_TIMEOUT_S)
     tpath = str(tmp / "torch.ckpt.npz")
     port2 = pmesh.spawn(harness.resume_rank, 2, backend="gloo",
                         device="cpu",
                         args=(2, CHURN, BUILD, jpath, (LATE, END),
-                              (tpath, False), 0))
+                              (tpath, False), 0),
+                        timeout_s=harness.SPAWN_TIMEOUT_S)
     got, _ = jckpt.load_checkpoint(tpath, sim.state0, reshard=True)
     # on state0's shardings, so that the run reuses its compiled program
     got = jax.device_put(got, jax.tree.map(lambda x: x.sharding,

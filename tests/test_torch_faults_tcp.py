@@ -104,16 +104,18 @@ TGEN_KW = dict(seed=chip_smoke.TGEN_SEED, n_sockets=chip_smoke.TGEN_SOCKETS,
 
 
 def test_phase16_schedule_at_32_pairs_matches_reference():
-    """Every overlay fires: fault drops, quarantined events, a restart,
-    retransmits, and streams that finish after the partition heals."""
+    """Every overlay fires by 7.5 s: fault drops, quarantined events, a
+    restart, retransmits, and streams that finish after the partition
+    heals (7 s)."""
     text = chip_smoke.tgen_faults_config(32)
+    stop = int(7.5 * SECOND)
     js = jsim.build_simulation(jconfig.parse_config(text), **TGEN_KW)
-    lj = jax_leaves(js.run())
+    lj = jax_leaves(js.run(stop))
     out = {}
     for frontier in (0, chip_smoke.TGEN_FRONTIER):
         ts = tsim.build_simulation(tconfig.parse_config(text), device="cpu",
                                    frontier=frontier, **TGEN_KW)
-        out[frontier] = convert.engine_state_to_numpy(ts.run())
+        out[frontier] = convert.engine_state_to_numpy(ts.run(stop))
     lt = out[0]
     assert_leaves_equal(lj, lt)
     f = ts.faults

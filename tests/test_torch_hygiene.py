@@ -97,7 +97,8 @@ def test_spawned_ranks_import_no_jax():
     import torch_shard_harness as harness
 
     bad = pmesh.spawn(harness.modules_rank, 2, backend="gloo",
-                      device="cpu", args=(FORBIDDEN,))
+                      device="cpu", args=(FORBIDDEN,),
+                      timeout_s=harness.SPAWN_TIMEOUT_S)
     assert bad == []
 
 
@@ -126,8 +127,11 @@ def test_default_device_is_cuda_without_fallback():
     assert pmesh.default_backend("cpu") == "gloo"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pmesh.rank_device(0, None, "nccl")
+    import torch_shard_harness as harness
+
     with pytest.raises(ValueError, match="NCCL runs CUDA ranks only"):
-        pmesh.spawn(print, 1, backend="nccl", device="cpu")
+        pmesh.spawn(print, 1, backend="nccl", device="cpu",
+                    timeout_s=harness.SPAWN_TIMEOUT_S)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -65,7 +65,8 @@ def test_edges_and_apply_order_match_reference():
 @functools.lru_cache(maxsize=None)
 def torch_run(locality: bool):
     return pmesh.spawn(harness.sim_rank, 4, backend="gloo", device="cpu",
-                       args=(4, CFG, dict(BUILD, locality=locality)))
+                       args=(4, CFG, dict(BUILD, locality=locality)),
+                       timeout_s=harness.SPAWN_TIMEOUT_S)
 
 
 def test_tgen_frontier_matches_reference_at_4_shards():

@@ -42,7 +42,8 @@ def run(n, ckpt, stops, save=None, save_at=-1):
     if n == 0:
         return harness.resume_rank(*args)
     return pmesh.spawn(harness.resume_rank, n, backend="gloo",
-                       device="cpu", args=args)
+                       device="cpu", args=args,
+                       timeout_s=harness.SPAWN_TIMEOUT_S)
 
 
 @pytest.fixture(scope="module")
@@ -96,7 +97,8 @@ def test_shard_set_all_or_none(chain, tmp_path):
 def test_inflight_exchange_refused_at_another_mesh(tmp_path):
     path = str(tmp_path / "inflight.ckpt.npz")
     n = pmesh.spawn(harness.inflight_rank, 2, backend="gloo", device="cpu",
-                    args=(CFG, BUILD, path))
+                    args=(CFG, BUILD, path),
+                    timeout_s=harness.SPAWN_TIMEOUT_S)
     assert n >= 1 and not tckpt.read_header_info(path)["xchg_empty"]
     sim1 = tsim.build_simulation(tconfig.parse_config(CFG), device="cpu",
                                  **BUILD)
@@ -109,7 +111,8 @@ def test_inflight_exchange_refused_at_another_mesh(tmp_path):
 
 def test_mesh_refusals():
     msgs = pmesh.spawn(harness.refusals_rank, 2, backend="gloo",
-                       device="cpu", args=(CFG,))
+                       device="cpu", args=(CFG,),
+                       timeout_s=harness.SPAWN_TIMEOUT_S)
     assert len(msgs) == 6
     assert "--overflow spill is not supported on sharded meshes" in msgs[0]
     assert "--overflow grow" in msgs[1]

@@ -53,7 +53,8 @@ def torch_sharded(n_shards: int, batched: bool, dcn_slices: int = 1):
     return pmesh.spawn(harness.phold_rank, n_shards, backend="gloo",
                        device="cpu", args=(n_shards, PER, STOP,
                                            dict(KW, batched=batched),
-                                           dcn_slices))
+                                           dcn_slices),
+                       timeout_s=harness.SPAWN_TIMEOUT_S)
 
 
 @pytest.mark.parametrize("n_shards", [2, 4])
@@ -82,7 +83,8 @@ def test_step_window_matches_reference():
     i, _, step = jmesh.build_sharded(eng, init, jmesh.make_mesh(n), PER)
     stops = (SECOND, SECOND, 3 * SECOND // 2)
     got = pmesh.spawn(harness.phold_steps_rank, n, backend="gloo",
-                      device="cpu", args=(n, PER, stops, KW))
+                      device="cpu", args=(n, PER, stops, KW),
+                      timeout_s=harness.SPAWN_TIMEOUT_S)
     st = i()
     for stop, lt in zip(stops, got):
         st = step(st, jnp.int64(stop))
@@ -99,15 +101,18 @@ def test_rank_shard_and_roundtrip():
         np.testing.assert_array_equal(mine[k], local0[k], err_msg=k)
         assert mine[k].dtype == local0[k].dtype, k
     assert pmesh.spawn(harness.roundtrip_rank, 2, backend="gloo",
-                       device="cpu", args=(2, PER, SECOND))
+                       device="cpu", args=(2, PER, SECOND),
+                       timeout_s=harness.SPAWN_TIMEOUT_S)
 
 
 def test_launcher_and_mesh_refusals():
     with pytest.raises(pmesh.SpawnError) as e:
-        pmesh.spawn(harness.failing_rank, 2, backend="gloo", device="cpu")
+        pmesh.spawn(harness.failing_rank, 2, backend="gloo", device="cpu",
+                    timeout_s=harness.SPAWN_TIMEOUT_S)
     assert e.value.exit_codes == [1, 1]
     with pytest.raises(ValueError, match="NCCL"):
-        pmesh.spawn(harness.failing_rank, 1, backend="nccl", device="cpu")
+        pmesh.spawn(harness.failing_rank, 1, backend="nccl", device="cpu",
+                    timeout_s=harness.SPAWN_TIMEOUT_S)
     with pytest.raises(RuntimeError, match="process group"):
         pmesh.make_mesh(1, device="cpu")
     assert pmesh.select_spmd("auto") == "shard_map"

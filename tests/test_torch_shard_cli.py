@@ -16,6 +16,7 @@
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -40,9 +41,12 @@ CHILD = ("import sys, torch; sys.path.insert(0, {root!r}); "
 
 def port_cli(workdir: Path, argv: list, env=None) -> dict:
     """The port's `cli.main(argv, device="cpu")` in a subprocess (its
-    ranks print to the process's own stdout)."""
+    ranks print to the process's own stdout). The subprocess and the
+    ranks it spawns run one torch thread each (OMP_NUM_THREADS), beside
+    the other test workers."""
     workdir.mkdir(parents=True, exist_ok=True)
     (workdir / "phold.xml").write_text(PHOLD)
+    env = dict(os.environ if env is None else env, OMP_NUM_THREADS="1")
     p = subprocess.run([sys.executable, "-c", CHILD.format(root=str(ROOT))]
                        + argv, cwd=workdir, capture_output=True, text=True,
                        env=env, timeout=300)
@@ -96,7 +100,8 @@ def test_lost_peer_exits_77_with_bundle(tmp_path):
     argv = MESH2 + ["--collective-timeout", "3", "--diag-dir", "diag"]
     with in_dir(tmp_path), pytest.raises(pmesh.SpawnError) as e:
         pmesh.spawn(harness.cli_rank, 2, backend="gloo", device="cpu",
-                    args=(argv, 1, "run.ckpt.npz"))
+                    args=(argv, 1, "run.ckpt.npz"),
+                    timeout_s=harness.SPAWN_TIMEOUT_S)
     assert e.value.exit_codes == [77, -9]
     (bundle,) = (tmp_path / "diag").glob("*.peerlost.*.json")
     b = json.loads(bundle.read_text())

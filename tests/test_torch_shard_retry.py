@@ -33,6 +33,8 @@ def _leaves(path) -> dict:
 def test_retry_relaunches_at_the_halved_mesh(tmp_path, monkeypatch):
     (tmp_path / "phold.xml").write_text(PHOLD)
     monkeypatch.setenv("SHADOW_TPU_CHAOS_HANG_S", "8")
+    # the children and their ranks run one torch thread each
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     monkeypatch.setattr(tsup, "run_with_retry", functools.partial(
         tsup.run_with_retry, _popen=child_popen("cpu"),
         _sleep=lambda s: None))

@@ -40,6 +40,7 @@ def test_step_window_and_dispatch_match_reference():
             st = sim.dispatch(stop, st, window_ns=width)
     lj = jax_leaves(st)
     lt, *_ = pmesh.spawn(harness.sim_rank, n_shards, backend="gloo",
-                         device="cpu", args=(n_shards, CFG, BUILD, STEPS))
+                         device="cpu", args=(n_shards, CFG, BUILD, STEPS),
+                         timeout_s=harness.SPAWN_TIMEOUT_S)
     assert_leaves_equal(lj, lt)
     assert lt["stats.n_windows"] == 4 and lt["stats.n_cross_shard"] > 0

@@ -2,12 +2,11 @@
 shadow_tpu, leaf for leaf.
 
 {loopback, lossless, lossy} x {reno, aimd} (CUBIC's cells are in
-tests/test_torch_cubic.py),
-then the fidelity features: delayed ACK against none, receive-window
-autotuning on a high-BDP path, SACK under loss, and in-order delivery
-under loss. The reference side is tests/test_tcp_matrix.py's `build`
-itself; the port side is the same harness over [H] rows
-(tests/torch_tcp_harness.py's `build_stream`).
+tests/test_torch_cubic.py; the fidelity features, delayed ACK, receive-
+window autotuning, SACK and in-order delivery, in
+tests/test_torch_tcp_fidelity.py). The reference side is
+tests/test_tcp_matrix.py's `build` itself; the port side is the same
+harness over [H] rows (tests/torch_tcp_harness.py's `build_stream`).
 
 Every comparison is exact, dtypes included.
 """
@@ -21,7 +20,7 @@ from shadow_tpu_torch import convert
 from shadow_tpu_torch.transport import tcp as ttcp
 from test_torch_phold import assert_leaves_equal, jax_leaves
 from test_torch_tcp import one_torch_thread  # noqa: F401 (autouse)
-from torch_tcp_harness import MS, SECOND, build_stream
+from torch_tcp_harness import SECOND, build_stream
 
 
 def run_both(stop_s, **kw):
@@ -44,46 +43,3 @@ def test_matrix_cell_matches_reference(path, cc):
     assert retx > 0 if path == "lossy" else retx == 0
     client = lj["hosts.net.tcb.state"][0, 1 if path == "loopback" else 0]
     assert client in (ttcp.CLOSED, ttcp.TIME_WAIT)
-
-
-@pytest.mark.parametrize("delack", [True, False])
-def test_delack_matches_reference(delack):
-    lj = run_both(30, total=200_000, delack=delack, seed=5)
-    assert lj["hosts.app.rx"][1] == 200_000
-    # the receiver sends only ACKs: with delack about half as many
-    assert lj["hosts.net.nic_tx.pkts"][1] < (90 if delack else 200)
-
-
-AUTOTUNE = dict(bw=8192.0, latency=50 * MS, seed=9)
-
-
-def test_autotune_matches_reference():
-    """A high-BDP path (8 MiB/s, 50 ms each way): half a second in, the
-    receiver advertises more than the initial RCV_WND segments."""
-    lj = run_both(0.5, total=600_000, **AUTOTUNE)
-    assert lj["hosts.net.tcb.rwnd"].max() > ttcp.RCV_WND
-    assert 0 < lj["hosts.app.rx"][1] < 600_000
-
-
-@pytest.mark.slow
-def test_autotune_transfer_completes():
-    """3 MB over the autotuned window: done within 1.5 s, where a static
-    64-segment window (~0.9 MB/s at a 100 ms RTT) would need 3 s."""
-    lj = run_both(3, total=3_000_000, **AUTOTUNE)
-    assert lj["hosts.app.rx"][1] == 3_000_000
-    assert lj["hosts.app.last_rx"][1] < 1.5 * SECOND
-
-
-def test_sack_matches_reference():
-    lj = run_both(60, total=120_000, reliability=0.85, seed=5)
-    assert lj["hosts.app.rx"].sum() == 120_000
-    n_segs = -(-120_000 // ttcp.MSS)
-    assert 0 < lj["hosts.net.tcb.n_retx"].sum() < n_segs
-
-
-@pytest.mark.slow  # config-driven runs (tests/test_torch_tgen.py) are in order
-@pytest.mark.parametrize("in_order", [False, True])
-def test_lossy_in_order_matches_reference(in_order):
-    lj = run_both(120, total=80_000, reliability=0.8, in_order=in_order,
-                  seed=21)
-    assert lj["hosts.app.rx"][1] == 80_000

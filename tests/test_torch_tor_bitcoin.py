@@ -15,20 +15,20 @@ shadow_tpu_torch against shadow_tpu, leaf for leaf.
 - a UDP datagram delivered to a host whose stack runs TCP (Bitcoin's
   control plane) reaches the same socket with the same packet, in both
   `fuse_rx` modes;
-- tests/test_tor_bitcoin.py's scenarios end in equal states: Tor with
-  seed 11 and seed 4 (twice), Bitcoin with seed 9 where every node ends
-  at block 3, and the overflow case (strict raises in both packages;
-  counted drops agree);
+- tests/test_tor_bitcoin.py's Tor scenarios end in equal states (seed
+  11, and seed 4 twice), and so does the overflow case (strict raises in
+  both packages; counted drops agree);
 - a JAX Tor state taken after the first client second continues in the
   port to the reference's final state;
-- Bitcoin run to its stop in one call and in 1 s chunks
-  (`Simulation.run(stop, state=...)`), each equal to the reference's run
-  of the same shape: where a run stops is part of the trajectory;
-- the work of one Tor and one Bitcoin inner step, counted as the torch
-  operations that launch a kernel on a device;
-- the slow pins: chip_smoke.py's phases 11 and 12 (Tor at bench.py's
-  1,020-host tier to 4.5 s, Bitcoin at 1,000 nodes to 32 s, each in one
-  call) in both packages, against chip_smoke's constants.
+- the work of one Tor inner step, counted as the torch operations that
+  launch a kernel on a device;
+- the slow pin: chip_smoke.py's phase 11 (Tor at bench.py's 1,020-host
+  tier to 4 s in one call) in both packages, against chip_smoke's
+  constants.
+
+The Bitcoin scenarios (block 3 everywhere, runs in one call and in 1 s
+chunks, one inner step's work, phase 12's pin) are in
+tests/test_torch_bitcoin.py, which shares this file's helpers.
 
 Every comparison is exact, dtypes included.
 """
@@ -415,20 +415,6 @@ def test_tor_seed4_runs_twice_as_reference():
     assert lt["hosts.app.streams_done"][7:9].tolist() == [1, 1]
 
 
-def test_bitcoin_blocks_match_reference():
-    """Every real node ends at block 3, the pad rows at 0; the block
-    bodies crossed the TCP links; non-miners adopt after the miner."""
-    lj, lt, ts = scenario("btc-seed9")
-    assert_leaves_equal(lj, lt)
-    n = len(ts.names)
-    best = lt["hosts.app.best"]
-    assert best[:n].tolist() == [3] * 8 and not best[n:].any()
-    assert lt["hosts.app.dl_rx"][:n].sum() >= 7 * 3 * 256 * 1024
-    t_best = lt["hosts.app.t_best"]
-    assert (t_best[1:n] > t_best[0]).all()
-    assert lt["hosts.net.sockets.rx_bytes"][:n, 0].sum() > 0  # UDP control
-
-
 @pytest.mark.slow
 def test_overflow_is_loud_in_both_packages():
     """Capacity 64: strict overflow raises in both packages; with
@@ -460,40 +446,6 @@ def test_jax_tor_state_continues_in_the_port():
     got = convert.engine_state_to_numpy(ts.run(8 * SECOND, state=carried))
     assert_leaves_equal(want, got)
     assert got["hosts.app.streams_done"].sum() > 0
-
-
-def test_bitcoin_state_round_trips():
-    """BtcApp's leaves, the bool `is_node` among them, go JAX -> numpy ->
-    port -> numpy with their dtypes."""
-    js, ts = built("btc-seed9")
-    lj = jax_leaves(js.state0)
-    st = convert.engine_state_from_numpy(lj, "cpu", hosts=ts.state0.hosts)
-    assert st.hosts.app.is_node.dtype == torch.bool
-    assert_leaves_equal(lj, convert.engine_state_to_numpy(st))
-
-
-# Bitcoin at one block every 5 s, to 20 s: in one call, and in 1 s chunks
-SCENARIOS["btc-chunked"] = (lambda: harness.btc_config(6, 2, "64KiB", 5),
-                            dict(seed=9, n_sockets=16, capacity=512))
-
-
-@pytest.mark.parametrize("chunk_s", [None, 1], ids=["one-call", "1s-chunks"])
-def test_bitcoin_chunked_runs_match_reference(chunk_s):
-    """Where a run stops moves the reference's trajectory (window
-    boundaries land at the stops); the port follows it either way."""
-    js, ts = built("btc-chunked")
-    stop = js.stop_ns
-    if chunk_s is None:
-        lj, lt = jax_leaves(js.run()), convert.engine_state_to_numpy(ts.run())
-    else:
-        sj, st = None, None
-        for k in range(chunk_s, stop // SECOND + 1, chunk_s):
-            sj = js.run(k * SECOND, state=sj)
-            st = ts.run(k * SECOND, state=st)
-        lj, lt = jax_leaves(sj), convert.engine_state_to_numpy(st)
-    assert_leaves_equal(lj, lt)
-    n = len(ts.names)
-    assert lt["hosts.app.best"][:n].tolist() == [2] * n
 
 
 # -- launches per inner step ------------------------------------------------
@@ -528,18 +480,6 @@ def test_tor_launches_per_inner_step():
     assert per_step < TOR_LAUNCHES_PER_STEP
 
 
-def test_bitcoin_launches_per_inner_step():
-    """One Bitcoin inner step (chip_smoke's Bitcoin knobs at 16 nodes)
-    stays under BTC_LAUNCHES_PER_STEP: 250 ms of block traffic after
-    the first block is mined."""
-    steps, per_step, count = launches_per_step(
-        chip_smoke.btc_config(16), chip_smoke.BTC_KW, 31.0, 31.25)
-    print(f"Bitcoin: {steps} inner steps, {per_step:.0f} launching torch "
-          f"operations per step; top: {count.ops.most_common(8)}")
-    assert steps >= 10
-    assert per_step < BTC_LAUNCHES_PER_STEP
-
-
 # -- the slow pins: chip_smoke.py's phases 11 and 12 ------------------------
 @pytest.mark.slow
 def test_tor_parity_and_pins():
@@ -554,14 +494,3 @@ def test_tor_parity_and_pins():
     assert chip_smoke.tor_pin(lj) == chip_smoke.PIN_TOR
 
 
-@pytest.mark.slow
-def test_bitcoin_parity_and_pins():
-    """Bitcoin at bench.py's 1,000 nodes to BTC_STOP_S in one call, in
-    both packages on the CPU: equal leaves and the pins the card is held
-    to."""
-    js, ts = build_both(chip_smoke.btc_config(), **chip_smoke.BTC_KW)
-    stop = chip_smoke.BTC_STOP_S * SECOND
-    lj = jax_leaves(js.run(stop))
-    lt = convert.engine_state_to_numpy(ts.run(stop))
-    assert_leaves_equal(lj, lt)
-    assert chip_smoke.btc_pin(lj, len(ts.names)) == chip_smoke.PIN_BTC

@@ -17,6 +17,12 @@ import torch
 
 from shadow_tpu_torch.parallel import mesh as pmesh
 
+# The collective timeout of every rank group the tests start
+# (`pmesh.spawn(..., timeout_s=SPAWN_TIMEOUT_S)`): a rank stuck in its
+# rendezvous or a collective fails its test within this, plus spawn's
+# grace, instead of holding a test worker for the library default.
+SPAWN_TIMEOUT_S = 120.0
+
 
 def _mesh(n_shards: int, dcn_slices: int = 1, device: str = "cpu"):
     torch.set_num_threads(1)
@@ -132,7 +138,10 @@ def resume_rank(n_shards: int, config_text: str, build_kw: dict,
     from shadow_tpu_torch.sim import build_simulation
     from shadow_tpu_torch.utils import checkpoint as ck
 
-    # n_shards 0: unsharded, in a group of one or in the caller's process
+    # n_shards 0: unsharded, in a group of one or in the caller's process;
+    # a rank runs on one torch thread either way, as `_mesh` sets
+    if torch.distributed.is_initialized():
+        torch.set_num_threads(1)
     m = _mesh(n_shards, device=device) if n_shards else None
     sim = build_simulation(parse_config(config_text), mesh=m,
                            device=None if m else device, **build_kw)
