@@ -54,8 +54,8 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    queue width (hc 128, the hot region, or the full capacity 768); the
    merge kernel held to its plain version on the run's captured inputs
    (at hc = 768 too where the run reaches it) and timed on the last
-   captured input of each width (no profile: phase 15 profiles the
-   same traffic, and the script keeps to its time limit);
+   captured input of each width (no profile: phase 22 profiles a
+   window of the same traffic, and the script keeps to its time limit);
 11. Tor (relay crypto on a virtual CPU, circuits over TCP), built from
    `tor_example` at bench.py's 1,020-host tier by `sim.build_simulation`
    with bench.py's Tor knobs and strict overflow, run once to TOR_STOP_S
@@ -72,9 +72,9 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    adoption time;
 13. several app models in one config (`sim.FusedModel`): TGen at 1,024
    pairs beside 2,048 PHOLD peers (4096 hosts), with bench.py's TCP
-   knobs, run once to MIXED_STOP_S = 4 sim-s: held the same way as 11,
-   and to its TGen streams done, PHOLD messages sent and received and
-   hosts per model; a profile of 1.00-1.25 s;
+   knobs, run once to MIXED_STOP_S = 3 sim-s (cut from 4 for phase 22):
+   held the same way as 11, and to its TGen streams done, PHOLD messages
+   sent and received and hosts per model; a profile of 1.00-1.25 s;
 14. lossless overflow (`runtime.pressure`): bench.py's skew shape
    (PHOLD 4096 x 8 with 64 hot hosts, batched drain) to SKEW_STOP_NS =
    2 sim-s at capacity 256 with drops, with a 1,024-slot spill ring
@@ -88,7 +88,8 @@ Phases, each of which fails the run (exit 1, no result line) on error:
 15. the frontier drain: phase 10's config with frontier = 16, run once:
    held the same way as 11 (inner steps count every position, the
    terminating probes included), and its state less n_inner_steps to
-   phase 10's; a profile of 3-4 s;
+   phase 10's (no profile since phase 22: its solo window profiles the
+   same TGen traffic);
 16. fault injection: phase 10's config under TGEN_FAULTS (server churn
    with crash, restart, quarantine and RSTs; a partition that heals; a
    loss spike; latency inflation; throttled server NICs), run once to
@@ -155,7 +156,19 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    `Engine._xchg_deliver` at the delivery of a full [S, R] bucket (the
    flat [S*R] batch); its ms, collectives and host reads per inner
    step, exchange rounds per sweep and backend printed beside phase
-   19's run of this call.
+   19's run of this call;
+22. scenario fleets: `cli.main` in-process with `--fleet` on phase 19's
+   config in drop mode (FLEET_LANES = 4 lanes of 4,096 hosts, seeds 1-4,
+   lanes 1-3 under FLEET_FAULTS' five fault types, latency scales 1 to 2)
+   to FLEET_STOP_S = 4 sim-s with heartbeats every 2 s, held to
+   PIN_CLI_FLEET (the summary's deterministic fields with the per-lane
+   rows, the sha256 of the [fleet] rows); then the same lanes through
+   `build_fleet` + `Fleet.run`, each lane's digest held to the pin, the
+   merge held to its plain version on the fleet's captured inputs
+   (16,384 rows) and timed, its launches counted per merge round (one
+   for the whole fleet); lane 0's solo run on the same build, whose
+   digest must equal lane 0's; and one window past the stop profiled on
+   each: device launches per inner step, fleet against solo.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -163,7 +176,7 @@ package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines; `--only 17,18` runs phases 1-3 and then only
-the listed phases (9-21), without the result lines.
+the listed phases (9-22), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
@@ -177,7 +190,9 @@ slow` for phase 16, `tests/test_torch_cubic.py -m slow` for phase 17,
 `tests/test_torch_trace.py -m slow` for phase 18,
 `tests/test_torch_cli.py -m slow` for phase 19,
 `tests/test_torch_pcap.py -m slow` for phase 20,
-`tests/test_torch_shard_cli.py -m slow` for phase 21). The merge-input
+`tests/test_torch_shard_cli.py -m slow` for phase 21,
+`tests/test_torch_fleet_cli.py -m slow` for phase 22, lane by lane from
+the reference's solo runs). The merge-input
 generator below is shared with tests/test_torch_merge.py.
 """
 
@@ -360,8 +375,6 @@ PIN_TGEN = (
 PIN_TGEN_BENCH = (
     25_462, 121, 121, 403, 666,
     "6e69cf8dc3908aa4d8db168709ae80f2747e51b9de9216686481cfd9121b66dd")
-# clients start at 3-7 s: phase 15's profile covers their first sim-second
-TGEN_PROFILE_STOP_S = 4
 # the merge call whose input phase 10 times: mid-run, in steady traffic
 TGEN_TIMED_CALL = 61
 
@@ -403,13 +416,15 @@ TGEN_LESS_INNER = (
 # windows, sweeps, inner steps, queue drops, TGen streams done, PHOLD
 # messages sent and received, hosts of model 0 and of model 1, digest).
 MIXED_PAIRS, MIXED_PEERS, MIXED_LOAD = 1024, 2048, 2
-# cut to 4 sim-s (from 5 when phase 19 came), where JAX/CPU counts 491
-# inner steps (652 at 5 s, 825 at 6 s, 1,164 at 8 s); the clients
-# starting at 3 s have run by then, and the PHOLD peers for 3 s
-MIXED_STOP_S = 4
+# cut to 3 sim-s to make room for phase 22 (from 5 when phase 19 came,
+# 4 when phase 20 came), where JAX/CPU counts 322 inner steps (491 at
+# 4 s, 652 at 5 s, 825 at 6 s, 1,164 at 8 s); the PHOLD peers run for
+# 2 s, the TGen servers listen and the clients, which start at 3 s,
+# have not sent yet
+MIXED_STOP_S = 3
 PIN_MIXED = (
-    254_574, 60, 60, 491, 0, 205, 245_760, 241_664, 2_048, 2_048,
-    "c4bc2b79937d5128b34264f78d541cd6977ae9f9e50382607402f4220ceeb42b")
+    164_864, 40, 40, 322, 0, 0, 163_840, 159_744, 2_048, 2_048,
+    "62b98cd430bdcf66c1374339ffdd7b3618422b91a2dd4caf7d962a1348e883b2")
 # PHOLD's messages start at 1 s: the profile covers 1.00-1.25 s
 MIXED_PROFILE_S = (1.0, 1.25)
 MIXED_TIMED_CALL = 45
@@ -840,6 +855,91 @@ def shard_pin_fields(stdout: str, workdir) -> dict:
             "mid_leaf_table_sha256": checkpoint_leaf_table(d / CLI_MID_CKPT),
             "mid_mesh": mesh,
             "final_digest": checkpoint_digest(d / CLI_CKPT)}
+
+
+# Scenario fleets (phase 22): phase 19's TGen config through `cli.main`
+# with --overflow drop and --fleet: FLEET_LANES lanes with seeds
+# TGEN_SEED.., lane 0 fault-free, lanes 1-3 under FLEET_FAULTS (the five
+# fault types of TGEN_FAULTS, moved inside the horizon while the first
+# clients, started at 3 s, run), latency scales FLEET_SCALES, to
+# FLEET_STOP_S with heartbeats every 2 s. Pin from the reference on the
+# CPU (the slow test of tests/test_torch_fleet_cli.py): the summary's
+# deterministic fields with the per-lane rows, the sha256 of the
+# stripped [fleet] rows, and each lane's leaves_digest after a
+# build_fleet + Fleet.run of the same lanes to the stop.
+FLEET_LANES = 4
+FLEET_STOP_S = 4
+FLEET_STOP_NS = FLEET_STOP_S * SECOND
+FLEET_SCALES = "1,1.25,1.5,2"
+FLEET_FAULTS = (
+    "churn hosts=srv* start=3 end=4 period=0.5 downtime=0.2 frac=0.1; "
+    "partition src=cli*0 dst=srv* start=3.2 end=3.6; "
+    "loss src=cli*5 dst=* loss=0.3 start=3.1 end=3.9; "
+    "latency src=cli*5 dst=srv* factor=3 start=3 end=3.9; "
+    "bandwidth hosts=srv*0 factor=0.25 start=3.3 end=3.8")
+# one line per lane of the fault file (a blank line: no faults)
+FLEET_FAULT_LINES = ("",) + (FLEET_FAULTS,) * (FLEET_LANES - 1)
+FLEET_BUILD_KW = dict(seed=TGEN_SEED, n_sockets=TGEN_SOCKETS,
+                      capacity=TGEN_CAPACITY, overflow="drop")
+FLEET_SUMMARY_KEYS = ("fleet_lanes", "hosts", "sim_seconds", "events",
+                      "windows", "queue_drops", "seeds", "lanes")
+PIN_CLI_FLEET = {
+    "summary": {
+        "fleet_lanes": 4, "hosts": 4096, "sim_seconds": 4.0,
+        "events": 34568, "windows": 13, "queue_drops": 0,
+        "seeds": [1, 2, 3, 4],
+        "lanes": [
+            {"executed": 16808, "now_ns": 4000000000, "queue_drops": 0,
+             "sweeps": 13, "windows": 13},
+            {"executed": 6530, "now_ns": 4000000000, "queue_drops": 0,
+             "sweeps": 10, "windows": 10},
+            {"executed": 6055, "now_ns": 4000000000, "queue_drops": 0,
+             "sweeps": 9, "windows": 9},
+            {"executed": 5175, "now_ns": 4000000000, "queue_drops": 0,
+             "sweeps": 7, "windows": 7}]},
+    "rows_sha256": (
+        "58ff6dde623b976d5a87f32dbc64fecd"
+        "5b798bd3f348d85a4ad6da7fddc61aef"),
+    "lane_digests": [
+        "ba85cda84cba4008bc15eb2efb0786f5efbfa95e95b3cbdef2bf4bcc816246b1",
+        "4bc957a14dfc6ba3cdee74abfd0bdb8a530a41f2e17ce297a9fa6299ee5e06f8",
+        "df118f0053ae044fe8294a78728cb1172b302c605dcfc8f4529fbdd926d59657",
+        "f89e956cfb8647e5e9717b72ad90334aecce124c2f759a825a70853e00d78c86",
+    ]}
+
+
+def fleet_spec(fault_file) -> str:
+    """The --fleet SPEC of phase 22."""
+    return (f"lanes={FLEET_LANES} seed={TGEN_SEED}:{TGEN_SEED + FLEET_LANES}"
+            f" fault-file={fault_file} latency-scale={FLEET_SCALES}")
+
+
+def fleet_argv(fault_file) -> list[str]:
+    """Phase 22's command line, with the fault file at `fault_file`."""
+    return ["tgen.xml", "--seed", str(TGEN_SEED), "--sockets",
+            str(TGEN_SOCKETS), "--capacity", str(TGEN_CAPACITY),
+            "--stoptime", str(FLEET_STOP_S), "--heartbeat-frequency", "2",
+            "--overflow", "drop", "--fleet", fleet_spec(fault_file)]
+
+
+def fleet_plan(fault_file, cli_mod) -> dict:
+    """Phase 22's per-lane overrides as `cli_mod` (either package's CLI)
+    parses the --fleet SPEC: build_fleet's keywords."""
+    spec = cli_mod._parse_fleet_spec(fleet_spec(fault_file), TGEN_SEED)
+    spec.pop("lanes")
+    return spec
+
+
+def fleet_pin_fields(stdout: str) -> dict:
+    """A phase-22 run's pin fields from its stdout (either package's
+    CLI): the summary's deterministic fields and the sha256 of the
+    [fleet] header and rows."""
+    lines = stdout.splitlines()
+    summary = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    rows = "".join(ln + "\n" for ln in lines
+                   if ln.startswith("[shadow-heartbeat] [fleet"))
+    return {"summary": {k: summary[k] for k in FLEET_SUMMARY_KEYS},
+            "rows_sha256": hashlib.sha256(rows.encode()).hexdigest()}
 
 
 def tgen_faults_config(n_pairs: int) -> str:
@@ -1921,8 +2021,7 @@ def app_phases() -> dict:
                   MIXED_PROFILE_S, lambda lv, n: mixed_pin(lv), PIN_MIXED),
         "tgen_frontier": (tgen_config(TGEN_PAIRS),
                           dict(tgen_kw, frontier=TGEN_FRONTIER),
-                          TGEN_STOP_S, TGEN_TIMED_CALL,
-                          (3.0, float(TGEN_PROFILE_STOP_S)),
+                          TGEN_STOP_S, TGEN_TIMED_CALL, None,
                           lambda lv, n: tgen_frontier_pin(lv),
                           PIN_TGEN_FRONTIER),
         "tgen_faults": (tgen_faults_config(TGEN_PAIRS), tgen_kw,
@@ -2303,6 +2402,158 @@ def phase_cli(merge, smi_line, tgen_wall_s=None) -> dict:
     return {"runs": runs, "phase_s": phase_s}
 
 
+def profile_window(step, st, inner_steps):
+    """Device kernels of one `step(st)` (one window) on the card per
+    inner-step iteration, `inner_steps(before, after)` counting the
+    iterations: (kernels per iteration, iterations, final state)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = step(st)
+        torch.cuda.synchronize()
+    n = inner_steps(st, out)
+    return len(device_kernels(prof)) / max(n, 1), n, out
+
+
+def phase_fleet(sim_mod, config_mod, merge, events, convert, dev, smi_line,
+                cli_phase=None) -> dict:
+    """Scenario fleets: (a) `cli.main` in-process with --fleet on phase
+    19's config (FLEET_LANES lanes, per-lane seeds, faults and latency
+    scales) to FLEET_STOP_S, its stdout held to PIN_CLI_FLEET's summary
+    fields and [fleet] rows; (b) the same lanes through `build_fleet` +
+    `Fleet.run` to the stop, each lane's digest held to the pin, the
+    merge held to its plain version on the fleet's captured inputs (L x
+    H rows) and its launches counted per merge round; (c) lane 0's solo
+    run on the same build, whose digest must equal lane 0's; then one
+    window of each profiled from the final states: device launches per
+    inner step, fleet against solo."""
+    import contextlib
+    import io
+    import os
+    from pathlib import Path
+
+    import torch
+
+    from shadow_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    pin = PIN_CLI_FLEET or {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        (d / "tgen.xml").write_text(tgen_config(TGEN_PAIRS))
+        (d / "faults.txt").write_text("\n".join(FLEET_FAULT_LINES) + "\n")
+        out, cwd, last = io.StringIO(), os.getcwd(), {}
+        torch.cuda.synchronize()
+        merge.launches = 0
+        t0 = time.perf_counter()
+        os.chdir(d)
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(fleet_argv("faults.txt"), run_info=last)
+        finally:
+            os.chdir(cwd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cli_launches = merge.launches
+        plan = fleet_plan(d / "faults.txt", cli)
+    check(rc == 0, f"fleet cli: exit code {rc}")
+    check(cli_launches > 0, "fleet cli: no merge launch")
+    got = fleet_pin_fields(out.getvalue())
+    for key in ("summary", "rows_sha256"):
+        check(got[key] == pin.get(key),
+              f"fleet cli: {key} {got[key]} != JAX/CPU {pin.get(key)}")
+    lanes = got["summary"]["lanes"]
+    check(all(lanes[k] != lanes[0] for k in range(1, FLEET_LANES)),
+          "fleet cli: a faulted lane equals the fault-free lane")
+    cli_run = {
+        "wall_s": wall, "launches": cli_launches,
+        "loop_s": last["loop_s"], "segments": last["segments"],
+        "harvest_reads_per_segment":
+            last["harvest_reads"] / last["segments"],
+        "host_syncs": last["host_syncs"],
+        "events": got["summary"]["events"],
+        "scenarios_per_s": FLEET_LANES / last["loop_s"],
+    }
+    print(f"  fleet cli: {json.dumps(cli_run)} ({smi_line})")
+
+    # (b) the lanes in one Fleet.run, (c) lane 0 alone, on one build
+    sim = sim_mod.build_simulation(
+        config_mod.parse_config(tgen_config(TGEN_PAIRS)), device=dev,
+        **FLEET_BUILD_KW)
+    fleet = sim.build_fleet(FLEET_LANES, **plan)
+    runs = {}
+    rounds = {}
+    states = {}
+    for label in ("fleet", "solo"):
+        rec = MergeRecorder(merge, events, TGEN_TIMED_CALL)
+        eng = fleet.engine if label == "fleet" else sim.engine
+        syncs0 = eng.host_syncs
+        torch.cuda.synchronize()
+        merge.launches = 0
+        t0 = time.perf_counter()
+        with rec:
+            st = (fleet.run(FLEET_STOP_NS) if label == "fleet"
+                  else sim.run(FLEET_STOP_NS))
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, merge_rounds = merge.launches, sum(rec.by_hc.values())
+        steps = st.stats.n_inner_steps.max().item()
+        runs[label] = {"wall_s": wall, "launches": launches,
+                       "merge_rounds": merge_rounds,
+                       "launches_per_round": launches / max(merge_rounds, 1),
+                       "inner_steps": steps,
+                       "ms_per_inner_step": 1e3 * wall / max(steps, 1),
+                       "host_syncs": eng.host_syncs - syncs0,
+                       "launches_by_hc": dict(sorted(rec.by_hc.items()))}
+        check(launches == merge_rounds > 0,
+              f"fleet {label}: {launches} merge launches for "
+              f"{merge_rounds} merge rounds")
+        if label == "fleet":
+            timing = check_and_time_captured(merge, dev, rec, smi_line,
+                                             "fleet", TGEN_CAPACITY)
+        rounds[label] = rec
+        states[label] = st
+    leaves = convert.fleet_state_to_numpy(states["fleet"])
+    digests = [convert.leaves_digest(convert.lane_of(leaves, i))
+               for i in range(FLEET_LANES)]
+    check(digests == pin.get("lane_digests"),
+          f"fleet: lane digests {digests} != JAX/CPU "
+          f"{pin.get('lane_digests')}")
+    solo = convert.leaves_digest(convert.engine_state_to_numpy(
+        states["solo"]))
+    check(solo == digests[0],
+          f"fleet: lane 0 {digests[0]} != its solo run {solo}")
+    del leaves
+    # one window past the stop, profiled: device launches per inner-step
+    # iteration (the fleet's runs while any lane has a step to run)
+    step_ns = FLEET_STOP_NS + 100 * 1_000_000
+    per_step = {}
+    for label, step in (("fleet", lambda s: fleet.step_window(s, step_ns)),
+                        ("solo", lambda s: sim.step_window(s, step_ns))):
+        per_step[label] = profile_window(
+            step, states[label],
+            lambda a, b: int((b.stats.n_inner_steps
+                              - a.stats.n_inner_steps).max()))[:2]
+    result = {
+        "cli": cli_run, "runs": runs, "timing": timing,
+        "device_launches_per_inner_step": {
+            k: v[0] for k, v in per_step.items()},
+        "profiled_inner_steps": {k: v[1] for k, v in per_step.items()},
+        "fleet_vs_solo_ms_per_inner_step":
+            runs["fleet"]["ms_per_inner_step"]
+            / runs["solo"]["ms_per_inner_step"],
+        "phase19_ms_per_inner_step":
+            (cli_phase or {}).get("runs", {}).get("run", {}).get(
+                "ms_per_inner_step"),
+        "lane_digests_equal_pin": True, "lane0_equals_solo": True,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print(json.dumps({"fleet": result, "card": smi_line}))
+    return result
+
+
 def phase_pcap(merge, smi_line, tgen=None) -> dict:
     """`cli.main` in-process on phase 20's capturing config (PCAP_ARGV),
     its stdout and stderr captured, the merge launches counted from zero
@@ -2588,13 +2839,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (9-21) to run after "
+                    help="comma-separated phases (9-22) to run after "
                          "phases 1-3, skipping the others; prints no "
                          "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= set(range(9, 22)):
-        ap.error("--only takes phases 9 to 21")
+    if not only <= set(range(9, 23)):
+        ap.error("--only takes phases 9 to 22")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2659,6 +2910,9 @@ def main(argv=None) -> int:
                     phase_pcap(merge, smi_line)
                 elif p == 21:
                     phase_shard(merge, events, dev, smi_line)
+                elif p == 22:
+                    phase_fleet(sim, config, merge, events, convert, dev,
+                                smi_line)
                 else:
                     phase_app({11: "tor", 12: "btc", 13: "mixed",
                                15: "tgen_frontier", 16: "tgen_faults"}[p],
@@ -2819,6 +3073,13 @@ def main(argv=None) -> int:
     shard_phase = phase_shard(merge, events, dev, smi_line, cli_phase)
     deliver = shard_phase["deliver"]
 
+    phase(f"22. scenario fleets: TGen 4096 hosts x {FLEET_LANES} lanes "
+          "through cli.main --fleet, then build_fleet and lane 0 alone")
+    fleet_phase = phase_fleet(sim, config, merge, events, convert, dev,
+                              smi_line, cli_phase)
+    fleet_hc = max(fleet_phase["runs"]["fleet"]["launches_by_hc"],
+                   key=fleet_phase["runs"]["fleet"]["launches_by_hc"].get)
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -2838,7 +3099,10 @@ def main(argv=None) -> int:
                            for r in cli_phase["runs"].values())
                      + pcap_phase["run"]["launches"]
                      + sum(r["launches"]
-                           for r in shard_phase["runs"].values())),
+                           for r in shard_phase["runs"].values())
+                     + fleet_phase["cli"]["launches"]
+                     + sum(r["launches"]
+                           for r in fleet_phase["runs"].values())),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -2864,6 +3128,11 @@ def main(argv=None) -> int:
         "launches_cli_pcap": pcap_phase["run"]["launches"],
         "launches_shard": {k: r["launches"]
                            for k, r in shard_phase["runs"].items()},
+        "launches_fleet_cli": fleet_phase["cli"]["launches"],
+        "launches_fleet": {k: r["launches"]
+                           for k, r in fleet_phase["runs"].items()},
+        "launches_per_merge_round_fleet":
+            fleet_phase["runs"]["fleet"]["launches_per_round"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -2926,6 +3195,12 @@ def main(argv=None) -> int:
         "xchg_deliver_bound_us": deliver["bound_us"],
         "xchg_deliver_plain_ms": deliver["plain_ms"],
         "xchg_deliver_yardstick_ms": deliver["yardstick_ms"],
+        "fleet_hc": fleet_hc,
+        "fleet_us": fleet_phase["timing"][fleet_hc]["us"],
+        "fleet_bound_us": fleet_phase["timing"][fleet_hc]["bound_us"],
+        "fleet_plain_ms": fleet_phase["timing"][fleet_hc]["plain_ms"],
+        "fleet_yardstick_ms": fleet_phase["timing"][fleet_hc][
+            "yardstick_ms"],
         "shapes": [{key: row[key] for key in
                     ("hc", "w", "nw", "regime", "us", "warm_us",
                      "bound_us", "share", "warps_per_block")}
@@ -2934,7 +3209,9 @@ def main(argv=None) -> int:
                                                     front, faults, cubic)
                       for hc in sorted(run["timing"])]
                    + [skew["timing"]["loop"], skew["timing"]["refill"],
-                      deliver]],
+                      deliver]
+                   + [fleet_phase["timing"][hc]
+                      for hc in sorted(fleet_phase["timing"])]],
         "build_s": build_s,
     }, {
         "name": "cbrt",

@@ -29,9 +29,13 @@ the reference; `--collective-timeout T` ends a rank whose collective
 made no progress for T seconds (a lost peer) with a per-shard bundle and
 exit 77.
 
+`--fleet SPEC` runs L scenario lanes of the config as one engine
+(`runtime.fleet`), with per-lane `[fleet]` heartbeat rows and a summary
+with a per-lane `lanes` list, as the reference's fleet run prints them.
+
 Refused with exit 2, each naming the ROADMAP.md Queue 1 item that will
-port it: `--spmd constraint` (item 7b); `--fleet` and `serve` (item 8);
-native `.so` plugins, the process tier (item 9).
+port it: `--spmd constraint` (item 7b); `serve` (item 8b); native `.so`
+plugins, the process tier (item 9).
 """
 
 from __future__ import annotations
@@ -383,6 +387,205 @@ def _make_profiler(args):
     return prof, prof.phase
 
 
+def _fleet_refusal(args) -> str | None:
+    """The message for the first flag a fleet run cannot take, None when
+    there is none: the adaptive window and the per-scenario planes."""
+    if args.window == "auto":
+        return ("--window auto cannot drive a fleet: the adaptive "
+                "WindowController is a single host-side policy and cannot "
+                "track per-lane queue fill — use a fixed '--window N' "
+                "(milliseconds, uniform across lanes) or leave --window "
+                "off for bit-identical default windows")
+    for on, name in (
+        (args.mesh, "--mesh"),
+        (args.trace, "--trace"),
+        (args.stats, "--stats"),
+        (args.resume, "--resume"),
+        (args.checkpoint_interval, "--checkpoint-interval"),
+        (args.metrics, "--metrics"),
+        (args.metrics_port is not None, "--metrics-port"),
+        (args.xprof, "--xprof"),
+        (args.profile, "--profile"),
+    ):
+        if on:
+            return (f"{name} is per-scenario and cannot ride a fleet run; "
+                    "drop it (or run the lanes solo)")
+    return None
+
+
+def _parse_fleet_spec(spec: str, base_seed: int) -> dict:
+    """'lanes=L [seed=a:b] [fault-file=PATH] [latency-scale=x,...]' ->
+    build_fleet overrides. Raises ValueError with the offending token."""
+    kv = {}
+    for tok in spec.split():
+        k, sep, v = tok.partition("=")
+        if not sep:
+            raise ValueError(f"expected key=value, got {tok!r}")
+        if k in kv:
+            raise ValueError(f"duplicate key {k!r}")
+        kv[k] = v
+    unknown = set(kv) - {"lanes", "seed", "fault-file", "latency-scale"}
+    if unknown:
+        raise ValueError(
+            f"unknown key(s) {sorted(unknown)}; valid keys are lanes, "
+            "seed, fault-file, latency-scale"
+        )
+    if "lanes" not in kv:
+        raise ValueError("lanes=L is required")
+    lanes = int(kv["lanes"])
+    out: dict = {"lanes": lanes}
+    if "seed" in kv:
+        a, sep, b = kv["seed"].partition(":")
+        if not sep:
+            raise ValueError(
+                f"seed wants a range a:b (one seed per lane), got "
+                f"{kv['seed']!r}"
+            )
+        seeds = tuple(range(int(a), int(b)))
+        if len(seeds) != lanes:
+            raise ValueError(
+                f"seed range {kv['seed']} has {len(seeds)} seeds for "
+                f"{lanes} lanes"
+            )
+        out["seeds"] = seeds
+    else:
+        out["seeds"] = tuple(base_seed for _ in range(lanes))
+    if "fault-file" in kv:
+        from shadow_tpu_torch.faults import parse_fault_dsl
+
+        with open(kv["fault-file"]) as f:
+            lines = f.read().splitlines()
+        lines = [ln for ln in lines if not ln.lstrip().startswith("#")]
+        if len(lines) != lanes:
+            raise ValueError(
+                f"fault-file {kv['fault-file']} has {len(lines)} lane "
+                f"lines for {lanes} lanes (blank line = no faults)"
+            )
+        out["faults"] = tuple(
+            tuple(parse_fault_dsl(s) for s in ln.split(";") if s.strip())
+            or None
+            for ln in lines
+        )
+    if "latency-scale" in kv:
+        scales = tuple(float(s) for s in kv["latency-scale"].split(","))
+        if len(scales) != lanes:
+            raise ValueError(
+                f"latency-scale lists {len(scales)} values for {lanes} "
+                "lanes"
+            )
+        out["latency_scale"] = scales
+    return out
+
+
+def _run_fleet(args, cfg, sim, t0: float, dev,
+               run_info: dict | None = None) -> int:
+    """The --fleet run: L lanes of one scenario as one engine, driven
+    segment by segment through the one-read harvest with per-lane
+    [fleet] heartbeat rows; the per-scenario planes (tracker, trace,
+    capture, metrics, checkpoints) stay with solo runs."""
+    from shadow_tpu_torch.runtime.harvest import HeartbeatHarvest
+    from shadow_tpu_torch.sim import build_fleet
+    from shadow_tpu_torch.utils.tracker import FLEET_HEADER
+
+    window_fixed_ns = None
+    if args.window is not None:
+        try:
+            window_fixed_ns = int(float(args.window) * MILLISECOND)
+        except ValueError:
+            print(f"error: --window must be a width in ms (or absent) "
+                  f"under --fleet, got {args.window!r}", file=sys.stderr)
+            return 2
+        if window_fixed_ns < sim.engine.cfg.lookahead:
+            print(f"error: --window {args.window} is narrower than the "
+                  f"conservative lookahead ({sim.engine.cfg.lookahead} "
+                  "ns); it would only add barriers", file=sys.stderr)
+            return 2
+    try:
+        fspec = _parse_fleet_spec(args.fleet, args.seed)
+    except (ValueError, OSError) as e:
+        print(f"error: --fleet: {e}", file=sys.stderr)
+        return 2
+    lanes = fspec.pop("lanes")
+    try:
+        fleet = build_fleet(sim, lanes, **fspec)
+    except ValueError as e:
+        print(f"error: --fleet: {e}", file=sys.stderr)
+        return 2
+    harvest = HeartbeatHarvest(fleet)
+    eng = fleet.engine
+    stop_s = cfg.stoptime
+    hb = args.heartbeat_frequency
+    print(f"shadow_tpu_torch {__version__} fleet: {lanes} lanes x "
+          f"{len(sim.names)} hosts, stoptime {stop_s:.0f}s, one engine "
+          f"over every lane's rows, device {dev}", file=sys.stderr)
+    # heartbeat rows ride stdout like the solo tracker's
+    print(FLEET_HEADER, flush=True)
+    t1 = time.perf_counter()
+    sim_s = 0.0
+    next_hb = hb if hb > 0 else float("inf")
+    st = None
+    last_events = [0] * lanes
+    fetched = None
+    segments = 0
+    probes = 0
+    while sim_s < stop_s:
+        nxt = min(next_hb, stop_s)
+        stop_i = int(nxt * SECOND)
+        if window_fixed_ns is not None:
+            # fixed-width windows: one clock probe per window, on the
+            # SLOWEST lane (the fleet's segment barrier)
+            while True:
+                st = fleet.dispatch(stop_i, st, window_ns=window_fixed_ns)
+                probes += 1
+                if int(eng._fetch(st.now.min())) >= stop_i:
+                    break
+        else:
+            st = fleet.dispatch(stop_i, st)
+        st, bundle = harvest.extract(st, full=True)
+        fetched = harvest.fetch(bundle)
+        segments += 1
+        sim_s = nxt
+        next_hb = (math.floor(sim_s / hb) + 1) * hb if hb > 0 else (
+            float("inf"))
+        rows = harvest.lane_summaries_from(fetched)
+        t_s = int(sim_s)
+        for i, row in enumerate(rows):
+            delta = row["executed"] - last_events[i]
+            last_events[i] = row["executed"]
+            fill = float(fetched["fill"][i])
+            print("[shadow-heartbeat] [fleet] "
+                  f"{t_s},{i},{fleet.seeds[i]},"
+                  f"{row['now_ns'] // 1_000_000_000},{row['windows']},"
+                  f"{row['executed']},{delta},{row['queue_drops']},"
+                  f"{fill:.4f}", flush=True)
+        agg = harvest.summary_from(fetched)
+        fleet.check_drops(agg["queue_drops"], agg)
+    wall = time.perf_counter() - t1
+    rows = harvest.lane_summaries_from(fetched)
+    total_events = sum(r["executed"] for r in rows)
+    summary = {
+        "fleet_lanes": lanes,
+        "hosts": len(sim.names),
+        "sim_seconds": stop_s,
+        "wall_seconds": round(wall, 3),
+        "build_seconds": round(t1 - t0, 3),
+        "events": total_events,
+        "events_per_sec": round(total_events / max(wall, 1e-9), 1),
+        "scenarios_per_sec": round(lanes / max(wall, 1e-9), 3),
+        "sim_s_per_wall_s": round(stop_s / max(wall, 1e-9), 3),
+        "windows": max(r["windows"] for r in rows),
+        "queue_drops": sum(r["queue_drops"] for r in rows),
+        "seeds": list(fleet.seeds),
+        "lanes": rows,
+    }
+    if run_info is not None:
+        run_info.update(segments=segments, window_probes=probes,
+                        harvest_reads=harvest.host_syncs,
+                        host_syncs=eng.host_syncs, loop_s=wall)
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
 def _strip_retry_flags(argv: list[str]) -> list[str]:
     """The child's command line: without the retry flags, so that one
     supervisor owns the run."""
@@ -423,11 +626,9 @@ def _refused(args, cfg=None) -> str | None:
         (args.spmd == "constraint",
          f"--spmd constraint is not ported ({item} 7b, a global engine "
          "partitioned by the compiler)"),
-        (args.fleet is not None,
-         f"--fleet is not ported ({item} 8, fleets and serving)"),
         (args.config == "serve",
-         f"the serve subcommand is not ported ({item} 8, fleets and "
-         "serving)"),
+         f"the serve subcommand is not ported ({item} 8b, the serving "
+         "plane)"),
     )
     for on, msg in checks:
         if on:
@@ -517,6 +718,11 @@ def main(argv=None, *, device=None, run_info: dict | None = None,
     if msg is not None:
         print(f"error: {msg}", file=sys.stderr)
         return 2
+    if args.fleet:
+        msg = _fleet_refusal(args)
+        if msg is not None:
+            print(f"error: {msg}", file=sys.stderr)
+            return 2
     if args.retry > 0:
         # run the simulator as a child in its own process group; on a
         # stall (75), a lost peer (77) or a signal death, reap the group,
@@ -682,6 +888,8 @@ def main(argv=None, *, device=None, run_info: dict | None = None,
         sim = _build(args.capacity)
     if args.allow_queue_overflow:
         sim.strict_overflow = False
+    if args.fleet:
+        return _run_fleet(args, cfg, sim, t0, dev, run_info)
     tdrain = None
     if args.trace:
         from shadow_tpu_torch.obs.trace import TraceDrain

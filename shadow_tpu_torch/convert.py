@@ -8,8 +8,11 @@ is keyed by its index); a queue's spill ring appears as
 exchange buffer as "xchg.bucket.*" and "xchg.sent_min" and the stats
 plane as "splane.*" when they are on. So a state can move between the
 reference and this package leaf for leaf, and `leaves_digest` gives both
-the same fingerprint. A reference GraphNetwork's routing tables come over
-as numpy arrays through `GraphNetwork.from_numpy`.
+the same fingerprint. A fleet state (`runtime.fleet`) moves the same
+way with every leaf led by the lane axis (`fleet_state_to_numpy`,
+`fleet_state_from_numpy`), as the reference's vmapped fleet holds it.
+A reference GraphNetwork's routing tables come over as numpy arrays
+through `GraphNetwork.from_numpy`.
 
 The leaves come in the reference's pytree flatten order (the dataclass
 fields in declaration order, depth first, a None field contributing
@@ -163,6 +166,33 @@ def engine_state_from_numpy(leaves: dict[str, np.ndarray], device,
         raise ValueError(f"leaves this package has no field for: "
                          f"{sorted(extra)}")
     return state
+
+
+def fleet_state_to_numpy(state: EngineState) -> dict[str, np.ndarray]:
+    """A fleet state's leaves (`runtime.fleet`) as the reference's fleet
+    pytree has them: every leaf led by the lane axis, per-host leaves
+    [L, H, ...] and the solo scalars [L]. `lane_of` takes one lane."""
+    from shadow_tpu_torch.runtime.fleet import lane_view
+
+    return engine_state_to_numpy(lane_view(state))
+
+
+def fleet_state_from_numpy(leaves: dict[str, np.ndarray], device,
+                           hosts=PholdHost) -> EngineState:
+    """The inverse of `fleet_state_to_numpy`: a fleet state on `device`
+    from [L, ...] leaves (a reference fleet's, for instance)."""
+    from shadow_tpu_torch.runtime.fleet import LANE_LEAVES
+
+    rows = {k: (a if k in LANE_LEAVES
+                else np.asarray(a).reshape((-1,) + np.shape(a)[2:]))
+            for k, a in leaves.items()}
+    return engine_state_from_numpy(rows, device, hosts)
+
+
+def lane_of(leaves: dict[str, np.ndarray], lane: int
+            ) -> dict[str, np.ndarray]:
+    """Lane `lane` of [L, ...] fleet leaves: a solo state's leaves."""
+    return {k: np.asarray(a)[lane] for k, a in leaves.items()}
 
 
 def shard_leaves(leaves: dict[str, np.ndarray], rank: int,

@@ -72,13 +72,31 @@ delivered at the next point the queue is read (`ExchangeBuf`). The
 window barrier is a global min that folds in the minimum time sent in
 the undelivered round. A fault schedule stays global; each shard slices
 its rows.
+
+Lanes (`Engine.bind_lanes`, the scenario fleet of `runtime.fleet`): one
+engine runs L independent scenarios of the same build. Every per-host
+leaf holds the L x H rows of all lanes, lane-major (row l * H + g is
+host g of lane l), and the scalar leaves (`now`, `fault_epoch`, the
+window, sweep and inner-step counters) become [L]. Each op runs once
+for every row of every lane; the merge kernel merges all L x H rows in
+one launch per round. Per lane there is a root key, a padded fault
+schedule, a restart template and a latency per-mille; hosts keep their
+lane-local gids, so each event's RNG stream, routing and handler see
+exactly what a solo run of that lane sees. The termination semantics
+are those of the reference's vmapped loops: a loop runs while any lane
+still has work, and a lane without work in a window, sweep, inner step
+or round takes no part in it (its barrier is below every time, its
+counters do not move, its trace rows are not written), so each lane's
+state equals its solo run's. One read per window serves the fleet.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, Sequence
 
+import numpy as np
 import torch
 
 from shadow_tpu_torch.core import rng as srng
@@ -87,6 +105,7 @@ from shadow_tpu_torch.core.events import (
     N_ARGS,
     EventQueue,
     Events,
+    _select_rows,
     group_run_starts,
     pack_srcseq,
     queue_push,
@@ -103,6 +122,11 @@ from shadow_tpu_torch.obs.trace import (
 )
 
 _I64MAX = (1 << 63) - 1
+# a lane's barrier while it takes no part in a window or sweep: no time
+# is below it
+_LOW = -(1 << 63)
+# a lane's latency scale is per-mille, as the fault overlay's
+LAT_UNIT = 1000
 
 # Burst-fold length-word layout (the values of `shadow_tpu.core.engine`):
 # low bits the payload total, high bits the folded run's segment count.
@@ -397,28 +421,6 @@ def _kind_cost(cpu_cost: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
     return torch.sum(torch.where(onehot, table, 0), dim=-1)
 
 
-def _select_rows(mask: torch.Tensor, new: Any, old: Any) -> Any:
-    """Per-row select across two dataclasses of [H, ...] tensors: `new`
-    where the [H] mask is set, else `old`. Nested dataclasses and tuples
-    recurse and None fields stay None, as a pytree map over both would;
-    a leaf that is the same tensor on both sides is kept without a
-    select."""
-    def sel(n, o):
-        if o is None or n is o:
-            return o
-        if dataclasses.is_dataclass(o):
-            return _select_rows(mask, n, o)
-        if isinstance(o, tuple):
-            return tuple(sel(a, b) for a, b in zip(n, o))
-        return torch.where(mask.reshape(mask.shape + (1,) * (n.dim() - 1)),
-                           n, o)
-
-    return dataclasses.replace(old, **{
-        f.name: sel(getattr(new, f.name), getattr(old, f.name))
-        for f in dataclasses.fields(old)
-    })
-
-
 def _slice_rows(tree: Any, host0: int, h: int, clone: bool = False) -> Any:
     """Rows [host0, host0 + h) of every [H, ...] tensor of a dataclass
     tree (nested dataclasses and tuples followed, None kept); copies
@@ -606,6 +608,128 @@ class Engine:
         self._trace = cfg.trace > 0
         self._stats = cfg.stats > 0
         self.host_syncs = 0
+        self.lanes = 0  # 0: one scenario; L > 0 after `bind_lanes`
+        self._n_rows = cfg.n_hosts
+        self._lat_milli = None
+
+    def bind_lanes(self, keys: torch.Tensor, *, faults=None,
+                   fault_reset=None, lat_milli=None) -> "Engine":
+        """A copy of this engine that runs L = keys.shape[0] lanes: the
+        counterpart of the reference's `Engine.bind_lane` under its
+        fleet's vmap. This engine is left as it was.
+
+        `keys`: i64[L, 2], each lane's root key (`rng.root_key` of its
+        seed). `faults`: a CompiledFaults whose tensors are stacked per
+        lane and padded to one shape (`runtime.fleet._pad_faults`):
+        times [L, T], alive [L, T, H], fgrp [L, H], lat_milli and passp
+        [L, T, G, G], bw_scale [L, T, H], np_times [L, T] on the host.
+        `fault_reset`: the lanes' restart templates, their hosts states
+        concatenated lane-major ([L * H, ...] rows). `lat_milli`: i64[L],
+        each lane's latency scale in per-mille, applied to the path
+        latency before the fault overlay and the barrier clamp (None:
+        every lane unscaled).
+
+        The copy runs states whose per-host leaves hold L x H rows and
+        whose scalars are [L] (`runtime.fleet` stacks them); `run` and
+        `step_window` take a stop per lane or one for all."""
+        if self.cfg.axis_name is not None:
+            raise ValueError("lanes run the single-device engine; a "
+                             "sharded engine cannot bind lanes")
+        eng = copy.copy(self)
+        dev, h = self.device, self.cfg.n_hosts
+        lanes = int(keys.shape[0])
+        eng.lanes = lanes
+        eng._n_rows = lanes * h
+        eng.host_syncs = 0
+        eng._row_lane = torch.arange(lanes, device=dev).repeat_interleave(h)
+        eng._lane_gids = torch.arange(h, dtype=torch.int32,
+                                      device=dev).repeat(lanes)
+        eng._base_key = keys.to(dev)[eng._row_lane]  # [L * H, 2]
+        eng._lat_milli = (None if lat_milli is None
+                          else lat_milli.to(device=dev, dtype=torch.int64))
+        eng.faults = faults
+        eng.fault_reset = fault_reset
+        eng._f_crash = bool(faults is not None and faults.has_crash)
+        eng._f_link = bool(faults is not None and faults.has_link)
+        eng._f_bw = bool(faults is not None and faults.has_bw)
+        eng._f_any = eng._f_crash or eng._f_link or eng._f_bw
+        if (eng._f_crash or eng._f_bw) and fault_reset is None:
+            raise ValueError(
+                "faults with crashes or bandwidth changes need a "
+                "fault_reset template (the initial hosts state)")
+        if faults is not None and tuple(faults.alive.shape[::2]) != (
+                lanes, h):
+            raise ValueError(
+                f"lane fault schedules must be [L={lanes}, T, H={h}], got "
+                f"alive {tuple(faults.alive.shape)}")
+        # [L * H, T] liveness per epoch of each row, the quarantine's
+        # lookup table, and each row's restart template
+        eng._alive_ht = (faults.alive.transpose(1, 2).reshape(
+            lanes * h, -1).contiguous() if eng._f_crash else None)
+        eng._tmpl = fault_reset
+        eng._fgrp = faults.fgrp.long() if eng._f_link else None
+        eng._np_times = (np.asarray(faults.np_times) if eng._f_any
+                         else None)
+        return eng
+
+    # -- lanes ----------------------------------------------------------------
+    def _per_row(self, v: torch.Tensor) -> torch.Tensor:
+        """A per-lane [L] tensor broadcast to the L x H rows."""
+        return v[:, None].expand(self.lanes,
+                                 self.cfg.n_hosts).reshape(-1)
+
+    def _lane_any(self, x: torch.Tensor) -> torch.Tensor:
+        """[L * H] flags -> [L]: whether any row of each lane is set."""
+        return torch.any(x.reshape(self.lanes, -1), dim=1)
+
+    def _bars(self, window_end, flags=None):
+        """The barrier of one sweep as (per row, per row as a column):
+        the scalar itself when solo; for lanes, [L * H] and [L * H, 1]
+        from the [L] barriers, lanes whose `flags` is false (no work in
+        this sweep) taking the `_LOW` barrier below every time."""
+        if not self.lanes:
+            return window_end, window_end
+        if flags is not None:
+            window_end = torch.where(flags, window_end, _LOW)
+        wr = self._per_row(window_end)
+        return wr, wr[:, None]
+
+    def _count(self, counter: torch.Tensor, lanes, n=1) -> torch.Tensor:
+        """Add `n` to a loop counter: for lanes, only in the lanes whose
+        flag in `lanes` is set (or `lanes` itself, a per-lane count)."""
+        if not self.lanes:
+            return counter + n
+        return counter + lanes
+
+    def _trace_put(self, trace, rec: dict, lanes=None):
+        """Append a step's records to the trace ring; for lanes, only the
+        rows of the lanes whose flag in `lanes` is set (a lane outside
+        the step writes nothing, not even the zeros of an empty row)."""
+        new = trace_append(trace, self.cfg.trace, **rec)
+        if lanes is None or not self.lanes:
+            return new
+        return _select_rows(self._per_row(lanes), new, trace)
+
+    def _epoch(self, t: torch.Tensor, lane=None) -> torch.Tensor:
+        """The fault epoch of time(s) t; for lanes, `lane` gives the lane
+        of each leading row of t (or t is per row of the L x H rows)."""
+        if not self.lanes:
+            return self.faults.epoch_of(t)
+        if lane is None:
+            lane = self._row_lane
+        n = t.shape[0]
+        e = torch.searchsorted(self.faults.times[lane],
+                               t.reshape(n, -1).contiguous(), right=True)
+        return (e - 1).to(torch.int32).reshape(t.shape)
+
+    def _to_rows(self, ev: Events, lane: torch.Tensor) -> Events:
+        """A flat batch's lane-local destinations as rows of the L x H
+        rows (`lane` per event); a destination outside its lane's hosts
+        becomes -1, which no push accepts."""
+        h = self.cfg.n_hosts
+        ok = (ev.dst >= 0) & (ev.dst < h)
+        return dataclasses.replace(ev, dst=torch.where(
+            ok, ev.dst + (lane * h).to(torch.int32), -1))
 
     def _read(self, flag: torch.Tensor) -> bool:
         """A device-to-host read of a 0-d bool: the loop and branch tests
@@ -646,7 +770,8 @@ class Engine:
         return q, self._fresh_xchg()
 
     def _exchange_push(self, q: EventQueue, xchg, ev: Events,
-                       mask: torch.Tensor, host0: int):
+                       mask: torch.Tensor, host0: int, lane=None,
+                       part=None):
         """Push a flat routed batch, delivering cross-shard events by the
         bucketed all_to_all. Returns (queue', xchg', rounds, n_cross).
 
@@ -658,8 +783,19 @@ class Engine:
         pushed in that round: it lands in `xchg`, merged at the top of
         the next round, and the last round's rides out to the next sweep
         or window. The loop flag is global (a sum over shards), so every
-        rank runs the same rounds; n_cross is the global count."""
+        rank runs the same rounds; n_cross is the global count.
+
+        For lanes, `lane` gives each event's lane and `part` the lanes
+        that push: a lane-local destination becomes a row of its lane,
+        and each lane's rows take the push of its solo run
+        (`queue_push`'s lanes)."""
         if self.comm is None:
+            if lane is not None:
+                return (queue_push(q, self._to_rows(ev, lane), mask, 0,
+                                   self._read,
+                                   width=ev.time.shape[0] // self.lanes,
+                                   lanes=self.lanes, part=part),
+                        xchg, 0, None)
             return (queue_push(q, ev, mask, host0, self._read), xchg, 0,
                     None)
         cfg, dev = self.cfg, self.device
@@ -769,7 +905,7 @@ class Engine:
         [H, T] liveness table per epoch. A time before the first epoch
         reads as dead, as the reference's one-hot select over the epochs
         does."""
-        e = self.faults.epoch_of(t).to(torch.int64)
+        e = self._epoch(t).to(torch.int64)
         idx = torch.clamp(e, min=0)
         if t.dim() == 1:
             idx = idx[:, None]
@@ -788,7 +924,7 @@ class Engine:
 
     # -- emit routing --------------------------------------------------------
     def _route(self, emit: Emit, base_time, gids, window_end, rkeys, emask,
-               seq):
+               seq, lane=None):
         """Route an [N, K] emit batch: local tasks keep their time; network
         sends add path latency (+ jitter, rolled on lane offset K), roll
         reliability (lane offset 0) and clamp to the window barrier.
@@ -799,25 +935,34 @@ class Engine:
         2K) and a destination-liveness check at the arrival epoch drop
         packets with their own attribution.
         Returns (Events[N, K], final_mask, dropped, fdropped, routed time
-        t, is_local), fdropped None when no overlay is compiled in."""
+        t, is_local), fdropped None when no overlay is compiled in.
+
+        For lanes, `lane` gives each of the N rows' lane: the lane's
+        latency scale applies to the path latency first, as the
+        reference's `ScaledLatencyNetwork` wraps the topology, and the
+        fault overlay reads the lane's schedule."""
         n, k = emit.dst.shape
         self_gid = gids[:, None]
         is_local = emit.local
         dst = torch.where(is_local, self_gid, emit.dst)
         dt = torch.clamp(emit.dt, min=0)
         lat, rel, jit = self.network.route(self_gid.expand(n, k), dst)
+        if lane is not None and self._lat_milli is not None:
+            lat = lat * self._lat_milli[lane][:, None] // LAT_UNIT
         t = base_time[:, None] + dt
         f = self.faults
+        # the fault tables' leading index: a lane's schedule for lanes
+        ln = () if lane is None else (lane[:, None],)
         if self._f_link or self._f_crash:
-            hg = f.fgrp.shape[0]
+            hg = f.fgrp.shape[-1]
             dstc = torch.clamp(dst, 0, hg - 1).long()
         if self._f_link:
-            gs = self._fgrp[torch.clamp(self_gid, 0, hg - 1).long()]
-            gd = self._fgrp[dstc]
+            gs = self._fgrp[ln + (torch.clamp(self_gid, 0, hg - 1).long(),)]
+            gd = self._fgrp[ln + (dstc,)]
             # link state is read at SEND time; an index of -1 (a time
             # before 0, only on masked lanes) wraps as in the reference
-            e_s = f.epoch_of(t).long()
-            lat = lat * f.lat_milli[e_s, gs, gd] // 1000
+            e_s = self._epoch(t, lane).long()
+            lat = lat * f.lat_milli[ln + (e_s, gs, gd)] // 1000
         if self._use_jitter:
             uj = srng.uniform_lanes(rkeys, k, k)
             lat = torch.clamp(lat + jitter_offset(uj, jit), min=0)
@@ -828,11 +973,11 @@ class Engine:
         fdropped = None  # no overlay compiled in: nothing to attribute
         if self._f_link:
             u2 = srng.uniform_lanes(rkeys, k, 2 * k)
-            fdropped = u2 >= f.passp[e_s, gs, gd]
+            fdropped = u2 >= f.passp[ln + (e_s, gs, gd)]
         if self._f_crash:
             # a packet to a host dead when it ARRIVES is lost
-            e_a = f.epoch_of(t_remote).long()
-            dead = ~f.alive[e_a, dstc]
+            e_a = self._epoch(t_remote, lane).long()
+            dead = ~f.alive[ln + (e_a, dstc)]
             fdropped = dead if fdropped is None else fdropped | dead
         if fdropped is not None:
             fdropped = fdropped & ~is_local & final_mask
@@ -855,7 +1000,14 @@ class Engine:
         nxt = q.min_time()
         if self._cpu_enabled:
             nxt = torch.maximum(nxt, cpu_free)
+        if self.lanes:
+            return self._lane_any(nxt < self._per_row(window_end))  # [L]
         return self._gany(torch.any(nxt < window_end))
+
+    def _any(self, flags: torch.Tensor) -> torch.Tensor:
+        """A loop flag from `_drain_flag`'s: itself when solo, whether
+        any lane's is set for lanes."""
+        return torch.any(flags) if self.lanes else flags
 
     # -- the chained drain: one event per host per inner step ----------------
     def _trace_rec(self, ev: Events, out: Events, run, emask, dropped,
@@ -912,7 +1064,8 @@ class Engine:
         src_seq = src_seq + torch.sum(inc, dim=1, dtype=torch.int32)
 
         out, final_mask, dropped, fdropped, t_r, is_local = self._route(
-            emit, ev.time, gids, window_end, rkeys, emask, seq)
+            emit, ev.time, gids, window_end, rkeys, emask, seq,
+            self._row_lane if self.lanes else None)
         if splane is not None:
             # a delivered emit runs at its routed time: t_r - now is its
             # wait, and on the non-local lanes its network latency
@@ -1163,7 +1316,7 @@ class Engine:
         return _take_slots(stage, o)
 
     def _flush(self, q: EventQueue, xchg, stage: Events, host0: int,
-               stats: Stats):
+               stats: Stats, part=None):
         """A sweep's end: push the staging leftovers, compacted to a
         prefix; FLUSH_W columns unless a row holds more (on any shard,
         when sharded). Returns (queue', xchg', stats')."""
@@ -1175,8 +1328,10 @@ class Engine:
             stage = Events(**{f.name: getattr(stage, f.name)[:, :w1]
                               for f in dataclasses.fields(stage)})
         flat = stage.flatten()
+        lane = (self._row_lane[:, None].expand(stage.time.shape).reshape(-1)
+                if self.lanes else None)
         q, xchg, rounds, nc = self._exchange_push(
-            q, xchg, flat, flat.time != TIME_INVALID, host0)
+            q, xchg, flat, flat.time != TIME_INVALID, host0, lane, part)
         return q, xchg, self._count_xchg(stats, rounds, nc)
 
     def _count_xchg(self, stats: Stats, rounds: int, nc) -> Stats:
@@ -1187,6 +1342,14 @@ class Engine:
             stats, n_xchg_rounds=stats.n_xchg_rounds + rounds,
             n_cross_shard=stats.n_cross_shard + nc)
 
+    def _gids(self, host0: int) -> torch.Tensor:
+        """The global ids of this engine's rows: the shard's hosts, or
+        for lanes every lane's hosts by their lane-local ids."""
+        if self.lanes:
+            return self._lane_gids
+        return host0 + torch.arange(self.cfg.n_hosts, dtype=torch.int32,
+                                    device=self.device)
+
     def _drain_window(self, st: EngineState, window_end, host0: int
                       ) -> EngineState:
         """Drain every event below `window_end`: the chained drain, or
@@ -1196,28 +1359,30 @@ class Engine:
             return self._drain_window_batched(st, window_end, host0)
         if self.cfg.frontier > 0:
             return self._drain_window_frontier(st, window_end, host0)
-        cfg, dev = self.cfg, self.device
-        h = cfg.n_hosts
+        cfg = self.cfg
         b = cfg.eff_drain_batch
         sw = max(cfg.eff_stage_width, b + cfg.max_emit)
-        gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
+        gids = self._gids(host0)
         cpu_cost = self.cpu_cost[gids.long()]  # [H, NK]
         al_sh = self._alive_ht
         q, hosts, stats = st.queues, st.hosts, st.stats
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
         trace, splane, xchg = st.trace, st.splane, st.xchg
 
-        while self._read(self._drain_flag(q, cpu_free, window_end)):
+        fl = self._drain_flag(q, cpu_free, window_end)
+        while self._read(self._any(fl)):
             # the previous sweep's in-flight exchange lands first
             q, xchg = self._xchg_deliver(q, xchg, host0)
+            wr, wc = self._bars(window_end, fl)
             # 1. dump each host's earliest-b below-barrier prefix
-            splane = self._observe_qfill(splane, q, window_end, b)
-            q, stage, qh_t, qh_ss = self._dump(q, window_end, gids, b, sw)
+            splane = self._observe_qfill(splane, q, wc, b)
+            q, stage, qh_t, qh_ss = self._dump(q, wc, gids, b, sw)
 
             # 2. chained execution, one staged event per host per step
             sm = self._stage_min(stage)
-            active, eff_t = self._runnable(sm, cpu_free, window_end, qh_t,
-                                           qh_ss, sw)
+            active, eff_t = self._runnable(sm, cpu_free, wr, qh_t, qh_ss,
+                                           sw)
+            la = self._lane_any(active) if self.lanes else None
             while self._read(torch.any(active)):
                 ev, _mss, onehot, _cnt = sm
                 runm, stats = self._quarantine(al_sh, active, eff_t, stats)
@@ -1228,26 +1393,30 @@ class Engine:
                     dst=gids)
                 hosts, src_seq, exec_cnt, stats, out, _, splane, rec = \
                     self._execute_step(hosts, src_seq, exec_cnt, stats, ev,
-                                       runm, window_end, gids, splane)
+                                       runm, wc, gids, splane)
                 if rec is not None:
-                    trace = trace_append(trace, cfg.trace, **rec)
+                    trace = self._trace_put(trace, rec, la)
                 if self._cpu_enabled:
                     cpu_free = self._charge_cpu(cpu_cost, ev, runm, eff_t,
                                                 cpu_free)
                 stage = self._stage_append(stage, out)
-                stats = dataclasses.replace(
-                    stats, n_inner_steps=stats.n_inner_steps + 1)
+                stats = dataclasses.replace(stats, n_inner_steps=self._count(
+                    stats.n_inner_steps, la))
                 sm = self._stage_min(stage)
-                active, eff_t = self._runnable(sm, cpu_free, window_end,
-                                               qh_t, qh_ss, sw)
+                active, eff_t = self._runnable(sm, cpu_free, wr, qh_t,
+                                               qh_ss, sw)
+                if self.lanes:
+                    la = self._lane_any(active)
 
             # 3. flush the leftovers
-            q, xchg, stats = self._flush(q, xchg, stage, host0, stats)
-            stats = dataclasses.replace(stats,
-                                        n_sweeps=stats.n_sweeps + 1)
+            q, xchg, stats = self._flush(q, xchg, stage, host0, stats, fl)
+            stats = dataclasses.replace(
+                stats, n_sweeps=self._count(stats.n_sweeps, fl))
+            fl = self._drain_flag(q, cpu_free, window_end)
 
         return self._end_window(st, q, hosts, src_seq, exec_cnt, stats,
-                                cpu_free, trace, splane, xchg, host0)
+                                cpu_free, trace, splane, xchg, host0,
+                                window_end)
 
     def _observe_qfill(self, splane, q: EventQueue, window_end, b: int):
         """Queue fill at the dump (before the prefix clears), over the
@@ -1261,7 +1430,7 @@ class Engine:
 
     def _end_window(self, st: EngineState, q, hosts, src_seq, exec_cnt,
                     stats, cpu_free, trace, splane, xchg,
-                    host0: int) -> EngineState:
+                    host0: int, window_end=None) -> EngineState:
         """The drained window's state: n_windows counted, and the
         per-window occupancy sampled (hosts that ran something). When
         sharded, the shard-local inner steps are summed over the shards,
@@ -1279,8 +1448,9 @@ class Engine:
             splane = splane.observe("occ", occ, occ > 0)
         return dataclasses.replace(
             st, queues=q, hosts=hosts, src_seq=src_seq, exec_cnt=exec_cnt,
-            stats=dataclasses.replace(stats,
-                                      n_windows=stats.n_windows + 1),
+            stats=dataclasses.replace(stats, n_windows=self._count(
+                stats.n_windows,
+                window_end != _LOW if self.lanes else None)),
             cpu_free=cpu_free, trace=trace, xchg=xchg, splane=splane,
         )
 
@@ -1311,11 +1481,11 @@ class Engine:
         stats plane samples each round's run length per host.
         """
         cfg, dev = self.cfg, self.device
-        h, k = cfg.n_hosts, cfg.max_emit
+        h, k = self._n_rows, cfg.max_emit
         b = cfg.eff_drain_batch
         sw = max(cfg.eff_stage_width, b + k)
         u = max(1, min(cfg.frontier, sw))
-        gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
+        gids = self._gids(host0)
         cpu_cost = self.cpu_cost[gids.long()]  # [H, NK]
         al_sh = self._alive_ht
         slot = torch.arange(sw, dtype=torch.int32, device=dev)[None, :]
@@ -1323,16 +1493,24 @@ class Engine:
         src_seq, exec_cnt, cpu_free = st.src_seq, st.exec_cnt, st.cpu_free
         trace, splane, xchg = st.trace, st.splane, st.xchg
 
-        while self._read(self._drain_flag(q, cpu_free, window_end)):
+        fl = self._drain_flag(q, cpu_free, window_end)
+        while self._read(self._any(fl)):
             q, xchg = self._xchg_deliver(q, xchg, host0)
+            wr, wc = self._bars(window_end, fl)
             # 1. the frontier dump, as on the chained drain
-            splane = self._observe_qfill(splane, q, window_end, b)
-            q, stage, qh_t, qh_ss = self._dump(q, window_end, gids, b, sw)
+            splane = self._observe_qfill(splane, q, wc, b)
+            q, stage, qh_t, qh_ss = self._dump(q, wc, gids, b, sw)
 
-            # 2. rounds: sort once, execute a run, bookkeep once
+            # 2. rounds: sort once, execute a run, bookkeep once; for
+            # lanes, `rl` holds the lanes with a round to run, `lin` those
+            # whose round has not ended and `jl` each lane's positions
             sm = self._stage_min(stage)
-            while self._read(torch.any(self._runnable(
-                    sm, cpu_free, window_end, qh_t, qh_ss, sw)[0])):
+            rn = self._runnable(sm, cpu_free, wr, qh_t, qh_ss, sw)[0]
+            rl = self._lane_any(rn) if self.lanes else None
+            while self._read(torch.any(rn)):
+                lin = rl
+                jl = (torch.zeros((self.lanes,), dtype=torch.int64,
+                                  device=dev) if self.lanes else None)
                 stage = self._sort_stage(stage)
                 ss = pack_srcseq(stage.src, stage.seq)
                 cnt = torch.sum(stage.time != TIME_INVALID, dim=1,
@@ -1352,10 +1530,15 @@ class Engine:
                     if allowed0 is not None and j > 0:
                         member = member & allowed0
                     active = (still & member & (ev_t != TIME_INVALID)
-                              & (eff_t < window_end)
+                              & (eff_t < wr)
                               & _precedes(ev_t, ss[:, j], qh_t, qh_ss)
                               & (cnt + k <= sw))
                     j += 1
+                    if self.lanes:
+                        # a lane counts every position up to its own
+                        # terminating probe
+                        jl = jl + lin
+                        lin = lin & self._lane_any(active)
                     if not self._read(torch.any(active)):
                         break  # the terminating probe: nothing ran
                     # a dead host's member is consumed, not run
@@ -1368,7 +1551,7 @@ class Engine:
                                 args=stage.args[:, j - 1])
                     hosts, src_seq, exec_cnt, stats, out, fmask, splane, \
                         rec = self._execute_step(hosts, src_seq, exec_cnt,
-                                                 stats, ev, runm, window_end,
+                                                 stats, ev, runm, wc,
                                                  gids, splane)
                     if rec is not None:
                         recs.append(rec)
@@ -1400,42 +1583,50 @@ class Engine:
                     if pad:
                         recs.append({key: v.new_zeros((h, pad))
                                      for key, v in recs[0].items()})
-                    trace = trace_append(trace, cfg.trace, **{
+                    trace = self._trace_put(trace, {
                         key: torch.cat([r[key] for r in recs], dim=1)
-                        for key in recs[0]})
-                stats = dataclasses.replace(
-                    stats, n_inner_steps=stats.n_inner_steps + j)
+                        for key in recs[0]}, rl)
+                stats = dataclasses.replace(stats, n_inner_steps=self._count(
+                    stats.n_inner_steps, jl, j))
                 sm = self._stage_min(stage)
+                rn = self._runnable(sm, cpu_free, wr, qh_t, qh_ss, sw)[0]
+                if self.lanes:
+                    rl = self._lane_any(rn)
 
             # 4. flush the leftovers, as on the chained drain
-            q, xchg, stats = self._flush(q, xchg, stage, host0, stats)
-            stats = dataclasses.replace(stats,
-                                        n_sweeps=stats.n_sweeps + 1)
+            q, xchg, stats = self._flush(q, xchg, stage, host0, stats, fl)
+            stats = dataclasses.replace(
+                stats, n_sweeps=self._count(stats.n_sweeps, fl))
+            fl = self._drain_flag(q, cpu_free, window_end)
 
         return self._end_window(st, q, hosts, src_seq, exec_cnt, stats,
-                                cpu_free, trace, splane, xchg, host0)
+                                cpu_free, trace, splane, xchg, host0,
+                                window_end)
 
     # -- the batched drain ---------------------------------------------------
-    def _sweep(self, st: EngineState, window_end, host0: int) -> EngineState:
+    def _sweep(self, st: EngineState, window_end, host0: int,
+               fl=None) -> EngineState:
         """One sweep: execute every host's below-barrier frontier in one
         handler call, route the emits, clear the frontier, push. A host
         dead at an event's time consumes it without running it
         (quarantine): the prefix still clears and the event's RNG
-        position is still spent."""
+        position is still spent. For lanes, `window_end` holds the [L]
+        barriers and `fl` the lanes that sweep."""
         cfg, dev = self.cfg, self.device
-        h, k, c = cfg.n_hosts, cfg.max_emit, cfg.capacity
+        h, k, c = self._n_rows, cfg.max_emit, cfg.capacity
         b = cfg.eff_drain_batch
         # the previous sweep's in-flight exchange lands first
         q, xchg = self._xchg_deliver(st.queues, st.xchg, host0)
         cpu_free = st.cpu_free
-        gids = host0 + torch.arange(h, dtype=torch.int32, device=dev)
+        gids = self._gids(host0)
         gids_hb = gids[:, None].expand(h, b)
+        wr, wc = self._bars(window_end, fl)
         bt = q.time[:, :b]
-        bvalid = bt < window_end  # a prefix: rows are key-sorted
+        bvalid = bt < wc  # a prefix: rows are key-sorted
         if self._cpu_enabled:
             # a host whose virtual CPU is busy past the barrier runs
             # nothing this window
-            bvalid = bvalid & (cpu_free[:, None] < window_end)
+            bvalid = bvalid & (cpu_free[:, None] < wc)
         splane = st.splane
         if splane is not None:
             # queue fill at the pop, before the prefix clears
@@ -1457,7 +1648,12 @@ class Engine:
         )
         cnts = st.exec_cnt[:, None] + torch.arange(b, dtype=torch.int32,
                                                    device=dev)[None, :]
-        hk, rk = srng.event_keys(self._base_key, gids_hb.reshape(-1),
+        base_key, lane_hb, we_hb = self._base_key, None, wc
+        if self.lanes:
+            base_key = base_key[:, None].expand(h, b, 2).reshape(-1, 2)
+            lane_hb = self._row_lane[:, None].expand(h, b).reshape(-1)
+            we_hb = wr[:, None].expand(h, b).reshape(-1, 1)
+        hk, rk = srng.event_keys(base_key, gids_hb.reshape(-1),
                                  cnts.reshape(-1))
         hosts2, emit = self.batch_handler(st.hosts, evs,
                                           hk.reshape(h, b, 2))
@@ -1481,10 +1677,11 @@ class Engine:
                     for f in dataclasses.fields(emit)}),
             evs.time.reshape(-1),
             gids_hb.reshape(-1),
-            window_end,
+            we_hb,
             rk,
             flat(emask),
             flat(seq),
+            lane_hb,
         )
         if splane is not None:
             delta = (t_r - evs.time.reshape(-1)[:, None]).reshape(h, b * k)
@@ -1495,8 +1692,8 @@ class Engine:
         trace = st.trace
         if self._trace:
             # one width-(B + B*K) append per sweep
-            trace = trace_append(trace, cfg.trace, **self._trace_rec(
-                evs, out, run, flat(emask), dropped, fdropped, is_local))
+            trace = self._trace_put(trace, self._trace_rec(
+                evs, out, run, flat(emask), dropped, fdropped, is_local), fl)
         s = st.stats
         stats = dataclasses.replace(
             s,
@@ -1507,7 +1704,7 @@ class Engine:
             n_by_kind=s.n_by_kind + torch.sum(
                 _one_hot_kind(evs.kind, self.n_kinds) * run[:, :, None],
                 dim=1),
-            n_sweeps=s.n_sweeps + 1,
+            n_sweeps=self._count(s.n_sweeps, fl),
         )
         if fdropped is not None:
             stats = dataclasses.replace(
@@ -1532,7 +1729,9 @@ class Engine:
         q = dataclasses.replace(
             q, time=torch.where(cleared, TIME_INVALID, q.time))
         q, xchg, rounds, nc = self._exchange_push(
-            q, xchg, out.flatten(), final_mask.reshape(-1), host0)
+            q, xchg, out.flatten(), final_mask.reshape(-1), host0,
+            None if lane_hb is None
+            else lane_hb[:, None].expand(h * b, k).reshape(-1), fl)
         return dataclasses.replace(
             st, queues=q, hosts=hosts, src_seq=src_seq,
             exec_cnt=st.exec_cnt + n_exec,
@@ -1545,12 +1744,15 @@ class Engine:
         """Sweep until no host has an executable event below
         `window_end`."""
         st0 = st
-        while self._read(self._drain_flag(st.queues, st.cpu_free,
-                                          window_end)):
-            st = self._sweep(st, window_end, host0)
+        fl = self._drain_flag(st.queues, st.cpu_free, window_end)
+        while self._read(self._any(fl)):
+            st = self._sweep(st, window_end, host0,
+                             fl if self.lanes else None)
+            fl = self._drain_flag(st.queues, st.cpu_free, window_end)
         return self._end_window(st0, st.queues, st.hosts, st.src_seq,
                                 st.exec_cnt, st.stats, st.cpu_free,
-                                st.trace, st.splane, st.xchg, host0)
+                                st.trace, st.splane, st.xchg, host0,
+                                window_end)
 
     # -- windows -------------------------------------------------------------
     def _next_time(self, st: EngineState) -> torch.Tensor:
@@ -1561,6 +1763,8 @@ class Engine:
         nxt = st.queues.min_time()
         if self._cpu_enabled:
             nxt = torch.maximum(nxt, st.cpu_free)
+        if self.lanes:
+            return torch.min(nxt.reshape(self.lanes, -1), dim=1).values
         m = torch.min(nxt)
         if st.xchg is not None:
             m = torch.minimum(m, st.xchg.sent_min[0])
@@ -1652,12 +1856,114 @@ class Engine:
         return dataclasses.replace(st, now=torch.full(
             (), stop, dtype=torch.int64, device=self.device))
 
+    # -- windows of lanes ----------------------------------------------------
+    def _lane_stop(self, stop):
+        """A stop for every lane, from one stop or one per lane: (i64[L]
+        on the device, the same on the host)."""
+        if isinstance(stop, torch.Tensor):
+            stop = stop.cpu().numpy()
+        arr = np.asarray(stop, dtype=np.int64)
+        if arr.ndim == 0:
+            return (torch.full((self.lanes,), int(arr), dtype=torch.int64,
+                               device=self.device),
+                    np.full((self.lanes,), int(arr), np.int64))
+        if arr.shape != (self.lanes,):
+            raise ValueError(f"per-lane stop must be scalar or "
+                             f"[{self.lanes}], got shape {arr.shape}")
+        return torch.from_numpy(arr.copy()).to(self.device), arr
+
+    def _opens_lanes(self, st: EngineState, nxt, stop_t, stop_np):
+        """The lanes whose window opens (nxt < stop), in one counted read
+        for the fleet: (any lane opens, the [L] flags on the device,
+        whether a lane that opens enters a new fault epoch). With a fault
+        schedule the read fetches every lane's (nxt, watermark), and the
+        epochs are looked up on the host in each lane's schedule."""
+        opens = nxt < stop_t
+        if not self._f_any:
+            return self._read(torch.any(opens)), opens, False
+        got = self._fetch(torch.cat([nxt, st.fault_epoch.to(torch.int64)]))
+        t, mark = got[:self.lanes], got[self.lanes:]
+        op = t < stop_np
+        e = np.sum(self._np_times <= t[:, None], axis=1) - 1
+        return bool(op.any()), opens, bool(np.any(op & (e != mark)))
+
+    def _apply_fault_epoch_lanes(self, st: EngineState, nxt, opens
+                                 ) -> EngineState:
+        """`_apply_fault_epoch` for every lane at once: each lane whose
+        window opens in an epoch past its watermark applies the
+        transitions it entered (a per-lane mask over the padded epochs),
+        the others are left as they are."""
+        f = self.faults
+        lanes, h = self.lanes, self.cfg.n_hosts
+        tt = f.times.shape[1]
+        hosts, q, stats, tmpl = st.hosts, st.queues, st.stats, self._tmpl
+        lane = torch.arange(lanes, device=self.device)
+        e = self._epoch(nxt, lane)
+        mark = st.fault_epoch
+        chg = opens & (e != mark)
+        if self._f_crash:
+            idx = torch.arange(tt, dtype=torch.int32, device=self.device)
+            gap = ((idx[None, :] > mark[:, None])
+                   & (idx[None, :] <= e[:, None]) & chg[:, None])  # [L, T]
+            reset = torch.any(gap[:, :, None] & ~f.alive, dim=1).reshape(-1)
+            wiped = torch.sum(reset[:, None] & (q.time != TIME_INVALID),
+                              dim=1, dtype=torch.int64)
+            q = dataclasses.replace(q, time=torch.where(
+                reset[:, None], TIME_INVALID, q.time))
+            hosts = _select_rows(reset, tmpl, hosts)
+            stats = dataclasses.replace(
+                stats, n_quarantined=stats.n_quarantined + wiped)
+        if self._f_bw:
+            ec = torch.clamp(e, min=0).long()
+            bw_e = torch.gather(f.bw_scale, 1, ec[:, None, None].expand(
+                lanes, 1, h)).reshape(-1)  # [L * H]
+            chg_r = self._per_row(chg)
+            net = hosts.net
+
+            def scaled(cur, base):
+                return dataclasses.replace(cur, rate=torch.where(
+                    chg_r, base.rate * bw_e, cur.rate))
+
+            hosts = dataclasses.replace(hosts, net=dataclasses.replace(
+                net, nic_tx=scaled(net.nic_tx, tmpl.net.nic_tx),
+                nic_rx=scaled(net.nic_rx, tmpl.net.nic_rx)))
+        return dataclasses.replace(
+            st, queues=q, hosts=hosts, stats=stats,
+            fault_epoch=torch.where(chg, e, mark))
+
+    def _advance_lanes(self, st: EngineState, nxt, stop_t, opens,
+                       epoch_change: bool, window: int | None = None
+                       ) -> EngineState:
+        """`_advance` for every lane whose window opens: the others take
+        the `_LOW` barrier, so the drain leaves them as they are, and
+        keep their clock."""
+        if window is None:
+            window = self.cfg.lookahead
+        window_end = torch.clamp(nxt + window, max=stop_t)
+        if epoch_change:
+            st = self._apply_fault_epoch_lanes(st, nxt, opens)
+        st = self._drain_window(st, torch.where(opens, window_end, _LOW), 0)
+        return dataclasses.replace(st, now=torch.where(opens, window_end,
+                                                       st.now))
+
     def step_window(self, st: EngineState, stop: int,
                     host0: int | None = None,
                     window: int | None = None) -> EngineState:
         """Advance one conservative window (`window` wide, the lookahead
         by default: see `_advance`); when no event below `stop` remains,
-        land on `stop`. `host0` defaults to this shard's."""
+        land on `stop`. `host0` defaults to this shard's. For lanes,
+        `stop` is one stop or one per lane, and each lane advances one
+        window or, if none of its events is below its stop, lands."""
+        if self.lanes:
+            stop_t, stop_np = self._lane_stop(stop)
+            nxt = self._next_time(st)
+            opens_any, opens, ech = self._opens_lanes(st, nxt, stop_t,
+                                                      stop_np)
+            if not opens_any:
+                return dataclasses.replace(st, now=stop_t)
+            st = self._advance_lanes(st, nxt, stop_t, opens, ech, window)
+            return dataclasses.replace(st, now=torch.where(opens, st.now,
+                                                           stop_t))
         stop = int(stop)
         host0 = self.host0 if host0 is None else host0
         nxt = self._next_time(st)
@@ -1669,7 +1975,19 @@ class Engine:
     def run(self, st: EngineState, stop: int,
             host0: int | None = None) -> EngineState:
         """Run until no pending event is earlier than `stop`. `host0`
-        defaults to this shard's."""
+        defaults to this shard's. For lanes, `stop` is one stop or one
+        per lane; the loop runs while any lane's window opens."""
+        if self.lanes:
+            stop_t, stop_np = self._lane_stop(stop)
+            nxt = self._next_time(st)
+            opens_any, opens, ech = self._opens_lanes(st, nxt, stop_t,
+                                                      stop_np)
+            while opens_any:
+                st = self._advance_lanes(st, nxt, stop_t, opens, ech)
+                nxt = self._next_time(st)
+                opens_any, opens, ech = self._opens_lanes(st, nxt, stop_t,
+                                                          stop_np)
+            return dataclasses.replace(st, now=stop_t)
         stop = int(stop)
         host0 = self.host0 if host0 is None else host0
         nxt = self._next_time(st)

@@ -144,6 +144,46 @@ class EventQueue:
         return self.time.min(dim=1).values
 
 
+_FIELD_NAMES: dict = {}  # dataclass type -> its field names
+
+
+def _field_names(cls) -> tuple:
+    names = _FIELD_NAMES.get(cls)
+    if names is None:
+        names = _FIELD_NAMES[cls] = tuple(
+            f.name for f in dataclasses.fields(cls))
+    return names
+
+
+def _select_rows(mask: torch.Tensor, new: Any, old: Any) -> Any:
+    """Per-row select across two dataclasses of [H, ...] tensors: `new`
+    where the [H] mask is set, else `old`. Nested dataclasses and tuples
+    recurse and None fields stay None, as a pytree map over both would;
+    a leaf that is the same tensor on both sides is kept without a
+    select. The state dataclasses run no `__post_init__`, so a result is
+    built field by field without `dataclasses.replace`'s checks: this
+    runs for every host-state leaf at every handler of every step."""
+    views: dict = {}  # the mask viewed at each leaf rank
+
+    def sel(n, o):
+        if o is None or n is o:
+            return o
+        if isinstance(o, torch.Tensor):
+            m = views.get(o.dim())
+            if m is None:
+                m = views[o.dim()] = mask.reshape(
+                    mask.shape + (1,) * (o.dim() - 1))
+            return torch.where(m, n, o)
+        if isinstance(o, tuple):
+            return tuple(sel(a, b) for a, b in zip(n, o))
+        out = object.__new__(type(o))
+        out.__dict__.update({k: sel(getattr(n, k), getattr(o, k))
+                             for k in _field_names(type(o))})
+        return out
+
+    return sel(new, old)
+
+
 def group_run_starts(sorted_group_ids: torch.Tensor) -> torch.Tensor:
     """Index where each position's group run begins, for a group-sorted
     1-D tensor. Subtracting it from the position index yields each
@@ -217,7 +257,9 @@ def queue_pop(q: EventQueue, before: torch.Tensor, host_ids: torch.Tensor
 
 
 def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
-               read: Callable[[torch.Tensor], bool] = bool) -> EventQueue:
+               read: Callable[[torch.Tensor], bool] = bool,
+               width: int | None = None, lanes: int = 0,
+               part: torch.Tensor | None = None) -> EventQueue:
     """Insert a flat batch of events [M] into their destination queues.
 
     Events whose dst falls outside [host0, host0 + H), that are masked
@@ -242,6 +284,15 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
     `read` turns a 0-d bool tensor into a Python bool; it is the only
     device-to-host read here (the fallback rounds' and the hot region's
     decisions), so a caller can count them.
+
+    A fleet's push (`lanes` > 0: the rows are L lanes of H hosts,
+    lane-major) gives every lane the push of its solo run: `width` is one
+    lane's batch size, from which the round widths are taken; `part`
+    ([L] bool, None for all) holds the lanes that push at all; a round
+    runs for the lanes whose solo push would run it, the hot-region
+    choice is made per lane, and rows of the other lanes come out as
+    they went in (a merge would otherwise rewrite the payload of their
+    empty slots).
     """
     h, c = q.time.shape
     m = ev.time.shape[0]
@@ -334,6 +385,8 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
                 spill=spill,
             )
 
+        if lanes:
+            return _lane_round(q, w, row_merge, part_l, read, lanes)
         if c < 2 * HOT_C:
             return row_merge(q, c)
         # hot-region fast path: every resident event in the first HOT_C
@@ -345,13 +398,28 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
             return row_merge(q, HOT_C)
         return row_merge(q, c)
 
-    w_full = min(c, m)
+    w_full = min(c, m if width is None else width)
     w1 = min(w_full, MERGE_W)
+    # the lanes that run the next round (a fleet's push only)
+    part_l = None
+    if lanes:
+        part_l = (part if part is not None else torch.ones(
+            (lanes,), dtype=torch.bool, device=dev))
+
+    def more(lo):
+        """Whether another round runs past rank `lo`; for lanes, also
+        which lanes run it."""
+        nonlocal part_l
+        if not lanes:
+            return read(torch.any(count > lo))
+        part_l = part_l & torch.any((count > lo).reshape(lanes, -1), dim=1)
+        return read(torch.any(part_l))
+
     if q.spill is None:
         if w1 == w_full:
             return merge_round(q, 0, w_full, True)
         q = merge_round(q, 0, w1, False)
-        if read(torch.any(count > w1)):
+        if more(w1):
             q = merge_round(q, w1, w_full, True)
         return q
     # spill: a rank past the last round would be dropped without ever
@@ -360,10 +428,55 @@ def queue_push(q: EventQueue, ev: Events, mask: torch.Tensor, host0: int,
     # eviction tail fits one append)
     q = merge_round(q, 0, w1, False)
     lo = w1
-    while read(torch.any(count > lo)):
+    while more(lo):
         q = merge_round(q, lo, w_full, False)
         lo += w_full
     return q
+
+
+def _lane_rows(flags: torch.Tensor, rows: int) -> torch.Tensor:
+    """[L] lane flags broadcast to the L x H rows."""
+    lanes = flags.shape[0]
+    return flags[:, None].expand(lanes, rows // lanes).reshape(-1)
+
+
+def _keep_tail(new: EventQueue, old: EventQueue, rows: torch.Tensor,
+               c0: int) -> EventQueue:
+    """`new`, except that the slots from column c0 on of the `rows` keep
+    `old`'s."""
+    c = new.time.shape[1]
+    m = rows[:, None] & (torch.arange(c, device=rows.device) >= c0)[None, :]
+
+    def sel(n, o):
+        return torch.where(m.reshape(m.shape + (1,) * (n.dim() - 2)), o, n)
+
+    return dataclasses.replace(new, **{
+        f: sel(getattr(new, f), getattr(old, f))
+        for f in ("time", "src", "seq", "kind", "args")})
+
+
+def _lane_round(q: EventQueue, w: int, row_merge, part_l, read,
+                lanes: int) -> EventQueue:
+    """One merge round of a fleet's push: each lane takes the hot region
+    or the whole row as its solo push would (one read for the fleet: the
+    hot region when every lane that runs the round takes it; else the
+    whole row, the lanes that would have taken the hot region keeping
+    their slots past it), and the rows of lanes that do not run the
+    round come out as they went in."""
+    h, c = q.time.shape
+    if c < 2 * HOT_C:
+        out = row_merge(q, c)
+    else:
+        valid = q.time != TIME_INVALID
+        n_res = torch.max(torch.sum(valid, dim=1, dtype=torch.int32
+                                    ).reshape(lanes, -1), dim=1).values
+        tail_clear = ~torch.any(valid[:, HOT_C:].reshape(lanes, -1), dim=1)
+        hot = tail_clear & (n_res + w <= HOT_C)  # [L]
+        if read(torch.all(hot | ~part_l)):
+            out = row_merge(q, HOT_C)
+        else:
+            out = _keep_tail(row_merge(q, c), q, _lane_rows(hot, h), HOT_C)
+    return _select_rows(_lane_rows(part_l, h), out, q)
 
 
 def _spill_tail(spill: SpillRing, c: int, tail_t, tail_ss, tail_pay, over):

@@ -194,3 +194,21 @@ def build(
                               host0)
 
     return eng, init
+
+
+def build_fleet(n_hosts: int, lanes: int, *, seeds=None, stop_ns: int = 0,
+                **build_kw):
+    """Seed-sweep fleet over one PHOLD shape: `lanes` copies of the
+    `build(n_hosts, **build_kw)` scenario run as one engine
+    (`runtime.fleet`). `seeds` defaults to `seed .. seed+L-1` off the
+    base build's seed; every other knob is uniform across lanes by
+    construction, as the fleet's static-knob rule asks."""
+    from shadow_tpu_torch.runtime.fleet import build_fleet_from_engine
+
+    eng, init = build(n_hosts, **build_kw)
+    if seeds is None:
+        base = build_kw.get("seed", 0)
+        seeds = tuple(base + i for i in range(lanes))
+    return build_fleet_from_engine(
+        eng, init(), lanes, seeds=tuple(seeds), stop_ns=stop_ns
+    )

@@ -29,6 +29,11 @@ spill high-water mark takes a max), and the queue fill is the global
 valid count times the f32 reciprocal of the global slot count. Every
 rank gets the reduced counters, so each takes the same decisions; only
 rank 0 gets the per-host rows, the one host read of the segment there.
+
+For a fleet (`runtime.fleet.Fleet`), the bundle holds each lane's
+summary counters and queue fill as [L] tensors, read in the same one
+copy for all lanes; the per-scenario consumers (tracker, trace, capture,
+metrics) are refused, as the reference refuses them.
 """
 
 from __future__ import annotations
@@ -224,6 +229,14 @@ class HeartbeatHarvest:
         self.host_syncs = 0
         self._staging = _Staging()
         self.mesh = getattr(sim, "mesh", None)
+        self.lanes = int(getattr(sim, "lanes", 0) or 0)
+        if self.lanes and (tracker is not None or tdrain is not None
+                           or pcap is not None or metrics):
+            raise ValueError(
+                "fleet harvest carries per-lane summaries only; "
+                "tracker/trace/pcap/metrics consumers are "
+                "per-scenario — attach them to solo runs"
+            )
 
     def rebind(self, sim) -> None:
         """Point at a rebuilt Simulation (the --overflow grow
@@ -240,6 +253,14 @@ class HeartbeatHarvest:
         (never reset: the drain tracks each host's write counter)."""
         sim = self.sim
         q = state.queues
+        if self.lanes:
+            from shadow_tpu_torch.runtime.fleet import (
+                lane_fill_refs,
+                lane_summary_refs,
+            )
+
+            return state, {"summary": lane_summary_refs(state),
+                           "fill": lane_fill_refs(q, self.lanes)}
         bundle: dict[str, Any] = {
             # core.engine.state_summary's keys and reductions
             "summary": {
@@ -299,9 +320,20 @@ class HeartbeatHarvest:
         self.sim.engine.host_syncs += 1
         return fetch_global(bundle, self.mesh, self._staging)
 
+    def lane_summaries_from(self, fetched: dict) -> list:
+        """Fleet bundles only: per-lane summary dicts, each equal to the
+        lane's solo `state_summary`."""
+        from shadow_tpu_torch.runtime.fleet import lane_summaries_from
+
+        return lane_summaries_from(fetched["summary"])
+
     def summary_from(self, fetched: dict) -> dict:
         """`Simulation.summary`'s dict from a fetched bundle (no state
-        access, no read)."""
+        access, no read); for a fleet, the lanes' aggregate."""
+        if self.lanes:
+            from shadow_tpu_torch.runtime.fleet import aggregate_summary
+
+            return aggregate_summary(fetched["summary"])
         out = {k: int(v) for k, v in fetched["summary"].items()}
         sim = self.sim
         if sim.profiler is not None:

@@ -348,6 +348,11 @@ class Simulation:
             out["overdue"] = snap["overdue"]
         return out
 
+    def build_fleet(self, lanes: int, **overrides):
+        """Batch `lanes` scenario variants of this simulation into one
+        Fleet: see the module-level `build_fleet`."""
+        return build_fleet(self, lanes, **overrides)
+
     def metrics_refs(self, state) -> dict:
         """Device refs of the live-telemetry extras (net drops, fault
         drops, cross-shard traffic, socket byte totals) that the heartbeat
@@ -510,6 +515,39 @@ class FusedModel:
                 hs_out = _select_rows(sel, hs_i, hs_out)
                 em_out = _select_rows(sel, em_i, em_out)
         return hs_out, em_out
+
+
+def build_fleet(sim: Simulation, lanes: int, **overrides):
+    """Batch `lanes` variants of a built scenario into one Fleet.
+
+    Per-lane knobs (`seeds`, `faults`, `latency_scale`,
+    `bandwidth_scale`, `state_override`: see runtime.fleet.FleetPlan)
+    become per-lane inputs of ONE engine over every lane's rows; static
+    knobs (drain, frontier, window, capacity, ...) must stay uniform
+    and are refused with the reason. `HeartbeatHarvest` drives the fleet
+    through the same single-read path as a solo run.
+    """
+    from shadow_tpu_torch.runtime.fleet import build_fleet_from_engine
+
+    if sim.mesh is not None:
+        raise ValueError(
+            "fleets vmap the single-device engine; a sharded base "
+            "scenario is not supported — shard across fleet replicas "
+            "instead (one fleet per device group)"
+        )
+    if sim.pressure is not None:
+        raise ValueError(
+            "fleets cannot run spill/grow pressure modes; their "
+            "reservoir refills are host-side per-window work that "
+            "cannot ride one fused vmapped program — use --overflow "
+            "drop/strict for fleet runs"
+        )
+    fleet = build_fleet_from_engine(
+        sim.engine, sim.state0, lanes, names=sim.names,
+        stop_ns=sim.stop_ns, **overrides,
+    )
+    fleet.strict_overflow = sim.strict_overflow or sim.overflow == "strict"
+    return fleet
 
 
 def default_registry() -> dict[str, Callable]:

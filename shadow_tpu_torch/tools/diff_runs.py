@@ -145,7 +145,7 @@ def load_artifact(path: str) -> tuple[str, Any]:
         # the serve plane and its flight ledger are not ported yet
         raise NotImplementedError(
             f"{path}: a serve flight ledger; the serve plane is not "
-            "ported (ROADMAP.md Queue 1 item 8, fleets and serving)")
+            "ported (ROADMAP.md Queue 1 item 8b, the serving plane)")
     if kind == OPENMETRICS_T:
         return kind, load_openmetrics(text)
     return kind, load_heartbeat(text)

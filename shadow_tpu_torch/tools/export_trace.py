@@ -139,7 +139,8 @@ def export(in_path: str | None, out_path: str,
     if ledger_path is not None:
         raise NotImplementedError(
             "a serve flight ledger needs the serving plane (serve/, "
-            "obs/servetrace.py), which is not ported")
+            "obs/servetrace.py), which is not ported (ROADMAP.md Queue 1 "
+            "item 8b)")
     doc = {
         "traceEvents": events,
         "displayTimeUnit": "ms",

@@ -35,7 +35,7 @@ load), v6 the mesh header, v7 the serving plane's manifest. This module
 writes v7 and loads v3-v7.
 
 Not ported, raising NotImplementedError: the serving plane's manifest
-(`serve_manifest=`; ROADMAP item 8).
+(`serve_manifest=`; ROADMAP item 8b).
 """
 
 from __future__ import annotations
@@ -235,7 +235,7 @@ def save_checkpoint(path: str, state: Any, meta: dict | None = None,
     if serve_manifest is not None:
         raise NotImplementedError(
             "the serving plane's checkpoint manifest is not ported "
-            "(ROADMAP.md Queue 1 item 8, fleets and serving)")
+            "(ROADMAP.md Queue 1 item 8b, the serving plane)")
     if mesh is not None and shard is None:
         from shadow_tpu_torch.parallel.mesh import gather_state
 

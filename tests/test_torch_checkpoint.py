@@ -253,7 +253,7 @@ def test_transfer_state_matches_reference(runs):
 
 def test_unported_parts_raise(runs, tmp_path):
     st = runs["phold_udp"]["tmid"]
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         tckpt.save_checkpoint(str(tmp_path / "s.npz"), st,
                               serve_manifest={"rids": []})
     # shard sets are ported (tests/test_torch_elastic.py): a torn set

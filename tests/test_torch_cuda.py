@@ -880,3 +880,52 @@ def test_shard_set_written_on_card_resumes_on_cpu(tmp_path):
     straight = convert.engine_state_to_numpy(
         s.run(t2, state=s.run(t1)))
     _equal(resumed, straight, skip=MESH_SHAPED)
+
+
+def test_fleet_on_cuda_matches_cpu():
+    """A 3-lane TGen fleet under phase 22's faults and latency scales on
+    the card equals the same fleet on the CPU, lane by lane; the merge
+    launches once per merge round for the whole fleet, as often per
+    round as lane 0's solo run does (one launch per round)."""
+    _need_card()
+    from shadow_tpu_torch import config as tconfig
+    from shadow_tpu_torch import sim as tsim
+    from shadow_tpu_torch.core import events as tevents
+    from shadow_tpu_torch.faults import parse_fault_dsl
+
+    text = chip_smoke.tgen_config(6)
+    specs = tuple(parse_fault_dsl(s)
+                  for s in chip_smoke.FLEET_FAULTS.split(";"))
+    faults = (None, specs, specs)
+    plan = dict(seeds=(1, 2, 3), faults=faults,
+                latency_scale=(1.0, 1.5, 2.0))
+    leaves, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        sim = tsim.build_simulation(tconfig.parse_config(text), device=dev,
+                                    **chip_smoke.FLEET_BUILD_KW)
+        fleet = sim.build_fleet(3, **plan)
+        for label, run in (("fleet", fleet.run), ("solo", sim.run)):
+            calls = [0]
+            fused = tevents.merge.fused_merge
+
+            def count(*args):
+                calls[0] += 1
+                return fused(*args)
+
+            tevents.merge.fused_merge = count
+            before = merge.launches
+            try:
+                st = run(chip_smoke.FLEET_STOP_NS)
+                torch.cuda.synchronize()
+            finally:
+                tevents.merge.fused_merge = fused
+            counts[dev, label] = (calls[0], merge.launches - before)
+            if label == "fleet":
+                leaves[dev] = convert.fleet_state_to_numpy(st)
+    for key in leaves["cpu"]:
+        np.testing.assert_array_equal(leaves["cuda"][key], leaves["cpu"][key],
+                                      err_msg=key)
+    for label in ("fleet", "solo"):
+        rounds, launches = counts["cuda", label]
+        assert launches == rounds > 0, label
+        assert counts["cpu", label] == (rounds, 0), label

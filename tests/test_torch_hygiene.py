@@ -63,6 +63,7 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.tools.generate_topology\n"
         "import shadow_tpu_torch.parallel.mesh\n"
         "import shadow_tpu_torch.parallel.partition\n"
+        "import shadow_tpu_torch.runtime.fleet\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

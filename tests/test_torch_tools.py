@@ -198,7 +198,7 @@ def test_diff_runs_matches_reference(run):
     assert "[shadow-heartbeat]" in log
     ledger = run / "ledger.jsonl"
     ledger.write_text('{"ledger_version": 1}\n')
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         t_diff.load_artifact(str(ledger))
 
 
