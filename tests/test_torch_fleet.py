@@ -434,6 +434,40 @@ def test_new_plan_through_the_same_fleet():
         fleet.make_inputs(tfleet.FleetPlan(3, seeds=(7, 8, 9)))
 
 
+def test_fault_pad_shares_bind_shapes_across_plans():
+    """`fault_pad` pins the padded schedule's shape, so a plan with other
+    faults rides the same fleet through `make_inputs`, and the padding
+    stays values-neutral: each lane equals its solo run."""
+    eng, init = tphold.build(N, seed=0, device="cpu", **KW)
+    plan = lambda faults: tfleet.FleetPlan(
+        2, seeds=(31, 32), faults=_specs(faults, parse_fault_dsl))
+    fleet = tfleet.Fleet(eng, init(), plan(((CRASH,), (LOSSY,))),
+                         fault_pad=(8, 4))
+    st, binds = fleet.make_inputs(plan(((LOSSY,), (CRASH,))))
+    assert binds["f_times"].shape == fleet.binds["f_times"].shape == (2, 8)
+    assert binds["f_lat"].shape == (2, 8, 4, 4)
+    lt = convert.fleet_state_to_numpy(fleet.run(STOP, st, binds=binds))
+    for k, (seed, faults) in enumerate(((31, (LOSSY,)), (32, (CRASH,)))):
+        assert_leaves_equal(lane(lt, k), convert.engine_state_to_numpy(
+            port_solo(seed, faults)))
+    with pytest.raises(ValueError, match="fault flags"):
+        fleet.make_inputs(plan((None, None)))
+
+
+def test_overflow_is_loud_across_the_fleet():
+    """A fleet whose queues overflow raises with the fleet's drop count,
+    as a strict solo run does; with strict_overflow off the drops are
+    counted per lane."""
+    eng, init = tphold.build(N, seed=0, device="cpu", capacity=2,
+                             msgs_per_host=4)
+    fleet = tfleet.build_fleet_from_engine(eng, init(), 2, seeds=(1, 2))
+    with pytest.raises(RuntimeError, match="dropped across the fleet"):
+        fleet.run(SECOND // 2)
+    fleet.strict_overflow = False
+    sums = fleet.lane_summaries(fleet.run(SECOND // 2))
+    assert all(r["queue_drops"] > 0 for r in sums)
+
+
 def test_phold_build_fleet_convenience_defaults():
     # the model-level sweep entry point: seeds default to base seed ..
     # base seed + L - 1
