@@ -72,9 +72,9 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    adoption time;
 13. several app models in one config (`sim.FusedModel`): TGen at 1,024
    pairs beside 2,048 PHOLD peers (4096 hosts), with bench.py's TCP
-   knobs, run once to MIXED_STOP_S = 3 sim-s (cut from 4 for phase 22):
-   held the same way as 11, and to its TGen streams done, PHOLD messages
-   sent and received and hosts per model; a profile of 1.00-1.25 s;
+   knobs, run once to MIXED_STOP_S = 4 sim-s: held the same way as 11,
+   and to its TGen streams done, PHOLD messages sent and received and
+   hosts per model; a profile of 1.00-1.25 s;
 14. lossless overflow (`runtime.pressure`): bench.py's skew shape
    (PHOLD 4096 x 8 with 64 hot hosts, batched drain) to SKEW_STOP_NS =
    2 sim-s at capacity 256 with drops, with a 1,024-slot spill ring
@@ -416,15 +416,13 @@ TGEN_LESS_INNER = (
 # windows, sweeps, inner steps, queue drops, TGen streams done, PHOLD
 # messages sent and received, hosts of model 0 and of model 1, digest).
 MIXED_PAIRS, MIXED_PEERS, MIXED_LOAD = 1024, 2048, 2
-# cut to 3 sim-s to make room for phase 22 (from 5 when phase 19 came,
-# 4 when phase 20 came), where JAX/CPU counts 322 inner steps (491 at
-# 4 s, 652 at 5 s, 825 at 6 s, 1,164 at 8 s); the PHOLD peers run for
-# 2 s, the TGen servers listen and the clients, which start at 3 s,
-# have not sent yet
-MIXED_STOP_S = 3
+# cut to 4 sim-s (from 5 when phase 19 came), where JAX/CPU counts 491
+# inner steps (652 at 5 s, 825 at 6 s, 1,164 at 8 s); the clients
+# starting at 3 s have run by then, and the PHOLD peers for 3 s
+MIXED_STOP_S = 4
 PIN_MIXED = (
-    164_864, 40, 40, 322, 0, 0, 163_840, 159_744, 2_048, 2_048,
-    "62b98cd430bdcf66c1374339ffdd7b3618422b91a2dd4caf7d962a1348e883b2")
+    254_574, 60, 60, 491, 0, 205, 245_760, 241_664, 2_048, 2_048,
+    "c4bc2b79937d5128b34264f78d541cd6977ae9f9e50382607402f4220ceeb42b")
 # PHOLD's messages start at 1 s: the profile covers 1.00-1.25 s
 MIXED_PROFILE_S = (1.0, 1.25)
 MIXED_TIMED_CALL = 45

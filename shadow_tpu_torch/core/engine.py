@@ -1946,6 +1946,7 @@ class Engine:
         return dataclasses.replace(st, now=torch.where(opens, window_end,
                                                        st.now))
 
+    @torch.inference_mode()
     def step_window(self, st: EngineState, stop: int,
                     host0: int | None = None,
                     window: int | None = None) -> EngineState:
@@ -1972,6 +1973,7 @@ class Engine:
             return self._advance(st, nxt, stop, host0, epochs, window)
         return self._land(st, stop, host0)
 
+    @torch.inference_mode()
     def run(self, st: EngineState, stop: int,
             host0: int | None = None) -> EngineState:
         """Run until no pending event is earlier than `stop`. `host0`

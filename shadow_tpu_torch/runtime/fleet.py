@@ -284,35 +284,40 @@ def aggregate_summary(fetched: dict) -> dict:
 
 # -- the lane layout ---------------------------------------------------------
 
-def _map_fields(fn, obj, prefix: str = ""):
-    """Rebuild a dataclass tree with fn(key, leaf) at every tensor leaf
-    (None kept, tuples followed), keyed as `convert` keys leaves."""
-    if obj is None:
+def _tree_map(fn, *trees, prefix: str = ""):
+    """fn(key, *leaves) over the leaves of trees of one structure
+    (dataclass, dict, tuple, list; None kept), rebuilt in that structure.
+    A leaf's key is its path joined by dots, as `convert` keys leaves."""
+    t0 = trees[0]
+    if t0 is None:
         return None
-    if dataclasses.is_dataclass(obj):
-        return dataclasses.replace(obj, **{
-            f.name: _map_fields(fn, getattr(obj, f.name),
-                                f"{prefix}{f.name}.")
-            for f in dataclasses.fields(obj)})
-    if isinstance(obj, tuple):
-        return tuple(_map_fields(fn, x, f"{prefix}{i}.")
-                     for i, x in enumerate(obj))
-    return fn(prefix[:-1], obj)
+    if dataclasses.is_dataclass(t0):
+        return dataclasses.replace(t0, **{
+            f.name: _tree_map(fn, *[getattr(t, f.name) for t in trees],
+                              prefix=f"{prefix}{f.name}.")
+            for f in dataclasses.fields(t0)})
+    if isinstance(t0, dict):
+        return {k: _tree_map(fn, *[t[k] for t in trees],
+                             prefix=f"{prefix}{k}.") for k in t0}
+    if isinstance(t0, (tuple, list)):
+        return type(t0)(_tree_map(fn, *xs, prefix=f"{prefix}{i}.")
+                        for i, xs in enumerate(zip(*trees)))
+    return fn(prefix[:-1], *trees)
+
+
+def _tree_leaves(tree) -> list:
+    """(key, leaf) of every leaf of a tree, in `_tree_map`'s order."""
+    out = []
+    _tree_map(lambda k, t: out.append((k, t)), tree)
+    return out
 
 
 def stack_lanes(states: list) -> EngineState:
     """One fleet state from L solo states of one build: per-host leaves
     concatenated lane-major, scalar leaves stacked to [L]."""
-    def leaves(st):
-        out = []
-        _map_fields(lambda k, t: out.append(t), st)
-        return out
-
-    cols = list(zip(*[leaves(st) for st in states]))
-    it = iter(cols)
-    return _map_fields(
-        lambda k, t: (torch.stack(next(it)) if t.dim() == 0
-                      else torch.cat(next(it))), states[0])
+    return _tree_map(
+        lambda k, *ts: (torch.stack(ts) if ts[0].dim() == 0
+                        else torch.cat(ts)), *states)
 
 
 def lane_view(state: EngineState) -> EngineState:
@@ -320,7 +325,7 @@ def lane_view(state: EngineState) -> EngineState:
     reference's [L, ...] leaves: per-host [L * H, ...] leaves viewed as
     [L, H, ...], the [L] scalars as they are."""
     lanes = int(state.now.shape[0])
-    return _map_fields(
+    return _tree_map(
         lambda k, t: t if k in LANE_LEAVES
         else t.reshape((lanes, t.shape[0] // lanes) + tuple(t.shape[1:])),
         state)
@@ -329,7 +334,7 @@ def lane_view(state: EngineState) -> EngineState:
 def row_view(state: EngineState) -> EngineState:
     """The inverse of `lane_view`: [L, H, ...] leaves back to [L * H,
     ...] rows, the [L] scalars as they are."""
-    return _map_fields(
+    return _tree_map(
         lambda k, t: t if k in LANE_LEAVES
         else t.reshape((-1,) + tuple(t.shape[2:])), state)
 
@@ -362,7 +367,6 @@ class Fleet:
         self.stop_ns = stop_ns
         self.names = list(names) if names is not None else None
         self.strict_overflow = strict_overflow
-        self.overflow = "drop"
         # per_lane_stop: the stop becomes one per lane, so every lane
         # ends its last window at its own stop, as its solo run does
         self.per_lane_stop = bool(per_lane_stop)
@@ -485,19 +489,12 @@ class Fleet:
 
     def _stop_arg(self, stop_ns):
         """The stop of a call: one for all lanes, or with per_lane_stop
-        one per lane ([L]; a scalar applies to every lane)."""
+        one per lane (the engine takes a scalar or an [L] stop)."""
         if self.per_lane_stop:
-            arr = np.asarray(
-                stop_ns.cpu().numpy() if isinstance(stop_ns, torch.Tensor)
-                else stop_ns, np.int64)
-            if arr.ndim == 0:
-                arr = np.full((self.lanes,), int(arr), np.int64)
-            if arr.shape != (self.lanes,):
-                raise ValueError(
-                    f"per-lane stop must be scalar or [{self.lanes}], "
-                    f"got shape {arr.shape}"
-                )
-            return arr
+            return stop_ns
+        if np.ndim(stop_ns) != 0:
+            raise ValueError("a per-lane stop needs a fleet built with "
+                             "per_lane_stop=True")
         return int(stop_ns)
 
     def run(self, stop_ns: int | None = None, state=None, *, binds=None):
@@ -583,7 +580,7 @@ class Fleet:
         copied onto the engine's device, so the caller's buffers are
         never shared."""
         dev = self.base.device
-        state = _map_fields(
+        state = _tree_map(
             lambda k, t: torch.as_tensor(np.asarray(t) if not isinstance(
                 t, torch.Tensor) else t).to(dev, copy=True), state)
         return self._note_owned(state)
@@ -600,45 +597,6 @@ def inert_lane_state(state):
     q = state.queues
     q = dataclasses.replace(q, time=torch.full_like(q.time, TIME_INVALID))
     return dataclasses.replace(state, queues=q)
-
-
-def _tree_leaves(tree, path=""):
-    """(path, leaf) of a nested dict/tuple/list/dataclass tree."""
-    if tree is None:
-        return []
-    if dataclasses.is_dataclass(tree):
-        out = []
-        for f in dataclasses.fields(tree):
-            out += _tree_leaves(getattr(tree, f.name), f"{path}.{f.name}")
-        return out
-    if isinstance(tree, dict):
-        out = []
-        for k, v in tree.items():
-            out += _tree_leaves(v, f"{path}[{k!r}]")
-        return out
-    if isinstance(tree, (tuple, list)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _tree_leaves(v, f"{path}[{i}]")
-        return out
-    return [(path, tree)]
-
-
-def _tree_map(fn, *trees):
-    """fn over the leaves of trees of one structure (dict, tuple, list,
-    dataclass; None kept)."""
-    t0 = trees[0]
-    if t0 is None:
-        return None
-    if dataclasses.is_dataclass(t0):
-        return dataclasses.replace(t0, **{
-            f.name: _tree_map(fn, *[getattr(t, f.name) for t in trees])
-            for f in dataclasses.fields(t0)})
-    if isinstance(t0, dict):
-        return {k: _tree_map(fn, *[t[k] for t in trees]) for k in t0}
-    if isinstance(t0, (tuple, list)):
-        return type(t0)(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
 
 
 def lane_reshard(state, new_lanes: int) -> list:
@@ -681,7 +639,7 @@ def lane_reshard(state, new_lanes: int) -> list:
     parts = []
     for j in range(lanes // new_lanes):
         lo, hi = j * new_lanes, (j + 1) * new_lanes
-        part = _tree_map(lambda x: x[lo:hi], tree)
+        part = _tree_map(lambda k, x: x[lo:hi], tree)
         parts.append(row_view(part) if is_state else part)
     return parts
 
@@ -696,10 +654,10 @@ def lane_merge(states: list):
     if len(states) == 1:
         return states[0]
     if isinstance(states[0], EngineState):
-        return row_view(_tree_map(lambda *xs: torch.cat(xs),
+        return row_view(_tree_map(lambda k, *xs: torch.cat(xs),
                                   *[lane_view(s) for s in states]))
     return _tree_map(
-        lambda *xs: np.concatenate([np.asarray(x) for x in xs], axis=0),
+        lambda k, *xs: np.concatenate([np.asarray(x) for x in xs], axis=0),
         *states)
 
 

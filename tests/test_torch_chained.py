@@ -33,7 +33,8 @@ from shadow_tpu_torch.core import engine as tengine
 from shadow_tpu_torch.core.events import Events as TEvents
 from shadow_tpu_torch.core.timebase import TIME_INVALID
 from shadow_tpu_torch.models import phold as tphold
-from test_torch_phold import CASES, assert_leaves_equal, jax_leaves, run_both
+from test_torch_phold import (  # noqa: F401 (one_torch_thread: autouse)
+    CASES, assert_leaves_equal, jax_leaves, run_both, one_torch_thread)
 from torch_toy import (
     LAT, PING, TICK, TOY, TOY_ARGS, TOY_STOP, run_torch_toy, toy_config,
     toy_initial,

@@ -35,7 +35,8 @@ from shadow_tpu_torch.core import rng as trng
 from shadow_tpu_torch.core.events import Events as TEvents
 from shadow_tpu_torch.core.timebase import TIME_INVALID
 from shadow_tpu_torch.models import phold as tphold
-from test_torch_phold import assert_leaves_equal, jax_leaves
+from test_torch_phold import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_leaves_equal, jax_leaves, one_torch_thread)
 
 MS = 1_000_000
 SECOND = 1_000_000_000

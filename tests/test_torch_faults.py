@@ -43,7 +43,8 @@ from shadow_tpu_torch.core.events import Events
 from shadow_tpu_torch.faults import schedule as tsched
 from shadow_tpu_torch.models import phold as tphold
 from test_torch_chained import JToy, jax_toy
-from test_torch_phold import assert_leaves_equal, jax_leaves
+from test_torch_phold import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_leaves_equal, jax_leaves, one_torch_thread)
 from torch_toy import (
     LAT, PING, TOY, TOY_STOP, TToy, toy_config, toy_initial, torch_toy,
 )

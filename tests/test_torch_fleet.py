@@ -9,9 +9,9 @@ launching operations independent of the lane count (the reference pins
 its op histogram); one fetch per heartbeat segment; static knobs and a
 sharded base refused; `phold.build_fleet`'s defaults. Beyond them: per-
 lane stops, an inert lane, lane reshard and merge, lanes on the chained,
-batched and frontier drains (with the trace ring and the stats plane on,
-and a per-lane bandwidth scale), a warm plan swap and an adopted state.
-Each reference fleet runs once per file.
+batched and frontier drains against the reference fleet (with the trace
+ring and the stats plane on, and a per-lane bandwidth scale), a warm
+plan swap and an adopted state. Each reference fleet runs once per file.
 """
 
 import functools
@@ -21,6 +21,8 @@ import numpy as np
 import pytest
 import torch
 
+from shadow_tpu import config as jconfig
+from shadow_tpu import sim as jsim
 from shadow_tpu.faults import parse_fault_dsl as jparse_fault
 from shadow_tpu.models import phold as jphold
 from shadow_tpu.runtime import fleet as jfleet
@@ -58,11 +60,15 @@ def _specs(faults, parse):
                  for f in faults)
 
 
-@functools.lru_cache(maxsize=None)
 def port_solo(seed, faults=(), scale=None, stop=STOP, batched=False):
     """The port's native solo build of one lane's scenario: faults
     compiled into the Engine, latency scaling by `scaled_network`; once
     per scenario for the whole file."""
+    return _port_solo(seed, faults, scale, stop, batched)
+
+
+@functools.lru_cache(maxsize=None)
+def _port_solo(seed, faults, scale, stop, batched):
     eng, init = tphold.build(N, seed=seed, device="cpu", batched=batched,
                              **KW)
     st0 = init()
@@ -149,8 +155,11 @@ def test_fault_schedules_do_not_bleed_across_lanes(mixed):
     assert final.fault_epoch.tolist() == [0, 2, 2, 0]
 
 
+SWEEP = (5, 6, 7)
+
+
 def test_seed_sweep_lanes_match_reference_and_solo():
-    plan = dict(seeds=(5, 6, 7))
+    plan = dict(seeds=SWEEP)
     lj, sj = jax_fleet(3, False, plan_key(plan))
     fleet = port_fleet(3, **plan)
     final = fleet.run(STOP)
@@ -158,7 +167,7 @@ def test_seed_sweep_lanes_match_reference_and_solo():
     assert_leaves_equal(lj, lt)
     sums = fleet.lane_summaries(final)
     assert sums == sj
-    for k, seed in enumerate((5, 6, 7)):
+    for k, seed in enumerate(SWEEP):
         solo = port_solo(seed)
         assert_leaves_equal(lane(lt, k), convert.engine_state_to_numpy(solo))
         assert sums[k] == state_summary(solo)
@@ -277,17 +286,17 @@ def test_per_lane_stop_matches_each_lanes_solo_run():
     stop, exactly like its solo run to that stop and the reference
     fleet's lane."""
     eng, init = tphold.build(N, seed=0, device="cpu", **KW)
-    fleet = tfleet.Fleet(eng, init(), tfleet.FleetPlan(3, seeds=(4, 5, 6)),
+    fleet = tfleet.Fleet(eng, init(), tfleet.FleetPlan(3, seeds=SWEEP),
                          per_lane_stop=True)
     stops = (SECOND, 2 * SECOND + 7_000_000, STOP)
     final = fleet.run(np.array(stops))
     lt = convert.fleet_state_to_numpy(final)
     jeng, jinit = jphold.build(N, seed=0, **KW)
-    jf = jfleet.Fleet(jeng, jinit(), jfleet.FleetPlan(3, seeds=(4, 5, 6)),
+    jf = jfleet.Fleet(jeng, jinit(), jfleet.FleetPlan(3, seeds=SWEEP),
                       per_lane_stop=True)
     assert_leaves_equal(jax_leaves(jax.device_get(jf.run(np.array(stops)))),
                         lt)
-    for k, (seed, stop) in enumerate(zip((4, 5, 6), stops)):
+    for k, (seed, stop) in enumerate(zip(SWEEP, stops)):
         solo = port_solo(seed, stop=stop)
         assert_leaves_equal(lane(lt, k), convert.engine_state_to_numpy(solo))
     assert final.now.tolist() == list(stops)
@@ -350,21 +359,32 @@ def test_lane_reshard_then_merge_gives_back_the_state(mixed):
     assert_leaves_equal(convert.fleet_state_to_numpy(adopted), whole)
 
 
-def _sim_lanes(frontier, trace, stats):
-    text = tgen_example(n_pairs=2, sendsize="16KiB", recvsize="64KiB",
+SIM_TEXT = tgen_example(n_pairs=2, sendsize="16KiB", recvsize="64KiB",
                         count=2, stoptime=5)
-    return tsim.build_simulation(
-        tconfig.parse_config(text), seed=3, n_sockets=4, capacity=256,
-        device="cpu", overflow="drop", frontier=frontier, trace=trace,
-        stats=stats)
+SIM_KW = dict(seed=3, n_sockets=4, capacity=256, overflow="drop",
+              trace=48, stats=1)
+SIM_BW = "bandwidth hosts=srv* start=2 end=4 factor=0.25"
+
+
+def _sim_lanes(frontier):
+    return tsim.build_simulation(tconfig.parse_config(SIM_TEXT),
+                                 device="cpu", frontier=frontier, **SIM_KW)
+
+
+def _sim_plan(parse):
+    """The sim lanes' plan in one package: a bandwidth fault in lane 0,
+    a halved NIC rate and a 1.25x latency in lane 1."""
+    return dict(seeds=(3, 4), faults=((parse(SIM_BW),), None),
+                bandwidth_scale=(1.0, 0.5), latency_scale=(1.0, 1.25))
 
 
 @pytest.mark.parametrize("drain", ["chained", "batched", "frontier"])
 def test_lanes_on_every_drain(drain):
     """Lanes with the trace ring and the stats plane on, on each drain,
-    equal their solo runs, trace scratch columns included. The sim lanes
-    carry a per-lane bandwidth scale, a latency scale and a bandwidth
-    fault in one lane; the batched drain is PHOLD's."""
+    equal the reference fleet's lanes and their solo runs, trace scratch
+    columns included. The sim lanes carry a per-lane bandwidth scale, a
+    latency scale and a bandwidth fault in one lane; the batched drain
+    is PHOLD's."""
     if drain == "batched":
         eng, init = tphold.build(N, seed=0, device="cpu", batched=True,
                                  trace=32, stats=1, **KW)
@@ -395,16 +415,19 @@ def test_lanes_on_every_drain(drain):
             assert_leaves_equal(lane(lt, k),
                                 convert.engine_state_to_numpy(solo))
         return
-    sim = _sim_lanes(16 if drain == "frontier" else 0, 48, 1)
-    bw = parse_fault_dsl("bandwidth hosts=srv* start=2 end=4 factor=0.25")
-    fleet = sim.build_fleet(2, seeds=(3, 4), faults=((bw,), None),
-                            bandwidth_scale=(1.0, 0.5),
-                            latency_scale=(1.0, 1.25))
+    frontier = 16 if drain == "frontier" else 0
+    sim = _sim_lanes(frontier)
+    fleet = sim.build_fleet(2, **_sim_plan(parse_fault_dsl))
     final = fleet.run()
     lt = convert.fleet_state_to_numpy(final)
     assert final.trace is not None and final.splane is not None
+    js = jsim.build_simulation(jconfig.parse_config(SIM_TEXT),
+                               frontier=frontier, **SIM_KW)
+    jf = js.build_fleet(2, **_sim_plan(jparse_fault))
+    assert_leaves_equal(jax_leaves(jax.device_get(jf.run())), lt)
+    bw = parse_fault_dsl(SIM_BW)
     for k in range(2):
-        s2 = _sim_lanes(16 if drain == "frontier" else 0, 48, 1)
+        s2 = _sim_lanes(frontier)
         eng, st0 = s2.engine, s2.state0
         if k == 1:
             st0 = tfleet._scale_nic(st0, 0.5)

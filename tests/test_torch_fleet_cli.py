@@ -75,10 +75,17 @@ def fleet_runs(tmp_path_factory):
             for pkg in ("jax", "torch")}
 
 
-def test_fleet_cli_matches_reference(fleet_runs):
+def test_fleet_cli_matches_reference(fleet_runs, tmp_path):
     j, t = fleet_runs["jax"], fleet_runs["torch"]
     assert j["rc"] == t["rc"] == 0, t["err"][-2000:]
     assert stripped(t["out"]) == stripped(j["out"])
+    # the lane-by-lane derivation that computes PIN_CLI_FLEET gives the
+    # reference CLI's own [fleet] rows and summary
+    (tmp_path / "faults.txt").write_text(
+        "\n".join(chip_smoke.FLEET_FAULT_LINES) + "\n")
+    ref = reference_lanes(PAIRS, tmp_path / "faults.txt")
+    assert chip_smoke.fleet_pin_fields(j["out"]) == {
+        "summary": ref["summary"], "rows_sha256": ref["rows_sha256"]}
     s = t["summary"]
     assert s["fleet_lanes"] == chip_smoke.FLEET_LANES
     assert s["seeds"] == [1, 2, 3, 4]

@@ -41,7 +41,7 @@ from test_torch_tcp import one_torch_thread  # noqa: F401 (autouse)
 
 SECOND = 1_000_000_000
 # the reference test runs to 30 s; the TGen pair is done by 5 s
-STOP_S = 8
+STOP_S = 6
 STOPTIME = MIXED.replace('arguments="load=3"/>',
                          'arguments="load=3" stoptime="4"/>')
 

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 from shadow_tpu.core import engine as jengine
@@ -34,6 +35,17 @@ def jax_leaves(state) -> dict:
     flat, _ = jax.tree_util.tree_flatten_with_path(jax.device_get(state))
     return {".".join(str(getattr(k, "name", getattr(k, "idx", None)))
                      for k in path): np.asarray(v) for path, v in flat}
+
+
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The port's tensors here are a few rows wide: one intra-op thread
+    runs them fastest and keeps parallel test workers off each other's
+    cores. Autouse in every test module that imports it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def assert_leaves_equal(lj: dict, lt: dict):

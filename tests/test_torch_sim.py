@@ -39,7 +39,8 @@ from shadow_tpu_torch.transport import stack as tstack
 from shadow_tpu_torch.transport import tcp as ttcp
 from shadow_tpu_torch.transport.stack import A_LEN
 from test_config_sim import PHOLD_CONFIG, TOPO_1POI, tgen_config
-from test_torch_phold import assert_leaves_equal, jax_leaves
+from test_torch_phold import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_leaves_equal, jax_leaves, one_torch_thread)
 from test_torch_udp_stack import REFERENCE_AVX512
 
 SECOND = 1_000_000_000

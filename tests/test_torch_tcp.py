@@ -35,23 +35,13 @@ from shadow_tpu.transport import tcp as jtcp
 from shadow_tpu_torch import convert
 from shadow_tpu_torch.transport import stack as tstack
 from shadow_tpu_torch.transport import tcp as ttcp
-from test_torch_phold import assert_leaves_equal, jax_leaves
+from test_torch_phold import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_leaves_equal, jax_leaves, one_torch_thread)
 from torch_tcp_harness import (
     MS, SECOND, build_pair, forget_socket, put_torch)
 
 I32 = torch.int32
 U64_ALL = (1 << 64) - 1
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """The port's tensors here are a few rows wide: one intra-op thread
-    runs them fastest and keeps parallel test workers off each other's
-    cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # -- bitmaps -----------------------------------------------------------------

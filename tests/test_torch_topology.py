@@ -27,7 +27,8 @@ from shadow_tpu_torch.core import rng as trng
 from shadow_tpu_torch.models import phold as tphold
 from shadow_tpu_torch.net import topology as ttop
 from test_topology import GRAPHML_1POI, GRAPHML_LINE
-from test_torch_phold import assert_leaves_equal, jax_leaves
+from test_torch_phold import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_leaves_equal, jax_leaves, one_torch_thread)
 
 MS = 1_000_000
 SECOND = 1_000_000_000

@@ -43,7 +43,8 @@ from shadow_tpu_torch.host import nic as tnic
 from shadow_tpu_torch.host import sockets as tsock
 from shadow_tpu_torch.transport import stack as tstack
 from shadow_tpu_torch.transport import tcp as ttcp
-from test_torch_phold import assert_leaves_equal, jax_leaves
+from test_torch_phold import (  # noqa: F401 (one_torch_thread: autouse)
+    assert_leaves_equal, jax_leaves, one_torch_thread)
 
 MS = 1_000_000
 SECOND = 1_000_000_000
