@@ -63,10 +63,10 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    events, windows, sweeps, inner steps, drops, streams done, relayed
    bytes and state digest, and to a merge launch per sweep; merge launches counted by queue width,
    the kernel held to its plain version on captured inputs at every
-   width reached and timed on one per width; a profile of 3.00-3.25 s;
+   width reached and timed on one per width (no profile since phase 23);
 12. Bitcoin (UDP control and TCP block bodies on one host), built from
    `bitcoin_example(1000 nodes)` with bench.py's knobs, run once to
-   BTC_STOP_S = 32 sim-s in one call, while the first block (mined at
+   BTC_STOP_S = 31.75 sim-s in one call, while the first block (mined at
    31 s) spreads: held the same way, and to the least and largest `best`
    over the real nodes (0 and 1; 0 on the pad rows) and the last
    adoption time;
@@ -74,7 +74,7 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    pairs beside 2,048 PHOLD peers (4096 hosts), with bench.py's TCP
    knobs, run once to MIXED_STOP_S = 4 sim-s: held the same way as 11,
    and to its TGen streams done, PHOLD messages sent and received and
-   hosts per model; a profile of 1.00-1.25 s;
+   hosts per model (no profile since phase 23);
 14. lossless overflow (`runtime.pressure`): bench.py's skew shape
    (PHOLD 4096 x 8 with 64 hot hosts, batched drain) to SKEW_STOP_NS =
    2 sim-s at capacity 256 with drops, with a 1,024-slot spill ring
@@ -168,7 +168,24 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    (16,384 rows) and timed, its launches counted per merge round (one
    for the whole fleet); lane 0's solo run on the same build, whose
    digest must equal lane 0's; and one window past the stop profiled on
-   each: device launches per inner step, fleet against solo.
+   each: device launches per inner step, fleet against solo;
+23. the serving plane: an in-process `SimService` (SERVE_LANES = 4
+   lanes) behind its HTTP server on 127.0.0.1, driven by
+   tools/serve_client's `run_load`: class A, TGen at phase 10's shape
+   packed four lanes wide (SERVE_A: seeds 1-4, stops 4, 2, 3 and 4
+   sim-s, latency scales 1, 1, 1.5 and 2), and class B, one request
+   under a partition fault beside three inert pad lanes; a flight
+   ledger, a snapshot every beat of SERVE_BEAT_WINDOWS windows and the
+   one-shot SERVE_CHAOS raise at beat 2, so class A retries from its
+   beat-1 snapshot: every summary held to PIN_SERVE, `resumed_from_beat`
+   on class A, its seed-1 lane's leaves to phase 22's lane-0 digest,
+   the pad lanes' counters 0, /metrics to the OpenMetrics checker, the
+   ledger through tools/serve_report, a merge launch per sweep; the ms
+   per inner step served beside phase 22's fleet, the snapshots' bytes
+   and write times and each launch's wall printed; then (b) `python -m
+   shadow_tpu_torch serve` as a subprocess on the card: one small PHOLD
+   request equal to the port's solo run, SIGTERM, exit 0, the queue
+   file written.
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -176,7 +193,7 @@ package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines; `--only 17,18` runs phases 1-3 and then only
-the listed phases (9-22), without the result lines.
+the listed phases (9-23), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
@@ -192,7 +209,8 @@ slow` for phase 16, `tests/test_torch_cubic.py -m slow` for phase 17,
 `tests/test_torch_pcap.py -m slow` for phase 20,
 `tests/test_torch_shard_cli.py -m slow` for phase 21,
 `tests/test_torch_fleet_cli.py -m slow` for phase 22, lane by lane from
-the reference's solo runs). The merge-input
+the reference's solo runs, `tests/test_torch_serve.py -m slow` for
+phase 23, the reference's `solo_reference` of each request). The merge-input
 generator below is shared with tests/test_torch_merge.py.
 """
 
@@ -423,8 +441,6 @@ MIXED_STOP_S = 4
 PIN_MIXED = (
     254_574, 60, 60, 491, 0, 205, 245_760, 241_664, 2_048, 2_048,
     "c4bc2b79937d5128b34264f78d541cd6977ae9f9e50382607402f4220ceeb42b")
-# PHOLD's messages start at 1 s: the profile covers 1.00-1.25 s
-MIXED_PROFILE_S = (1.0, 1.25)
 MIXED_TIMED_CALL = 45
 # Lossless overflow (phase 14): bench.py's `skew_worker` (bench.py:
 # 689-703: PHOLD 4096 x 8, seed 1234, batched drain, 64 hot hosts taking
@@ -906,6 +922,54 @@ PIN_CLI_FLEET = {
     ]}
 
 
+# The serving plane (phase 23): an in-process SimService at SERVE_LANES
+# lanes behind its HTTP server, driven by tools/serve_client's own
+# functions. Class A: TGen at phase 10's 4,096-host shape, SERVE_A's
+# (seed, stop in sim-s, latency scale) packed into one launch (its
+# seed-1 lane is phase 22's lane 0: the same config, seed, stop and
+# scale); class B: one request under SERVE_B_FAULTS, one live lane and
+# three inert pad lanes. SERVE_BEAT_WINDOWS windows per beat with a
+# snapshot every beat: class A writes one snapshot at beat 1 and, on the
+# one-shot SERVE_CHAOS raise at beat 2, retries from it. Pins: the
+# reference's solo_reference(doc) on JAX/CPU for each request (the slow
+# test of tests/test_torch_serve.py), in submit order.
+SERVE_LANES = 4
+SERVE_PARAMS = {"n_pairs": TGEN_PAIRS, "capacity": TGEN_CAPACITY}
+SERVE_A = ((1, 4, 1.0), (2, 2, 1.0), (3, 3, 1.5), (4, 4, 2.0))
+SERVE_B_FAULTS = ("partition src=cli*0 dst=srv* start=3.2 end=3.6",)
+SERVE_BEAT_WINDOWS = 8
+SERVE_CHAOS = "raise:beat=2"
+PIN_SERVE = (
+    {"executed": 16808, "now_ns": 4000000000, "queue_drops": 0,
+     "sweeps": 13, "windows": 13},
+    {"executed": 2048, "now_ns": 2000000000, "queue_drops": 0,
+     "sweeps": 1, "windows": 1},
+    {"executed": 2048, "now_ns": 3000000000, "queue_drops": 0,
+     "sweeps": 1, "windows": 1},
+    {"executed": 15168, "now_ns": 4000000000, "queue_drops": 0,
+     "sweeps": 11, "windows": 11},
+    {"executed": 11683, "now_ns": 4000000000, "queue_drops": 0,
+     "sweeps": 13, "windows": 13},
+)
+# phase 23(b): `python -m shadow_tpu_torch serve` as a subprocess on the
+# card, one small request, then SIGTERM
+SERVE_SMALL_DOC = {"model": "phold",
+                   "params": {"hosts": 64, "capacity": 64,
+                              "msgs_per_host": 2},
+                   "seed": 5, "stop_s": 0.25}
+
+
+def serve_docs() -> list[dict]:
+    """Phase 23's requests in submit order: class A, then class B."""
+    docs = [{"model": "tgen", "params": dict(SERVE_PARAMS), "seed": seed,
+             "stop_s": stop, "latency_scale": lat}
+            for seed, stop, lat in SERVE_A]
+    docs.append({"model": "tgen", "params": dict(SERVE_PARAMS),
+                 "seed": TGEN_SEED, "stop_s": FLEET_STOP_S,
+                 "faults": list(SERVE_B_FAULTS)})
+    return docs
+
+
 def fleet_spec(fault_file) -> str:
     """The --fleet SPEC of phase 22."""
     return (f"lanes={FLEET_LANES} seed={TGEN_SEED}:{TGEN_SEED + FLEET_LANES}"
@@ -1009,8 +1073,6 @@ TOR_STOP_S = 4
 PIN_TOR = (
     14_293, 20, 55, 824, 0, 0, 26_155_008,
     "45453339717113212dcfd3c27ba7705ed7b2fd91ceaf0b30991e0c41cb1bc87e")
-# the first clients start at 3 s: the profile covers 3.00-3.25 s
-TOR_PROFILE_S = (3.0, 3.25)
 # the merge call whose input phase 11 times: mid-run, in circuit traffic
 TOR_TIMED_CALL = 40
 # Bitcoin (phase 12): bench.py's gossip measurement (`btc_worker`,
@@ -1022,13 +1084,15 @@ TOR_TIMED_CALL = 40
 # rows, largest `t_best`, digest of every leaf).
 BTC_NODES, BTC_BLOCKS, BTC_BLOCKSIZE, BTC_INTERVAL = 1000, 2, "256KiB", 30
 BTC_SEED, BTC_SOCKETS, BTC_CAPACITY = 1, 16, 768
-# cut from 36 sim-s (2,385 inner steps, 191.7 s on the card) to 32: 38
-# inner steps before block 1 is mined at 31 s, 545 by 32 s, when the
-# first nodes have fetched its body over TCP and adopted it
-BTC_STOP_S = 32
+# cut from 36 sim-s (2,385 inner steps, 191.7 s on the card) to 32, then
+# to 31.75 for phase 23: 38 inner steps before block 1 is mined at 31 s,
+# 423 by 31.75 s (545 by 32 s), when the first nodes have fetched its
+# body over TCP and adopted it (at 31.60 s; none had by 31.5 s, 284
+# steps)
+BTC_STOP_S = 31.75
 PIN_BTC = (
-    15_347, 28, 49, 545, 0, 0, 1, 0, 31_603_341_630,
-    "c2ef82a0a7170dcd1bc6eedcf1f165f1dc82d82082f67194adc00acab282022d")
+    14_820, 23, 39, 423, 0, 0, 1, 0, 31_603_341_630,
+    "e0181017ca909e719cb510c6d8372005798e489e4c26de06c3b6063a0666dc4e")
 # no profile: one of 31.00-31.25 s took 19.2 s with the run to its start
 # (PERF.md, PR 7)
 # the merge call whose input phase 12 times: in the first block's spread
@@ -2005,30 +2069,29 @@ def phase_skew(phold, pressure, merge, events, convert, dev,
 
 
 # the config-driven phases run once to their stop by `phase_app`: (config
-# text, build keywords, stop in sim-s, merge call to time, profile window
-# in sim-s or None, pin function, pin)
+# text, build keywords, stop in sim-s, merge call to time, pin function,
+# pin)
 def app_phases() -> dict:
     tgen_kw = dict(seed=TGEN_SEED, n_sockets=TGEN_SOCKETS,
                    capacity=TGEN_CAPACITY)
     return {
         "tor": (tor_config(), TOR_KW, TOR_STOP_S, TOR_TIMED_CALL,
-                TOR_PROFILE_S, lambda lv, n: tor_pin(lv), PIN_TOR),
+                lambda lv, n: tor_pin(lv), PIN_TOR),
         "btc": (btc_config(), BTC_KW, BTC_STOP_S, BTC_TIMED_CALL,
-                None, btc_pin, PIN_BTC),
+                btc_pin, PIN_BTC),
         "mixed": (mixed_config(), tgen_kw, MIXED_STOP_S, MIXED_TIMED_CALL,
-                  MIXED_PROFILE_S, lambda lv, n: mixed_pin(lv), PIN_MIXED),
+                  lambda lv, n: mixed_pin(lv), PIN_MIXED),
         "tgen_frontier": (tgen_config(TGEN_PAIRS),
                           dict(tgen_kw, frontier=TGEN_FRONTIER),
-                          TGEN_STOP_S, TGEN_TIMED_CALL, None,
+                          TGEN_STOP_S, TGEN_TIMED_CALL,
                           lambda lv, n: tgen_frontier_pin(lv),
                           PIN_TGEN_FRONTIER),
         "tgen_faults": (tgen_faults_config(TGEN_PAIRS), tgen_kw,
-                        FAULTS_STOP_S,
-                        TGEN_TIMED_CALL, None,
+                        FAULTS_STOP_S, TGEN_TIMED_CALL,
                         lambda lv, n: tgen_faults_pin(lv), PIN_TGEN_FAULTS),
         "tgen_cubic": (tgen_faults_config(TGEN_PAIRS),
                        dict(tgen_kw, tcp_cc="cubic"), FAULTS_STOP_S,
-                       TGEN_TIMED_CALL, None,
+                       TGEN_TIMED_CALL,
                        lambda lv, n: tgen_faults_pin(lv), PIN_TGEN_CUBIC),
     }
 
@@ -2043,11 +2106,10 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
     held to its JAX/CPU pin and to a merge launch per sweep, merge
     launches counted by queue width; the kernel held to its plain
     version on captured inputs at every width reached and timed on the
-    latest of them per width; then, where the phase has one, a short
-    profile (from a state run to the profile's start)."""
+    latest of them per width."""
     import torch
 
-    text, kw, stop_s, timed_call, prof_s, pin_fn, pin = app_phases()[model]
+    text, kw, stop_s, timed_call, pin_fn, pin = app_phases()[model]
     t0 = time.perf_counter()
     sim = sim_mod.build_simulation(config_mod.parse_config(text), device=dev,
                                    **kw)
@@ -2127,17 +2189,9 @@ def phase_app(model: str, sim_mod, config_mod, merge, events, convert, dev,
     del st, leaves
     timing = check_and_time_captured(merge, dev, rec, smi_line, model,
                                      kw["capacity"])
-    prof = None
-    if prof_s is not None:
-        t0 = time.perf_counter()
-        start = sim.run(int(prof_s[0] * SECOND))
-        prof = profile_run(sim.engine.run, start, int(prof_s[1] * SECOND))
-        print(f"  profile of {model}, {prof_s[0]}-{prof_s[1]} sim-s "
-              f"({time.perf_counter() - t0:.1f} s with the run to its start "
-              f"and the trace's reading): {json.dumps(prof)}")
     print(json.dumps({f"{model}_bench": run, "card": smi_line}))
-    return {"run": run, "timing": timing, "profile": prof,
-            "by_hc": run["launches_by_hc"], "build_s": build_s}
+    return {"run": run, "timing": timing, "by_hc": run["launches_by_hc"],
+            "build_s": build_s}
 
 
 def cbrt_bound_ms(n: int) -> tuple[float, str]:
@@ -2552,6 +2606,224 @@ def phase_fleet(sim_mod, config_mod, merge, events, convert, dev, smi_line,
     return result
 
 
+def serve_launch_walls(records) -> dict:
+    """{launch id: (class, wall seconds, beats, summed beat + confirm
+    seconds, pack seconds)} from a serve flight ledger's records: a
+    launch's wall runs from its first record (cache) to its last
+    (confirm, or the failed attempt's last beat); its pack span covers
+    the cache get or build, make_inputs and a snapshot's load."""
+    spans: dict = {}
+    for r in records:
+        if "launch" in r:
+            spans.setdefault(int(r["launch"]), []).append(r)
+    out = {}
+    for n, rs in sorted(spans.items()):
+        t0 = min(r["t_s"] for r in rs)
+        t1 = max(r["t_s"] + r["dur_s"] for r in rs)
+        run = [r for r in rs if r["name"] in ("beat", "confirm")]
+        out[n] = (rs[0].get("cls"), t1 - t0,
+                  sum(r["name"] == "beat" for r in run),
+                  sum(r["dur_s"] for r in run),
+                  sum(r["dur_s"] for r in rs if r["name"] == "pack"))
+    return out
+
+
+def phase_serve(merge, events, convert, dev, smi_line,
+                fleet_phase=None) -> dict:
+    """The serving plane: (a) an in-process SimService (SERVE_LANES
+    lanes, a flight ledger, a beat snapshot, the one-shot SERVE_CHAOS
+    raise) behind its HTTP server on 127.0.0.1, driven by
+    tools/serve_client's `run_load`: every served summary held to
+    PIN_SERVE; class A resumed from its beat-1 snapshot; its seed-1
+    lane's final leaves to phase 22's lane-0 digest (its solo run);
+    class B's pad lanes' counters exactly 0; /metrics to the OpenMetrics
+    checker; the ledger reduced by tools/serve_report; at least one
+    merge launch per sweep over the served launches; (b) `python -m
+    shadow_tpu_torch serve` as a subprocess on the card: one small
+    request, its summary equal to the port's solo run here, then
+    SIGTERM, exit 0 and the queue file written."""
+    import os
+    import signal
+    import urllib.request
+    from pathlib import Path
+
+    import torch
+
+    from shadow_tpu_torch.obs.metrics import validate_openmetrics
+    from shadow_tpu_torch.obs.servetrace import ServeTracer, load_ledger
+    from shadow_tpu_torch.runtime.fleet import lane_summary_refs
+    from shadow_tpu_torch.runtime.harvest import fetch_tree
+    from shadow_tpu_torch.serve import SimService, solo_reference
+    from shadow_tpu_torch.serve.chaos import ServeChaos
+    from shadow_tpu_torch.serve.http import ServeServer
+    from shadow_tpu_torch.tools import serve_client, serve_report
+
+    t_phase = time.perf_counter()
+    docs = serve_docs()
+    last, snaps = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        tracer = ServeTracer(ledger_file=str(d / "ledger.jsonl"),
+                             ledger_meta={"max_lanes": SERVE_LANES,
+                                          "beat_windows":
+                                              SERVE_BEAT_WINDOWS})
+        svc = None
+
+        def factory(key, probe):
+            # the service's own build, with each fleet's latest state
+            # kept (a reference) for the checks after the run
+            entry = svc._build_entry(key, probe)
+            step = entry.fleet.step_window
+
+            def stepped(*a, **k):
+                out = step(*a, **k)
+                last[str(key)] = out
+                return out
+            entry.fleet.step_window = stepped
+            return entry
+
+        svc = SimService(max_lanes=SERVE_LANES, pack_deadline_ms=2000.0,
+                         beat_windows=SERVE_BEAT_WINDOWS, snapshot_beats=1,
+                         snapshot_path=str(d / "snap.npz"),
+                         launch_retries=1, launch_backoff_s=0.0,
+                         chaos=ServeChaos(SERVE_CHAOS), tracer=tracer,
+                         fleet_factory=factory, device=dev)
+        write = svc._write_snapshot
+
+        def timed_write(*a, **k):
+            t0 = time.perf_counter()
+            write(*a, **k)
+            snaps.append({"bytes": os.path.getsize(k.get("path")
+                                                   or svc.snapshot_path),
+                          "write_s": time.perf_counter() - t0})
+        svc._write_snapshot = timed_write
+        srv = ServeServer(svc, port=0, _stream=sys.stdout).start()
+        url = f"http://127.0.0.1:{srv.port}"
+        rec = MergeRecorder(merge, events, TGEN_TIMED_CALL)
+        try:
+            svc.start()
+            torch.cuda.synchronize()
+            merge.launches = 0
+            t0 = time.perf_counter()
+            with rec:
+                report = serve_client.run_load(url, docs,
+                                               out_dir=str(d / "out"),
+                                               timeout_s=900.0)
+            wall = time.perf_counter() - t0
+            launches = merge.launches
+            with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+                scrape = r.read().decode("utf-8")
+        finally:
+            srv.close()
+            svc.drain()
+            tracer.close()
+        recs = [json.loads((d / "out" / f"r{i:06d}.json").read_text())
+                for i in range(len(docs))]
+        header, ledger = load_ledger(tracer.ledger_path)
+    check(report["errors"] == 0, f"serve: {report['errors']} errors")
+    for i, (r, pin) in enumerate(zip(recs, PIN_SERVE)):
+        check(r["status"] == "done" and r["summary"] == pin,
+              f"serve: request {i} {r.get('summary')} != JAX/CPU {pin}")
+    n_a = len(SERVE_A)
+    check(all(r.get("resumed_from_beat") == 1 for r in recs[:n_a]),
+          f"serve: class A not resumed from its beat-1 snapshot: "
+          f"{[r.get('resumed_from_beat') for r in recs[:n_a]]}")
+    check([r["lanes_packed"] for r in recs] == [n_a] * n_a + [1],
+          f"serve: lanes packed {[r['lanes_packed'] for r in recs]}")
+    key_a, key_b = recs[0]["class"], recs[n_a]["class"]
+    lanes_b = fetch_tree(lane_summary_refs(last[key_b]))
+    for k in ("windows", "executed", "sweeps", "queue_drops"):
+        check(not lanes_b[k][1:].any(),
+              f"serve: class B pad lanes' {k} {lanes_b[k][1:]} != 0")
+    lane0 = convert.leaves_digest(convert.lane_of(
+        convert.fleet_state_to_numpy(last[key_a]), 0))
+    check(lane0 == PIN_CLI_FLEET["lane_digests"][0],
+          f"serve: class A seed-1 lane {lane0} != its solo run's "
+          f"{PIN_CLI_FLEET['lane_digests'][0]} (phase 22's lane 0)")
+    probs = validate_openmetrics(scrape)
+    check(probs == [], f"serve: /metrics fails the checker: {probs[:3]}")
+    reduced = serve_report.reduce_ledger(header, ledger)
+    check(reduced["requests"] == len(docs) and reduced["retries"] == 1
+          and reduced["launches"] == 3,
+          f"serve: ledger reduced to {reduced}")
+    steps = {k: int(last[k].stats.n_inner_steps.max()) for k in last}
+    sweeps = sum(max(r["summary"]["sweeps"] for r in recs
+                     if r["class"] == k) for k in (key_a, key_b))
+    check(launches >= sweeps > 0,
+          f"serve: {launches} merge launches < {sweeps} sweeps")
+    check(sum(rec.by_hc.values()) == launches,
+          f"serve: {sum(rec.by_hc.values())} merge calls by hc != "
+          f"{launches} launches")
+    walls = serve_launch_walls(ledger)
+    per_step = {}
+    for k in (key_a, key_b):
+        run_s = sum(w[3] for w in walls.values() if w[0] == k)
+        per_step[k] = 1e3 * run_s / max(steps[k], 1)
+    state_bytes = sum(t.numel() * t.element_size() for _, t, _ in
+                      convert.state_tensors(last[key_a]))
+    result = {
+        "wall_s": wall, "launches": launches,
+        "launches_by_hc": dict(sorted(rec.by_hc.items())),
+        "merge_rounds": sum(rec.by_hc.values()),
+        "sweeps": sweeps, "inner_steps": steps,
+        "launch_walls_s": {n: {"class": w[0], "wall_s": w[1],
+                               "beats": w[2], "beats_confirm_s": w[3],
+                               "pack_s": w[4]}
+                           for n, w in walls.items()},
+        "ms_per_inner_step": per_step,
+        "fleet_ms_per_inner_step": ((fleet_phase or {}).get("runs", {})
+                                    .get("fleet", {})
+                                    .get("ms_per_inner_step")),
+        "snapshots": snaps, "state_bytes": state_bytes,
+        "requests_per_s": report["requests_per_sec"],
+        "p50_ms": report["p50_ms"], "p95_ms": report["p95_ms"],
+        "report": {k: reduced[k] for k in (
+            "requests", "launches", "retries", "snapshots",
+            "pack_efficiency", "cache_hit_ratio")},
+    }
+    print(f"  served: {json.dumps(result)} ({smi_line})")
+
+    # (b) the served command line as a subprocess on the card
+    t0 = time.perf_counter()
+    want = solo_reference(SERVE_SMALL_DOC, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        qf = Path(tmp) / "queue.json"
+        env = dict(os.environ,
+                   PYTHONPATH=os.pathsep.join(
+                       [os.path.dirname(os.path.abspath(__file__))]
+                       + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "shadow_tpu_torch", "serve", "--port",
+             "0", "--max-lanes", "1", "--queue-file", str(qf),
+             "--snapshot-path", str(Path(tmp) / "snap.npz")],
+            cwd=tmp, env=env, stderr=subprocess.PIPE, text=True)
+        try:
+            line = proc.stderr.readline()
+            check("serve: listening http://127.0.0.1:" in line,
+                  f"serve cli: no listening line: {line!r}")
+            cli_url = line.split()[2].rsplit("/", 1)[0]
+            rid = serve_client.submit_all(cli_url, [SERVE_SMALL_DOC])[0]
+            got = serve_client.poll_results(cli_url, [rid],
+                                             timeout_s=300.0)[rid]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err = proc.stderr.read()
+        pending = (json.loads(qf.read_text())["pending"]
+                   if qf.exists() else None)
+    check(rc == 0, f"serve cli: exit code {rc}: {err[-2000:]}")
+    check(got["status"] == "done" and got["summary"] == want,
+          f"serve cli: {got} != the solo run's {want}")
+    check(pending == [], f"serve cli: queue file {pending}")
+    result["cli_s"] = time.perf_counter() - t0
+    result["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps({"serve": result, "card": smi_line}))
+    return result
+
+
 def phase_pcap(merge, smi_line, tgen=None) -> dict:
     """`cli.main` in-process on phase 20's capturing config (PCAP_ARGV),
     its stdout and stderr captured, the merge launches counted from zero
@@ -2837,13 +3109,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (9-22) to run after "
+                    help="comma-separated phases (9-23) to run after "
                          "phases 1-3, skipping the others; prints no "
                          "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= set(range(9, 23)):
-        ap.error("--only takes phases 9 to 22")
+    if not only <= set(range(9, 24)):
+        ap.error("--only takes phases 9 to 23")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2909,8 +3181,11 @@ def main(argv=None) -> int:
                 elif p == 21:
                     phase_shard(merge, events, dev, smi_line)
                 elif p == 22:
-                    phase_fleet(sim, config, merge, events, convert, dev,
-                                smi_line)
+                    fleet_only = phase_fleet(sim, config, merge, events,
+                                             convert, dev, smi_line)
+                elif p == 23:
+                    phase_serve(merge, events, convert, dev, smi_line,
+                                fleet_only if 22 in only else None)
                 else:
                     phase_app({11: "tor", 12: "btc", 13: "mixed",
                                15: "tgen_frontier", 16: "tgen_faults"}[p],
@@ -3078,6 +3353,11 @@ def main(argv=None) -> int:
     fleet_hc = max(fleet_phase["runs"]["fleet"]["launches_by_hc"],
                    key=fleet_phase["runs"]["fleet"]["launches_by_hc"].get)
 
+    phase(f"23. the serving plane: TGen 4096 hosts served {SERVE_LANES} "
+          "lanes wide over HTTP, then `serve` as a subprocess")
+    serve_phase = phase_serve(merge, events, convert, dev, smi_line,
+                              fleet_phase)
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -3100,7 +3380,8 @@ def main(argv=None) -> int:
                            for r in shard_phase["runs"].values())
                      + fleet_phase["cli"]["launches"]
                      + sum(r["launches"]
-                           for r in fleet_phase["runs"].values())),
+                           for r in fleet_phase["runs"].values())
+                     + serve_phase["launches"]),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -3131,6 +3412,8 @@ def main(argv=None) -> int:
                            for k, r in fleet_phase["runs"].items()},
         "launches_per_merge_round_fleet":
             fleet_phase["runs"]["fleet"]["launches_per_round"],
+        "launches_serve": serve_phase["launches"],
+        "launches_serve_by_hc": serve_phase["launches_by_hc"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,

@@ -33,9 +33,14 @@ exit 77.
 (`runtime.fleet`), with per-lane `[fleet]` heartbeat rows and a summary
 with a per-lane `lanes` list, as the reference's fleet run prints them.
 
+`serve` in place of a config starts the resident scenario service
+(`serve/`): an HTTP request plane on `--port`, fleets of `--max-lanes`
+lanes on the device, drained by SIGTERM/SIGINT (exit 0, the pending
+queue persisted to `--queue-file`) and resized by SIGHUP.
+
 Refused with exit 2, each naming the ROADMAP.md Queue 1 item that will
-port it: `--spmd constraint` (item 7b); `serve` (item 8b); native `.so`
-plugins, the process tier (item 9).
+port it: `--spmd constraint` (item 7b); native `.so` plugins, the
+process tier (item 9).
 """
 
 from __future__ import annotations
@@ -626,9 +631,6 @@ def _refused(args, cfg=None) -> str | None:
         (args.spmd == "constraint",
          f"--spmd constraint is not ported ({item} 7b, a global engine "
          "partitioned by the compiler)"),
-        (args.config == "serve",
-         f"the serve subcommand is not ported ({item} 8b, the serving "
-         "plane)"),
     )
     for on, msg in checks:
         if on:
@@ -698,6 +700,100 @@ def _launch_mesh(argv, args, device, backend, run_info) -> int:
     return int(rc)
 
 
+def _run_serve(args, device=None) -> int:
+    """`serve`: the resident scenario service on `device` (None: CUDA).
+    The main thread owns the signal plane; the launch worker and the
+    HTTP handler threads do the work. SIGTERM / SIGINT trigger the
+    graceful drain — finish the launch in flight, persist the pending
+    queue to --queue-file, exit 0. SIGHUP is the operator mesh resize:
+    it reads the new lane count from `<snapshot-path>.resize` and
+    migrates the in-flight batch at the next beat boundary."""
+    import signal as _signal
+
+    from shadow_tpu_torch.runtime.supervisor import Supervisor
+    from shadow_tpu_torch.serve.http import ServeServer
+    from shadow_tpu_torch.serve.service import SimService
+
+    # a relaunch under `--retry` (the elastic outer loop) seeds the mesh
+    # generation, so /healthz reports the churn from the first beat
+    _attempt = os.environ.get("SHADOW_TPU_RETRY_ATTEMPT")
+    generation = int(_attempt) if _attempt and _attempt.isdigit() else 0
+
+    tracer = None
+    if args.trace_requests > 0 or args.ledger_file:
+        from shadow_tpu_torch.obs.servetrace import ServeTracer
+
+        tracer = ServeTracer(
+            max_requests=args.trace_requests or 4096,
+            ledger_file=args.ledger_file,
+            ledger_meta={"max_lanes": args.max_lanes,
+                         "beat_windows": args.beat_windows},
+        )
+    svc = SimService(
+        max_lanes=args.max_lanes,
+        pack_deadline_ms=args.pack_deadline_ms,
+        max_cached_programs=args.max_cached_programs,
+        beat_windows=args.beat_windows,
+        queue_file=args.queue_file,
+        snapshot_beats=args.snapshot_beats,
+        snapshot_path=args.snapshot_path,
+        launch_retries=args.launch_retries,
+        launch_deadline_s=args.launch_deadline_s,
+        result_ttl_s=args.result_ttl_s,
+        max_results=args.max_results,
+        degraded_after=args.degraded_after,
+        diag_dir=args.diag_dir,
+        tracer=tracer,
+        generation=generation,
+        device=device,
+    )
+
+    def _on_sighup(_signum, _frame):
+        ctl = (args.snapshot_path or "shadow_tpu.serve") + ".resize"
+        try:
+            with open(ctl) as f:
+                lanes = int(f.read().strip())
+            os.remove(ctl)
+        except (OSError, ValueError) as e:
+            print(f"serve: SIGHUP resize ignored — no usable lane "
+                  f"count in {ctl!r} ({type(e).__name__}: {e})",
+                  file=sys.stderr, flush=True)
+            return
+        print(f"serve: SIGHUP resize -> {lanes} lane(s)",
+              file=sys.stderr, flush=True)
+        try:
+            svc.resize(lanes)
+        except ValueError as e:
+            print(f"serve: SIGHUP resize rejected: {e}",
+                  file=sys.stderr, flush=True)
+
+    _signal.signal(_signal.SIGHUP, _on_sighup)
+    with Supervisor(label="shadow_tpu-serve") as sup:
+        # resume BEFORE reloading the drained queue: the crashed batch
+        # must reach the worker ahead of any re-packed queue traffic,
+        # or a completing queue batch would clear its snapshot
+        svc.resume_pending_batch()
+        restored = svc.load_queue()
+        if restored:
+            print(f"serve: restored {restored} pending request(s) from "
+                  f"{args.queue_file}", file=sys.stderr, flush=True)
+        svc.start()
+        srv = ServeServer(svc, port=args.port).start()
+        try:
+            while not sup.stop_requested:
+                time.sleep(0.2)
+        finally:
+            srv.close()
+            report = svc.drain()
+            print(f"serve: drained — {report['persisted']} pending "
+                  f"request(s) persisted to {report['queue_file']}",
+                  file=sys.stderr, flush=True)
+            if tracer is not None:
+                tracer.close()
+            sup.mark_drained()
+    return sup.exit_code()
+
+
 def main(argv=None, *, device=None, run_info: dict | None = None,
          backend: str | None = None) -> int:
     """Run the command line `argv` (sys.argv[1:] by default) on `device`
@@ -740,6 +836,10 @@ def main(argv=None, *, device=None, run_info: dict | None = None,
                              "exit_history", "mttr_s")}),
               file=sys.stderr, flush=True)
         return int(report["exit_code"])
+    if args.config == "serve":
+        # the resident scenario service: no config file; scenarios
+        # arrive as requests over the HTTP plane
+        return _run_serve(args, device)
     if args.dcn_slices > 1 and not args.mesh:
         print("error: --dcn-slices needs --mesh N (total devices across "
               "all slices)", file=sys.stderr)

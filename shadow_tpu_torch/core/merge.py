@@ -46,7 +46,14 @@ def merge_body(qt, qss, qpay, st, sss, bpay, starts, cnt):
     """The densify + rotate + merge arithmetic. Shapes: qt/qss i64[H, hc],
     qpay i64[H, hc, nw], st/sss i64[m] flat grouped keys, bpay
     i64[H, w, nw], starts/cnt i32[H] with starts >= 0. Returns
-    (mt, mss, mpay) of width hc + w."""
+    (mt, mss, mpay) of width hc + w.
+
+    The function of the reference's `merge_body`, computed with fewer
+    comparisons: an incoming filler (key (MAX, MAX)) ranks after every
+    resident, so only the first max(cnt) incoming columns are compared
+    with the residents; and the number of incoming events placed at or
+    before each output slot comes from a scatter count of their places
+    and a running sum, not from comparing every slot with every place."""
     h, hc = qt.shape
     w = bpay.shape[1]
     m = st.shape[0]
@@ -77,13 +84,20 @@ def merge_body(qt, qss, qpay, st, sss, bpay, starts, cnt):
         0,
     )
 
-    # stable merge-path: ties place the resident (A) first
-    a3, b3 = at[:, :, None], bt[:, None, :]
-    le = (a3 < b3) | ((a3 == b3) & (ass[:, :, None] <= bss[:, None, :]))
-    pos_b = lane[None, :] + torch.sum(le, dim=1, dtype=i32)  # [H, w]
+    # stable merge-path: ties place the resident (A) first. pos_b[j] is
+    # j plus the residents at or before incoming j: all hc of them for a
+    # filler, so only the first max(cnt) columns need the comparison
+    we = min(int(cnt.max()), w) if h else 0
+    a3, b3 = at[:, :, None], bt[:, None, :we]
+    le = (a3 < b3) | ((a3 == b3) & (ass[:, :, None] <= bss[:, None, :we]))
+    pos_b = (lane + hc)[None, :].repeat(h, 1)  # [H, w]
+    pos_b[:, :we] = lane[None, :we] + torch.sum(le, dim=1, dtype=i32)
     ncol = hc + w
     p = torch.arange(ncol, dtype=i32, device=dev)[None, :]
-    jb = torch.sum(pos_b[:, None, :] <= p[:, :, None], dim=2, dtype=i32)
+    # jb[p]: incoming events placed at or before output slot p
+    hits = torch.zeros((h, ncol), dtype=i32, device=dev)
+    hits.scatter_add_(1, pos_b.long(), torch.ones_like(pos_b))
+    jb = torch.cumsum(hits, dim=1, dtype=i32)
     ib = torch.clamp(jb - 1, 0, w - 1).long()
     isb = (jb > 0) & (torch.gather(pos_b, 1, ib) == p)
     ia = torch.clamp(p - jb, 0, hc - 1).long()

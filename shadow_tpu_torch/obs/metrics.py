@@ -21,7 +21,8 @@ names and exposition, so a scrape of either package reads the same:
   -> failed (an abnormal exit code was chosen).
 
 The HTTP half (`--metrics-port`) lives in `obs/server.py`. The serving
-plane's registry (`ServeMetrics`) waits for the serving plane.
+plane (`serve/`) has its own registry, `ServeMetrics` (`SERVE_SPECS`),
+whose exposition is the reference's byte for byte.
 """
 
 from __future__ import annotations
@@ -424,6 +425,247 @@ class MetricsRegistry:
         lines.append("# EOF")
         return "\n".join(lines) + "\n"
 
+
+# The resident scenario-serving plane (shadow_tpu_torch.serve) exposes its own
+# small family catalog through the same exposition machinery. It is a
+# SEPARATE registry on purpose: a batch run's /metrics must stay
+# byte-stable against serve-plane churn (the --metrics zero-cost pin),
+# and a serving process has no harvest summary to ingest — every value
+# here is host-side scheduler state. The request-latency histogram rides
+# the obs.stats log2-bucket scheme (NB buckets, le = 2^i - 1) so the
+# same parse/plot tooling reads both planes.
+
+SERVE_SPECS: tuple[MetricSpec, ...] = (
+    MetricSpec(_P + "serve_requests", "counter",
+               "Scenario requests accepted by the serving plane.",
+               "host-side: SimService.submit"),
+    MetricSpec(_P + "serve_results", "counter",
+               "Requests completed with a summary.",
+               "host-side: launch completion"),
+    MetricSpec(_P + "serve_errors", "counter",
+               "Requests failed (build/launch errors).",
+               "host-side: launch failure path"),
+    MetricSpec(_P + "serve_cache_hits", "counter",
+               "Program-cache hits (warm compiled fleet reused).",
+               "host-side: serve.cache.ProgramCache"),
+    MetricSpec(_P + "serve_cache_misses", "counter",
+               "Program-cache misses (fresh compile).",
+               "host-side: serve.cache.ProgramCache"),
+    MetricSpec(_P + "serve_cache_evictions", "counter",
+               "Programs evicted LRU at --max-cached-programs.",
+               "host-side: serve.cache.ProgramCache"),
+    MetricSpec(_P + "serve_launches", "counter",
+               "Fleet launches dispatched.",
+               "host-side: packer launch loop"),
+    MetricSpec(_P + "serve_packed_launches", "counter",
+               "Launches that packed >= 2 requests into one fleet.",
+               "host-side: packer launch loop"),
+    MetricSpec(_P + "serve_lanes", "counter",
+               "Fleet lanes occupied by live requests, cumulative.",
+               "host-side: packer launch loop"),
+    MetricSpec(_P + "serve_queue_depth", "gauge",
+               "Requests queued awaiting lane packing.",
+               "host-side: LanePacker depth"),
+    MetricSpec(_P + "serve_inflight", "gauge",
+               "Requests riding the launch currently on device.",
+               "host-side: packer launch loop"),
+    MetricSpec(_P + "serve_cached_programs", "gauge",
+               "Compiled fleet programs resident in the cache.",
+               "host-side: serve.cache.ProgramCache"),
+    MetricSpec(_P + "serve_last_lanes_packed", "gauge",
+               "Live lanes in the most recent launch.",
+               "host-side: packer launch loop"),
+    MetricSpec(_P + "serve_launch_retries", "counter",
+               "Launch attempts retried after an exception or stall.",
+               "host-side: _run_batch retry loop"),
+    MetricSpec(_P + "serve_bisections", "counter",
+               "Batches split in half to isolate a poison request.",
+               "host-side: _run_batch bisection"),
+    MetricSpec(_P + "serve_timeouts", "counter",
+               "Requests returned status=timeout past deadline_ms.",
+               "host-side: beat-loop deadline masking"),
+    MetricSpec(_P + "serve_snapshots", "counter",
+               "Beat-boundary lane snapshots written.",
+               "host-side: --snapshot-beats cadence"),
+    MetricSpec(_P + "serve_resumes", "counter",
+               "Launches resumed from a beat-boundary snapshot.",
+               "host-side: snapshot load on retry/restart"),
+    MetricSpec(_P + "serve_results_evicted", "counter",
+               "Terminal result records evicted (TTL / LRU cap).",
+               "host-side: --result-ttl-s / --max-results"),
+    MetricSpec(_P + "serve_chaos_injected", "counter",
+               "Faults injected by SHADOW_TPU_SERVE_CHAOS.",
+               "host-side: serve.chaos.ServeChaos"),
+    MetricSpec(_P + "serve_degraded", "gauge",
+               "1 while repeated launch failures hold /submit at 503.",
+               "host-side: _run_batch failure streak"),
+    MetricSpec(_P + "serve_migrations", "counter",
+               "Lane batches migrated across a device loss or resize.",
+               "host-side: elastic snapshot reshard"),
+    MetricSpec(_P + "serve_mesh_generation", "gauge",
+               "Mesh generation (0 = as launched; bumps per migration "
+               "or resize).",
+               "host-side: elastic snapshot reshard"),
+)
+
+_SERVE_HIST = _P + "serve_request_latency_ns"
+
+# per-class latency-decomposition histograms (docs/18-Serve-Tracing.md):
+# short family key (what ServeTracer feeds via `observe_class`) ->
+# (full family name, HELP). Same log2 bucket scheme as the request
+# latency histogram; rendered only once a class has observations, so a
+# tracer-off exposition is byte-identical to the pre-tracing one.
+_SERVE_CLASS_HISTS: tuple[tuple[str, str, str], ...] = (
+    ("queue_wait", _P + "serve_queue_wait_ns",
+     "Submit->launch queue wait per class, wall nanoseconds."),
+    ("pack_wait", _P + "serve_pack_wait_ns",
+     "Launch setup (cache/pack/bind) wait per class, wall "
+     "nanoseconds."),
+    ("beat_wall", _P + "serve_beat_wall_ns",
+     "Wall time per harvest beat per class, nanoseconds."),
+)
+
+
+def _escape_label(v: str) -> str:
+    return v.replace("\\", "\\\\").replace('"', '\\"')
+
+
+class ServeMetrics:
+    """Thread-safe serve-plane registry: the SERVE_SPECS counters and
+    gauges plus one submit->result latency histogram on the obs.stats
+    log2-bucket scheme. `render()` is deterministic (family catalog
+    order, no scrape-varying state) and passes `validate_openmetrics`
+    — chip_smoke.py's serving phase holds a scrape to
+    tools/check_openmetrics.
+    """
+
+    def __init__(self):
+        import threading
+
+        from shadow_tpu_torch.obs.stats import NB
+
+        self._lock = threading.Lock()
+        self._v: dict[str, float] = {s.name: 0 for s in SERVE_SPECS}
+        self._lat_buckets = [0] * NB
+        self._lat_sum = 0
+        # (short family, class) -> {"b": [NB counts], "sum": ns,
+        #   "ex": {bucket idx: (rid, ns, t_s)}} — the exemplar is the
+        # WORST (max ns) request id seen in that bucket
+        self._class_h: dict[tuple[str, str], dict] = {}
+
+    def inc(self, family: str, n: float = 1) -> None:
+        with self._lock:
+            self._v[_P + family] += n
+
+    def set(self, family: str, v: float) -> None:
+        with self._lock:
+            self._v[_P + family] = v
+
+    def observe_latency_ns(self, ns: int) -> None:
+        """Fold one request's submit->result wall latency into the
+        histogram. Bucket index = bit_length(ns) clipped, the exact
+        host-side mirror of obs.stats.bucket_of."""
+        from shadow_tpu_torch.obs.stats import NB
+
+        ns = int(ns)
+        idx = 0 if ns <= 0 else min(ns.bit_length(), NB - 1)
+        with self._lock:
+            self._lat_buckets[idx] += 1
+            self._lat_sum += max(ns, 0)
+
+    def observe_class(self, family: str, cls: str, ns: int, *,
+                      rid: str | None = None,
+                      t_s: float | None = None) -> None:
+        """Fold one wait/beat duration into the per-class histogram
+        `family` ("queue_wait" | "pack_wait" | "beat_wall"). `rid`
+        becomes the bucket's OpenMetrics exemplar when it is the worst
+        observation landed there so far; `t_s` is its exemplar
+        timestamp (tracer-clock seconds). Fed by `ServeTracer` — a
+        tracer-off service never calls this, keeping `render()`
+        byte-identical."""
+        from shadow_tpu_torch.obs.stats import NB
+
+        if family not in {k for k, _, _ in _SERVE_CLASS_HISTS}:
+            raise ValueError(
+                f"unknown per-class histogram family {family!r}")
+        ns = int(ns)
+        idx = 0 if ns <= 0 else min(ns.bit_length(), NB - 1)
+        with self._lock:
+            h = self._class_h.setdefault(
+                (family, str(cls)), {"b": [0] * NB, "sum": 0, "ex": {}})
+            h["b"][idx] += 1
+            h["sum"] += max(ns, 0)
+            ex = h["ex"].get(idx)
+            if rid is not None and (ex is None or ns >= ex[1]):
+                h["ex"][idx] = (rid, ns, t_s)
+
+    def totals(self) -> dict:
+        with self._lock:
+            out = {k: (int(v) if float(v).is_integer() else v)
+                   for k, v in sorted(self._v.items())}
+            out[f"{_SERVE_HIST}_count"] = sum(self._lat_buckets)
+            out[f"{_SERVE_HIST}_sum"] = self._lat_sum
+            for (fam, cls), h in sorted(self._class_h.items()):
+                full = next(f for k, f, _ in _SERVE_CLASS_HISTS
+                            if k == fam)
+                out[f'{full}_count{{class="{cls}"}}'] = sum(h["b"])
+                out[f'{full}_sum{{class="{cls}"}}'] = h["sum"]
+        return out
+
+    def render(self) -> str:
+        from shadow_tpu_torch.obs.stats import BUCKET_LE_LABELS
+
+        with self._lock:
+            values = dict(self._v)
+            buckets = list(self._lat_buckets)
+            lat_sum = self._lat_sum
+            class_h = {k: {"b": list(h["b"]), "sum": h["sum"],
+                           "ex": dict(h["ex"])}
+                       for k, h in self._class_h.items()}
+        lines: list[str] = []
+        for spec in SERVE_SPECS:
+            lines.append(f"# TYPE {spec.name} {spec.kind}")
+            lines.append(f"# HELP {spec.name} {spec.help}")
+            suffix = "_total" if spec.kind == "counter" else ""
+            lines.append(f"{spec.name}{suffix} {_fmt(values[spec.name])}")
+        lines.append(f"# TYPE {_SERVE_HIST} histogram")
+        lines.append(f"# HELP {_SERVE_HIST} Submit->result request "
+                     "latency, wall nanoseconds.")
+        cum = 0
+        for le, n in zip(BUCKET_LE_LABELS, buckets):
+            cum += n
+            lines.append(f'{_SERVE_HIST}_bucket{{le="{le}"}} {cum}')
+        lines.append(f"{_SERVE_HIST}_sum {lat_sum}")
+        lines.append(f"{_SERVE_HIST}_count {cum}")
+        # per-class wait/beat histograms, exemplars on the worst rid
+        # per bucket (`# {trace_id="..."} value [ts]`) — families with
+        # no observations render nothing, so tracer-off is byte-stable
+        for fam, full, help_ in _SERVE_CLASS_HISTS:
+            classes = sorted(c for (k, c) in class_h if k == fam)
+            if not classes:
+                continue
+            lines.append(f"# TYPE {full} histogram")
+            lines.append(f"# HELP {full} {help_}")
+            for cls in classes:
+                h = class_h[(fam, cls)]
+                lbl = _escape_label(cls)
+                cum_c = 0
+                for i, (le, n) in enumerate(zip(BUCKET_LE_LABELS,
+                                                h["b"])):
+                    cum_c += n
+                    line = (f'{full}_bucket{{class="{lbl}",le="{le}"}}'
+                            f" {cum_c}")
+                    ex = h["ex"].get(i)
+                    if ex is not None:
+                        rid, ns, t_s = ex
+                        line += f' # {{trace_id="{rid}"}} {ns}'
+                        if t_s is not None:
+                            line += f" {_fmt(t_s)}"
+                    lines.append(line)
+                lines.append(f'{full}_sum{{class="{lbl}"}} {h["sum"]}')
+                lines.append(f'{full}_count{{class="{lbl}"}} {cum_c}')
+        lines.append("# EOF")
+        return "\n".join(lines) + "\n"
 
 # an OpenMetrics exemplar: `# {label="v",...} value [timestamp]`
 # appended to a `_bucket` (or counter `_total`) sample line

@@ -30,13 +30,18 @@ OPENMETRICS_CT = ("application/openmetrics-text; version=1.0.0; "
                   "charset=utf-8")
 
 
-class _Handler(http.server.BaseHTTPRequestHandler):
-    """HTTP/1.1 with explicit Content-Length (keep-alive safe) and silent
-    access logs. Blocking socket work stays on the handler threads
-    spawned by ThreadingHTTPServer, never on the window loop's thread."""
+class BaseHandler(http.server.BaseHTTPRequestHandler):
+    """Shared handler discipline of both HTTP planes (this metrics
+    exporter and `serve.http`'s request plane): HTTP/1.1 with explicit
+    Content-Length (keep-alive safe), silent access logs, and the one
+    `_send` helper. Blocking socket work stays on the handler threads
+    spawned by ThreadingHTTPServer, never on the window loop's or the
+    launch worker's thread."""
 
-    server_version = "shadow-tpu-metrics/1"
+    server_version = "shadow-tpu/1"
     protocol_version = "HTTP/1.1"
+
+    OPENMETRICS_CT = OPENMETRICS_CT
 
     def log_message(self, format, *args):  # noqa: A002 - stdlib signature
         pass  # scrapes must not spam the run's stderr
@@ -48,13 +53,17 @@ class _Handler(http.server.BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+
+class _Handler(BaseHandler):
+    server_version = "shadow-tpu-metrics/1"
+
     def do_GET(self):  # noqa: N802 - stdlib signature
         srv: "MetricsServer" = self.server.owner  # type: ignore[attr-defined]
         path = self.path.split("?", 1)[0]
         if path == "/metrics":
             srv.count_scrape("metrics")
             body = srv.registry.render().encode("utf-8")
-            self._send(200, body, OPENMETRICS_CT)
+            self._send(200, body, self.OPENMETRICS_CT)
         elif path == "/healthz":
             srv.count_scrape("healthz")
             body = (json.dumps(srv.health.snapshot(), sort_keys=True)

@@ -133,6 +133,7 @@ class Watchdog:
         self._last_pet = time.monotonic()
         self._progress: dict = {}
         self._n_pets = 0
+        self._armed = True
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self.fired = False
@@ -162,6 +163,22 @@ class Watchdog:
             if progress:
                 self._progress.update(progress)
 
+    def arm(self) -> None:
+        """(Re-)enable the deadline with a fresh clock. A resident
+        process (the serving plane) keeps ONE watchdog for its lifetime
+        and arms it per launch — a watchdog per launch would leak a
+        thread each batch."""
+        with self._lock:
+            self._last_pet = time.monotonic()
+            self._armed = True
+
+    def disarm(self) -> None:
+        """Suspend the deadline: idle time between launches must not
+        fire. The thread keeps polling; `arm()` re-enables it with a
+        fresh clock."""
+        with self._lock:
+            self._armed = False
+
     def margin_s(self) -> float:
         """Seconds of deadline left before the next firing — the
         supervisor heartbeat's stall-margin column."""
@@ -170,24 +187,28 @@ class Watchdog:
 
     # ------------------------------------------------------------- firing
     def _main_thread_compiling(self) -> bool:
-        """True when the main thread's stack shows the kernel build of
-        `core/nvcc.py`: the benign unbounded-wall-time case a deadline
-        waves through (see compile_grace)."""
+        """True when a thread's stack shows the kernel build of
+        `core/nvcc.py` (the main thread's, or the serving plane's launch
+        worker's): the benign unbounded-wall-time case a deadline waves
+        through (see compile_grace)."""
         try:
-            frame = sys._current_frames().get(threading.main_thread().ident)
+            frames = list(sys._current_frames().values())
         except Exception:
             return False
-        while frame is not None:
-            fn = frame.f_code.co_filename.replace(os.sep, "/")
-            if fn.endswith("/shadow_tpu_torch/core/nvcc.py"):
-                return True
-            frame = frame.f_back
+        for frame in frames:
+            while frame is not None:
+                fn = frame.f_code.co_filename.replace(os.sep, "/")
+                if fn.endswith("/shadow_tpu_torch/core/nvcc.py"):
+                    return True
+                frame = frame.f_back
         return False
 
     def _loop(self) -> None:
         poll = min(1.0, max(self.timeout_s / 4.0, 0.05))
         while not self._stop.wait(poll):
             with self._lock:
+                if not self._armed:
+                    continue
                 stalled_for = time.monotonic() - self._last_pet
             if stalled_for > self.timeout_s:
                 if self.compile_grace and self._main_thread_compiling():
@@ -286,6 +307,7 @@ class Supervisor:
         )
         self.label = label
         self.stop_signum: int | None = None
+        self._drained = False
         self._ckpt_requested = False
         self._install_signals = install_signals
         self._saved: dict[int, Any] = {}
@@ -340,9 +362,20 @@ class Supervisor:
     def stop_requested(self) -> bool:
         return self.stop_signum is not None
 
+    def mark_drained(self) -> None:
+        """Record that the stop signal was honored with a COMPLETE
+        graceful drain (in-flight work finished, queue persisted):
+        `exit_code()` then reports success (0) instead of 128+signum.
+        Batch runs keep the shell convention (an interrupted run is
+        interrupted, even when it checkpointed cleanly); for the
+        resident service SIGTERM is the normal shutdown path, so a
+        completed drain is a success its orchestrator must not retry."""
+        self._drained = True
+
     def exit_code(self) -> int:
-        """128+signum once a stop was requested, 0 otherwise."""
-        if not self.stop_requested:
+        """128+signum once a stop was requested (0 otherwise; also 0
+        after `mark_drained`, a completed graceful drain)."""
+        if not self.stop_requested or self._drained:
             return 0
         return signal_exit_code(self.stop_signum)
 

@@ -142,10 +142,13 @@ def load_artifact(path: str) -> tuple[str, Any]:
         # wall_ms) is serving detail, not run output
         return JSON_T, summary
     if kind == LEDGER_T:
-        # the serve plane and its flight ledger are not ported yet
-        raise NotImplementedError(
-            f"{path}: a serve flight ledger; the serve plane is not "
-            "ported (ROADMAP.md Queue 1 item 8b, the serving plane)")
+        from shadow_tpu_torch.obs.servetrace import load_ledger
+
+        _, records = load_ledger(path)
+        # diff as a plain record list: `now_ns` attrs compare exactly
+        # (replayed streams must agree on sim progress), the wall keys
+        # (t_s, dur_s, fetch_s, wall_ms, backoff_s) hit _WALL_HINTS
+        return kind, records
     if kind == OPENMETRICS_T:
         return kind, load_openmetrics(text)
     return kind, load_heartbeat(text)

@@ -13,14 +13,24 @@ what the reference's exporter writes for the same records:
 - **pid 1 "wall clock"**: one thread track per run-loop phase, "X"
   complete-spans from a WindowProfiler's export, relative to its start.
 
-The reference's serve-ledger input (pids 2 and 3) needs the serving
-plane, which is not ported: `--serve-ledger` raises NotImplementedError.
+`--serve-ledger LEDGER.jsonl` merges a serving-plane flight ledger
+(`obs/servetrace.py`) into the same file, alone or beside a device .npz:
+
+- **pid 2 "serve wall"**: one thread track per request (submit /
+  queue_wait / pack_wait / result) and one per launch (cache / pack /
+  beat / snapshot / confirm), "X" spans on the tracer's wall clock;
+  retry/resume/bisect/chaos/deadline records render as instants.
+- **pid 3 "serve lanes (sim time)"**: one thread track per fleet lane;
+  each beat's harvested per-lane progress becomes an instant at its SIM
+  time, joined to the beat span that harvested it by a flow arrow.
 
 Timestamps are microseconds: sim nanoseconds / 1e3, wall seconds * 1e6.
 Records arrive sorted by (time, src, seq, op, dst) and keys are emitted
 in a fixed order, so repeat-run exports diff byte for byte.
 
     python -m shadow_tpu_torch.tools.export_trace run.npz -o run.trace.json
+    python -m shadow_tpu_torch.tools.export_trace --serve-ledger led.jsonl \
+        -o serve.trace.json
 """
 
 from __future__ import annotations
@@ -125,22 +135,126 @@ def build_events(recs: dict, meta: dict) -> list[dict]:
     return events
 
 
+# serve-ledger span names that live on a LAUNCH track; everything else
+# with a rid lands on that request's track
+_LAUNCH_SPANS = ("cache", "pack", "beat", "snapshot", "confirm")
+_SERVE_PID = 2  # wall-time serve spans
+_LANE_PID = 3  # per-lane sim-time beat progress
+
+
+def build_serve_events(records: list[dict]) -> list[dict]:
+    """Pure transform: flight-ledger records -> Chrome trace events
+    (pids 2 and 3; composes with `build_events`' pids 0 and 1).
+    Deterministic: tracks are keyed by sorted rid / launch id, events
+    follow ledger order, flow ids derive from (launch, beat, lane)."""
+    spans = [r for r in records if r.get("kind") in ("span", "event")]
+    if not spans:
+        return []
+    base = min(r.get("t_s", 0.0) for r in spans)
+    rids = sorted({r["rid"] for r in spans if "rid" in r}
+                  | {x for r in spans for x in r.get("rids", ())})
+    launches = sorted({int(r["launch"]) for r in spans
+                       if "launch" in r})
+    rid_tid = {rid: i for i, rid in enumerate(rids)}
+    # launch tracks sit above the request tracks; lane tracks are tiny
+    launch_tid = {n: 1000 + n for n in launches}
+
+    events: list[dict] = [
+        _meta_event(_SERVE_PID, 0, "process_name", "serve wall"),
+        _meta_event(_LANE_PID, 0, "process_name",
+                    "serve lanes (sim time)"),
+    ]
+    for rid in rids:
+        events.append(_meta_event(_SERVE_PID, rid_tid[rid],
+                                  "thread_name", f"req {rid}"))
+    for n in launches:
+        events.append(_meta_event(_SERVE_PID, launch_tid[n],
+                                  "thread_name", f"launch {n}"))
+    lanes_seen: set[int] = set()
+
+    def wall_us(t_s: float) -> float:
+        return round((t_s - base) * 1e6, 3)
+
+    for r in spans:
+        name = r["name"]
+        launch = r.get("launch")
+        if name in _LAUNCH_SPANS and launch is not None:
+            tid = launch_tid[int(launch)]
+        elif r.get("rid") in rid_tid:
+            tid = rid_tid[r["rid"]]
+        elif launch is not None:
+            tid = launch_tid[int(launch)]
+        elif r.get("rids"):
+            tid = rid_tid[r["rids"][0]]
+        else:
+            tid = 999  # service-scoped (e.g. chaos) — its own track
+        args = {k: v for k, v in sorted(r.items())
+                if k not in ("kind", "name", "t_s", "dur_s", "lanes")}
+        if r["kind"] == "span" and r.get("dur_s", 0.0) > 0.0:
+            events.append({
+                "ph": "X", "pid": _SERVE_PID, "tid": tid,
+                "ts": wall_us(r["t_s"]), "dur": round(r["dur_s"] * 1e6,
+                                                      3),
+                "name": name, "cat": "serve", "args": args,
+            })
+        else:
+            events.append({
+                "ph": "i", "pid": _SERVE_PID, "tid": tid,
+                "ts": wall_us(r["t_s"]), "name": name, "s": "t",
+                "cat": "serve", "args": args,
+            })
+        if name == "beat" and launch is not None:
+            beat = int(r.get("beat", 0))
+            t_end = wall_us(r["t_s"] + r.get("dur_s", 0.0))
+            for entry in r.get("lanes", ()):
+                lane = int(entry.get("lane", 0))
+                if lane not in lanes_seen:
+                    lanes_seen.add(lane)
+                    events.append(_meta_event(
+                        _LANE_PID, lane, "thread_name", f"lane {lane}"))
+                # the harvested lane record at its SIM time, joined to
+                # the harvesting beat span by a wall->sim flow arrow
+                fid = ((int(launch) * 4096 + beat) * 256) + lane
+                events.append({
+                    "ph": "i", "pid": _LANE_PID, "tid": lane,
+                    "ts": int(entry.get("now_ns", 0)) / 1e3,
+                    "name": f"beat {beat}", "s": "t", "cat": "serve",
+                    "args": {"rid": entry.get("rid"),
+                             "launch": int(launch),
+                             "now_ns": int(entry.get("now_ns", 0))},
+                })
+                events.append({
+                    "ph": "s", "pid": _SERVE_PID,
+                    "tid": launch_tid[int(launch)], "ts": t_end,
+                    "id": fid, "name": "harvest", "cat": "serve-flow",
+                })
+                events.append({
+                    "ph": "f", "pid": _LANE_PID, "tid": lane,
+                    "ts": int(entry.get("now_ns", 0)) / 1e3, "id": fid,
+                    "name": "harvest", "cat": "serve-flow", "bp": "e",
+                })
+    return events
+
+
 def export(in_path: str | None, out_path: str,
            ledger_path: str | None = None) -> dict:
-    """Convert one .npz trace file; returns stats for the caller. A serve
-    flight ledger (`ledger_path`) raises NotImplementedError."""
+    """Convert one .npz trace file and/or one serve flight ledger;
+    returns stats for the caller."""
     events: list[dict] = []
     meta: dict = {}
+    n_serve = 0
     if in_path is not None:
         from shadow_tpu_torch.obs.trace import load_trace
 
         recs, meta = load_trace(in_path)
         events += build_events(recs, meta)
     if ledger_path is not None:
-        raise NotImplementedError(
-            "a serve flight ledger needs the serving plane (serve/, "
-            "obs/servetrace.py), which is not ported (ROADMAP.md Queue 1 "
-            "item 8b)")
+        from shadow_tpu_torch.obs.servetrace import load_ledger
+
+        _, records = load_ledger(ledger_path)
+        serve_events = build_serve_events(records)
+        events += serve_events
+        n_serve = len(records)
     doc = {
         "traceEvents": events,
         "displayTimeUnit": "ms",
@@ -151,13 +265,15 @@ def export(in_path: str | None, out_path: str,
             if k in meta
         },
     }
+    if ledger_path is not None:
+        doc["otherData"]["serve_ledger"] = ledger_path
     with open(out_path, "w") as f:
         json.dump(doc, f, separators=(",", ":"), sort_keys=True)
         f.write("\n")
     n_flows = sum(1 for e in events if e.get("ph") == "s")
     return {"events": len(events), "flows": n_flows,
             "records": meta.get("n_records", 0),
-            "serve_records": 0, "out": out_path,
+            "serve_records": n_serve, "out": out_path,
             "xprof_dir": meta.get("xprof_dir")}
 
 
@@ -171,8 +287,9 @@ def main(argv=None) -> int:
                    help=".npz written by TraceDrain.save (optional "
                         "when --serve-ledger is given)")
     p.add_argument("--serve-ledger", default=None, metavar="JSONL",
-                   help="serve-plane flight ledger: not ported (the "
-                        "serving plane is not), raises")
+                   help="serve-plane flight ledger (--ledger-file) to "
+                        "merge as wall-time span tracks + per-lane "
+                        "sim-time records (docs/18-Serve-Tracing.md)")
     p.add_argument("-o", "--out", default=None,
                    help="output JSON path (default: <trace>.json)")
     args = p.parse_args(argv)

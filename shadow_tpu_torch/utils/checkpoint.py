@@ -34,8 +34,12 @@ reservoir) and i64 queue drops (a narrower integer leaf is widened on
 load), v6 the mesh header, v7 the serving plane's manifest. This module
 writes v7 and loads v3-v7.
 
-Not ported, raising NotImplementedError: the serving plane's manifest
-(`serve_manifest=`; ROADMAP item 8b).
+The serving plane (`serve/`) writes its beat snapshots here: a fleet's
+state in the reference's [L, ...] lane layout (`runtime.fleet.lane_view`)
+with a batch manifest in the header (`serve_manifest=`, read back by
+`read_header_info`), and migrates them at the file level
+(`load_checkpoint_raw`, `save_checkpoint_raw`). A state may also be a
+flat dict of arrays, stored under the reference's `['key']` paths.
 """
 
 from __future__ import annotations
@@ -86,9 +90,19 @@ def _crc(arr: np.ndarray) -> int:
     return zlib.crc32(np.ascontiguousarray(arr).data) & 0xFFFFFFFF
 
 
+def _dict_path(key) -> str:
+    # `jax.tree_util.keystr` of a dict key
+    return f"[{key!r}]"
+
+
 def state_leaves(state) -> tuple[list[str], list[np.ndarray]]:
     """(keystr paths, numpy leaves) of `state` in the reference's
-    flatten order: the checkpoint's leaf table."""
+    flatten order: the checkpoint's leaf table. A flat dict of arrays
+    flattens in sorted key order, as a pytree dict does."""
+    if isinstance(state, dict):
+        keys = sorted(state)
+        return ([_dict_path(k) for k in keys],
+                [np.asarray(state[k]) for k in keys])
     leaves = convert.engine_state_to_numpy(state)
     return [convert.keystr(k) for k in leaves], list(leaves.values())
 
@@ -96,6 +110,9 @@ def state_leaves(state) -> tuple[list[str], list[np.ndarray]]:
 def _template_specs(template) -> tuple[list[str], list[tuple]]:
     """(keystr paths, (shape, numpy dtype)) of a template state, read
     from its tensors' metadata without copying them."""
+    if isinstance(template, dict):
+        paths, leaves = state_leaves(template)
+        return paths, [(x.shape, x.dtype) for x in leaves]
     paths, specs = [], []
     for key, t, u64 in convert.state_tensors(template):
         paths.append(convert.keystr(key))
@@ -230,12 +247,10 @@ def save_checkpoint(path: str, state: Any, meta: dict | None = None,
     the global view is gathered and rank 0 writes it. `shard=(i, n)`
     instead writes `state` as member i of a set of n, to
     `shard_member_path(path, i, n)` (no rotation: a set is resumed
-    whole or not at all). `serve_manifest=` is not ported.
+    whole or not at all). `serve_manifest` (v7) records a serving-plane
+    batch manifest (rids, request docs, class string, beat progress) so
+    a restarted `serve` can find and resume its in-flight batch.
     """
-    if serve_manifest is not None:
-        raise NotImplementedError(
-            "the serving plane's checkpoint manifest is not ported "
-            "(ROADMAP.md Queue 1 item 8b, the serving plane)")
     if mesh is not None and shard is None:
         from shadow_tpu_torch.parallel.mesh import gather_state
 
@@ -260,6 +275,8 @@ def save_checkpoint(path: str, state: Any, meta: dict | None = None,
     }
     if mesh_info is not None:
         header["mesh"] = dict(mesh_info)
+    if serve_manifest is not None:
+        header["serve"] = dict(serve_manifest)
     if shard is not None:
         i, n = shard
         if not 0 <= i < n:
@@ -365,6 +382,64 @@ def read_header_info(path: str) -> dict:
     }
 
 
+def load_checkpoint_raw(path: str) -> tuple[dict, dict[str, np.ndarray]]:
+    """Read a checkpoint WITHOUT a template: (header, {leaf_path:
+    array}) with every leaf verified against its stored CRC32.
+
+    The file-level half of serving-plane lane migration: the migrator
+    slices the raw `[L, ...]` leaves along the lane axis and writes the
+    parts back through `save_checkpoint_raw` under the SAME leaf-path
+    keys, so a part loads against a template of fewer lanes by the
+    ordinary path matching of `load_checkpoint`."""
+    header, leaves = _read_raw(path)
+    crcs = header.get("crc32")
+    if crcs is not None:
+        for i, (arr, want) in enumerate(zip(leaves, crcs)):
+            got = _crc(arr)
+            if got != want:
+                pth = header["paths"][i] if i < len(header["paths"]) else "?"
+                raise ValueError(
+                    f"checkpoint {path!r}: CRC mismatch on leaf {i} "
+                    f"({pth}): stored {want:#010x}, computed {got:#010x} "
+                    "— the file was damaged after it was written"
+                )
+    return header, dict(zip(header["paths"], leaves))
+
+
+def save_checkpoint_raw(path: str, leaves_by_path: dict[str, np.ndarray],
+                        *, meta: dict | None = None,
+                        mesh_info: dict | None = None,
+                        serve_manifest: dict | None = None) -> None:
+    """Write pre-flattened `{leaf_path: array}` leaves as a checkpoint,
+    keeping the path strings verbatim (insertion order is the leaf
+    order). Shapes, dtypes and per-leaf CRCs are recomputed from the
+    arrays, so a lane-sliced copy of a loaded file carries honest
+    integrity data of its own. The same atomic write as
+    `save_checkpoint`."""
+    paths = list(leaves_by_path)
+    leaves = [np.asarray(leaves_by_path[p]) for p in paths]
+    header = {
+        "format_version": FORMAT_VERSION,
+        "n_leaves": len(leaves),
+        "paths": paths,
+        "shapes": [list(np.shape(x)) for x in leaves],
+        "dtypes": [str(x.dtype) for x in leaves],
+        "crc32": [_crc(x) for x in leaves],
+        "extra": {},
+        "meta": meta or {},
+        "xchg_empty": _xchg_empty(paths, leaves),
+    }
+    if mesh_info is not None:
+        header["mesh"] = dict(mesh_info)
+    if serve_manifest is not None:
+        header["serve"] = dict(serve_manifest)
+    arrs = {f"leaf_{i}": x for i, x in enumerate(leaves)}
+    arrs["__header__"] = np.frombuffer(
+        json.dumps(header).encode("utf-8"), dtype=np.uint8
+    )
+    _write_atomic(path, arrs, keep=1)
+
+
 def _shard_sets(path: str) -> dict[int, dict[int, str]]:
     """{set_size: {member_index: member_path}} for files named
     `<path>.shard<i>of<n>` next to `path`."""
@@ -446,7 +521,9 @@ def find_resume_checkpoint(path: str):
                 serve_member,
                 "serving-plane lane snapshot (v7 'serve' manifest) — "
                 "batch-run --resume auto cannot load a lane-stacked "
-                "batch state",
+                "batch state; restart `shadow_tpu_torch serve` with the "
+                "same --snapshot-path and let resume_pending_batch pick "
+                "up the in-flight batch instead",
             ))
             continue
         return chosen, meta, skipped
@@ -486,7 +563,10 @@ def _check_leaf(arr: np.ndarray, spec: tuple, pth: str, want_crc,
 
 def _build(template, paths: list[str], arrays: list[np.ndarray]):
     """An EngineState shaped like `template`, on its device, from
-    leaves in the template's order."""
+    leaves in the template's order (a dict template: a dict of numpy
+    arrays)."""
+    if isinstance(template, dict):
+        return dict(zip(sorted(template), arrays))
     leaves = {convert.key_of(p): a for p, a in zip(paths, arrays)}
     return convert.engine_state_from_numpy(
         leaves, template.now.device, hosts=template.hosts)

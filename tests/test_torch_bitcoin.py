@@ -95,7 +95,7 @@ def test_bitcoin_parity_and_pins():
     both packages on the CPU: equal leaves and the pins the card is held
     to."""
     js, ts = build_both(chip_smoke.btc_config(), **chip_smoke.BTC_KW)
-    stop = chip_smoke.BTC_STOP_S * SECOND
+    stop = int(chip_smoke.BTC_STOP_S * SECOND)
     lj = jax_leaves(js.run(stop))
     lt = convert.engine_state_to_numpy(ts.run(stop))
     assert_leaves_equal(lj, lt)

@@ -253,9 +253,20 @@ def test_transfer_state_matches_reference(runs):
 
 def test_unported_parts_raise(runs, tmp_path):
     st = runs["phold_udp"]["tmid"]
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        tckpt.save_checkpoint(str(tmp_path / "s.npz"), st,
-                              serve_manifest={"rids": []})
+    # the serving plane's manifest is ported: a state written with one
+    # reads back in both packages, manifest and leaves
+    man = {"version": 1, "rids": ["r000000"], "beats_done": 2}
+    tckpt.save_checkpoint(str(tmp_path / "s.npz"), st,
+                          meta={"plane": "serve"}, serve_manifest=man)
+    for mod in (tckpt, jckpt):
+        assert mod.read_header_info(str(tmp_path / "s.npz"))["serve"] == man
+    back, meta = tckpt.load_checkpoint(str(tmp_path / "s.npz"), st)
+    assert meta == {"plane": "serve"}
+    assert_leaves_equal(convert.engine_state_to_numpy(st),
+                        convert.engine_state_to_numpy(back))
+    jst, _ = jckpt.load_checkpoint(str(tmp_path / "s.npz"),
+                                   runs["phold_udp"]["js"].state0)
+    assert_leaves_equal(jax_leaves(jst), convert.engine_state_to_numpy(st))
     # shard sets are ported (tests/test_torch_elastic.py): a torn set
     # next to the path is reported, never read
     assert tckpt.shard_member_path("p", 0, 2) == "p.shard0of2"

@@ -372,13 +372,11 @@ def test_metrics_port_scrape_passes_validation(tmp_path, monkeypatch):
 
 
 REFUSED = {
-    "serve": ["serve"],
     "mesh": ["--test", "--mesh", "2", "--spmd", "constraint"],
     "spmd": ["--test", "--spmd", "constraint"],
     "native_plugin": ["native.xml"],
 }
-REFUSED_ITEM = {"serve": "8b", "mesh": "7b", "spmd": "7b",
-                "native_plugin": "9"}
+REFUSED_ITEM = {"mesh": "7b", "spmd": "7b", "native_plugin": "9"}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
@@ -386,8 +384,9 @@ def test_refused_flags_exit_2(name, tmp_path):
     # capture, --window, --retry and --xprof run (tests/test_torch_pcap*.py,
     # test_torch_window.py, test_torch_retry.py), and so do --mesh,
     # --dcn-slices, --locality and --collective-timeout
-    # (tests/test_torch_shard_cli.py), and so does --fleet
-    # (tests/test_torch_fleet_cli.py): only --spmd constraint is refused
+    # (tests/test_torch_shard_cli.py), and so do --fleet
+    # (tests/test_torch_fleet_cli.py) and `serve`
+    # (tests/test_torch_serve.py): only --spmd constraint is refused
     (tmp_path / "native.xml").write_text(PHOLD.replace(
         'path="shadow-plugin-test-phold"', 'path="libphold.so"'))
     t = run_cli("torch", tmp_path, REFUSED[name])

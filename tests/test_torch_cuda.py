@@ -929,3 +929,35 @@ def test_fleet_on_cuda_matches_cpu():
         rounds, launches = counts["cuda", label]
         assert launches == rounds > 0, label
         assert counts["cpu", label] == (rounds, 0), label
+
+
+def test_served_on_cuda_matches_cpu():
+    """Two TGen requests (6 pairs) served by `SimService` on the card
+    equal the same requests served on the CPU, record for record (wall
+    time aside)."""
+    _need_card()
+    import time
+
+    from shadow_tpu_torch.serve import SimService
+
+    docs = [{"model": "tgen", "params": {"n_pairs": 6, "capacity": 128},
+             "seed": s, "stop_s": 4.0, "latency_scale": lat}
+            for s, lat in ((1, 1.0), (2, 1.5))]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        svc = SimService(max_lanes=2, pack_deadline_ms=100.0,
+                         beat_windows=8, device=dev).start()
+        try:
+            rids = [svc.submit(d)["request_id"] for d in docs]
+            deadline = time.monotonic() + 600
+            while not all(svc.result(r)["status"] in ("done", "error")
+                          for r in rids):
+                assert time.monotonic() < deadline, "requests pending"
+                time.sleep(0.05)
+            recs = [svc.result(r) for r in rids]
+        finally:
+            svc.drain()
+        got[dev] = [{k: v for k, v in r.items() if k != "wall_ms"}
+                    for r in recs]
+    assert got["cuda"] == got["cpu"]
+    assert all(r["status"] == "done" for r in got["cuda"])

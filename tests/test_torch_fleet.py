@@ -158,9 +158,21 @@ def test_fault_schedules_do_not_bleed_across_lanes(mixed):
 SWEEP = (5, 6, 7)
 
 
+@functools.lru_cache(maxsize=None)
+def jax_sweep_fleet():
+    """The reference's SWEEP fleet with a stop per lane, built once for
+    the file: the seed sweep runs it with one stop for every lane, the
+    per-lane-stop test with three (one compile, the stops are inputs)."""
+    jeng, jinit = jphold.build(N, seed=0, **KW)
+    return jfleet.Fleet(jeng, jinit(), jfleet.FleetPlan(3, seeds=SWEEP),
+                        per_lane_stop=True)
+
+
 def test_seed_sweep_lanes_match_reference_and_solo():
     plan = dict(seeds=SWEEP)
-    lj, sj = jax_fleet(3, False, plan_key(plan))
+    jf = jax_sweep_fleet()
+    jfinal = jax.device_get(jf.run(np.array((STOP,) * 3)))
+    lj, sj = jax_leaves(jfinal), jf.lane_summaries(jfinal)
     fleet = port_fleet(3, **plan)
     final = fleet.run(STOP)
     lt = convert.fleet_state_to_numpy(final)
@@ -291,9 +303,7 @@ def test_per_lane_stop_matches_each_lanes_solo_run():
     stops = (SECOND, 2 * SECOND + 7_000_000, STOP)
     final = fleet.run(np.array(stops))
     lt = convert.fleet_state_to_numpy(final)
-    jeng, jinit = jphold.build(N, seed=0, **KW)
-    jf = jfleet.Fleet(jeng, jinit(), jfleet.FleetPlan(3, seeds=SWEEP),
-                      per_lane_stop=True)
+    jf = jax_sweep_fleet()
     assert_leaves_equal(jax_leaves(jax.device_get(jf.run(np.array(stops)))),
                         lt)
     for k, (seed, stop) in enumerate(zip(SWEEP, stops)):

@@ -64,6 +64,13 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.parallel.mesh\n"
         "import shadow_tpu_torch.parallel.partition\n"
         "import shadow_tpu_torch.runtime.fleet\n"
+        "import shadow_tpu_torch.serve, shadow_tpu_torch.serve.http\n"
+        "import shadow_tpu_torch.serve.service\n"
+        "import shadow_tpu_torch.serve.packer, shadow_tpu_torch.serve.cache\n"
+        "import shadow_tpu_torch.serve.chaos\n"
+        "import shadow_tpu_torch.obs.servetrace\n"
+        "import shadow_tpu_torch.tools.serve_client\n"
+        "import shadow_tpu_torch.tools.serve_report\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
@@ -120,6 +127,16 @@ def test_default_device_is_cuda_without_fallback():
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--test", "--stoptime", "1"])
+    # the serving plane too: the service, its oracle and `serve`
+    from shadow_tpu_torch.serve import SimService, solo_reference
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SimService()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        solo_reference({"model": "phold", "params": {"hosts": 4},
+                        "stop_s": 0.1})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["serve", "--port", "0"])
     # a mesh too: its ranks run on CUDA unless told the CPU, and the
     # backend is chosen, never tried: NCCL is refused for CPU ranks
     from shadow_tpu_torch.parallel import mesh as pmesh

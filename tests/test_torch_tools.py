@@ -196,10 +196,22 @@ def test_diff_runs_matches_reference(run):
     assert call(t_diff.main, cases[0])[0] == 0
     assert call(t_diff.main, cases[1])[0] == 1
     assert "[shadow-heartbeat]" in log
-    ledger = run / "ledger.jsonl"
-    ledger.write_text('{"ledger_version": 1}\n')
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        t_diff.load_artifact(str(ledger))
+    # a serve flight ledger (its own kind) diffs as the reference's does
+    rec = {"kind": "span", "name": "beat", "t_s": 0.5, "dur_s": 0.25,
+           "launch": 1, "lanes": [{"lane": 0, "rid": "r000000",
+                                   "now_ns": 400}]}
+    for name, now in (("ledger.jsonl", 400), ("ledger2.jsonl", 500)):
+        lanes = [dict(rec["lanes"][0], now_ns=now)]
+        (run / name).write_text('{"ledger_version": 1, "plane": "serve"}\n'
+                                + json.dumps(dict(rec, lanes=lanes)) + "\n")
+    ledgers = [str(run / "ledger.jsonl"), str(run / "ledger2.jsonl")]
+    assert t_diff.load_artifact(ledgers[0]) == \
+        j_diff.load_artifact(ledgers[0])
+    for argv in (ledgers, ledgers + ["--json"], ledgers[:1] * 2):
+        got = {pkg: call(mod.main, argv)
+               for pkg, mod in (("jax", j_diff), ("torch", t_diff))}
+        assert got["torch"] == got["jax"], argv
+    assert call(t_diff.main, ledgers)[0] == 1
 
 
 LEGACY = """<shadow stoptime="30">

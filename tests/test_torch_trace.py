@@ -278,8 +278,24 @@ def test_export_and_critical_path_match_reference(tmp_path):
     recs, m = ttrace.load_trace(str(tmp_path / "torch.npz"))
     rj, mj = jtrace.load_trace(str(tmp_path / "jax.npz"))
     assert tcritical.analyze(recs, m) == jcritical.analyze(rj, mj)
-    with pytest.raises(NotImplementedError, match="serving plane"):
-        texport.export(None, str(tmp_path / "x.json"), ledger_path="l.jsonl")
+    # with a serve flight ledger beside the device trace: one merged
+    # file, the reference's byte for byte
+    ledger = tmp_path / "serve.jsonl"
+    ledger.write_text(
+        '{"ledger_version": 1, "plane": "serve"}\n'
+        '{"kind": "span", "name": "beat", "t_s": 0.5, "dur_s": 0.25, '
+        '"launch": 1, "cls": "c", "beat": 1, "lanes": [{"lane": 0, '
+        '"rid": "r000000", "now_ns": 400000}]}\n'
+        '{"kind": "event", "name": "result", "t_s": 0.9, "dur_s": 0.0, '
+        '"rid": "r000000", "status": "done"}\n')
+    for pkg, mod in (("jax", jexport), ("torch", texport)):
+        path = str(tmp_path / f"{pkg}.merged.json")
+        mod.export(str(tmp_path / "torch.npz"), path,
+                   ledger_path=str(ledger))
+        out[pkg] = open(path, "rb").read()
+    assert out["jax"] == out["torch"]
+    assert {e["pid"] for e in json.loads(out["torch"])["traceEvents"]} \
+        >= {0, 2, 3}
 
 
 # -- the slow pins: chip_smoke.py's phase 18 ---------------------------------
