@@ -185,7 +185,24 @@ Phases, each of which fails the run (exit 1, no result line) on error:
    and write times and each launch's wall printed; then (b) `python -m
    shadow_tpu_torch serve` as a subprocess on the card: one small PHOLD
    request equal to the port's solo run, SIGTERM, exit 0, the queue
-   file written.
+   file written;
+24. the real-binary tier: PROC_HOSTS = 1,024 hosts of native plugins
+   built from the checkout by the port's build functions (PROC_ECHO_PAIRS
+   shim_echo pairs, PROC_TCP_PAIRS unmodified plain_tcp pairs through
+   the interposer, a quarter in each io mode, PROC_UDP_PAIRS plain_udp
+   pairs, PROC_CLOCKS shim_clock hosts, half of them running a second
+   clock stopped at 2 s: 1,088 processes) on the one-PoI topology, (a)
+   `ProcessTier(device="cuda", overflow="spill")` run to its end with
+   the plugins' stdout captured, held to PIN_PROC (the exit codes, a
+   sha256 over the log triples and one over the stdout, the delivered
+   bytes, the queue drops, the final-state digest), the merge launched
+   at least once per injecting window and held to its plain version and
+   timed on inputs captured inside `ProcessTier._inject`; windows, inner
+   steps, ms per window, host reads per window and the pump's and the
+   step's shares of the loop printed beside phase 10's run of this
+   call; then (b) `python -m shadow_tpu_torch` as a subprocess on a cut
+   of one echo pair and one epoll plain_tcp pair, its stdout less
+   `wall_seconds` equal to the reference CLI's (PIN_PROC["cli_stdout"]).
 
 It then prints one `{"kernels": [...]}` line and, last, the device line
 `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
@@ -193,7 +210,7 @@ package beside it, it exits 1 and prints no result. With
 `--kernels-only` it also times the merge at 1, 2, 4 and 8 rows per
 block, stops after phase 3 and prints the timing as one JSON line,
 without the result lines; `--only 17,18` runs phases 1-3 and then only
-the listed phases (9-23), without the result lines.
+the listed phases (9-24), without the result lines.
 
 The pins come from JAX/CPU (jax 0.9.0, x64):
 `python -m pytest -m slow tests/test_torch_phold.py tests/test_torch_sim.py`
@@ -210,7 +227,9 @@ slow` for phase 16, `tests/test_torch_cubic.py -m slow` for phase 17,
 `tests/test_torch_shard_cli.py -m slow` for phase 21,
 `tests/test_torch_fleet_cli.py -m slow` for phase 22, lane by lane from
 the reference's solo runs, `tests/test_torch_serve.py -m slow` for
-phase 23, the reference's `solo_reference` of each request). The merge-input
+phase 23, the reference's `solo_reference` of each request,
+`tests/test_torch_proc.py -m slow` for phase 24, the reference's
+ProcessTier and CLI on the same plugin objects). The merge-input
 generator below is shared with tests/test_torch_merge.py.
 """
 
@@ -2901,9 +2920,10 @@ def phase_pcap(merge, smi_line, tgen=None) -> dict:
     return {"run": run, "phase_s": phase_s}
 
 
-def _fd_capture(fn):
+def _fd_capture(fn, decode: bool = True):
     """(fn(), what the process and its children wrote to file
-    descriptor 1 meanwhile): a --mesh run's ranks print there."""
+    descriptor 1 meanwhile, as text or, without `decode`, bytes): a
+    --mesh run's ranks print there, and so do native plugins."""
     import os
 
     sys.stdout.flush()
@@ -2917,7 +2937,8 @@ def _fd_capture(fn):
             os.dup2(saved, 1)
             os.close(saved)
         f.seek(0)
-        return out, f.read().decode()
+        got = f.read()
+        return out, got.decode() if decode else got
 
 
 def xchg_deliver_input(merge, events, dev, ckpt_path):
@@ -3099,6 +3120,303 @@ def phase_shard(merge, events, dev, smi_line, cli_phase=None) -> dict:
     return {"runs": runs, "phase_s": phase_s, "deliver": deliver}
 
 
+# -- phase 24: the real-binary tier --------------------------------------
+PROC_ECHO_PAIRS = 256
+PROC_TCP_PAIRS = 128  # a quarter in each io mode
+PROC_UDP_PAIRS = 64
+PROC_UDP_COUNT = 20
+PROC_CLOCKS = 128  # half of them run a second clock, stopped at 2 s
+PROC_BYTES = 20_000
+PROC_SEED = 7
+PROC_STOP_S = 10
+PROC_HOSTS = (2 * (PROC_ECHO_PAIRS + PROC_TCP_PAIRS + PROC_UDP_PAIRS)
+              + PROC_CLOCKS)
+PROC_IO_MODES = ("blocking", "nonblocking-poll", "nonblocking-epoll",
+                 "nonblocking-select")
+PROC_TIMED_CALL = 20  # the inject merge call kept for timing
+PROC_TOPO = """<graphml xmlns="http://graphml.graphdrawing.org/xmlns">
+  <key attr.name="packetloss" attr.type="double" for="edge" id="d4" />
+  <key attr.name="latency" attr.type="double" for="edge" id="d3" />
+  <key attr.name="bandwidthup" attr.type="int" for="node" id="d2" />
+  <key attr.name="bandwidthdown" attr.type="int" for="node" id="d1" />
+  <graph edgedefault="undirected">
+    <node id="poi-1">
+      <data key="d1">10240</data>
+      <data key="d2">10240</data>
+    </node>
+    <edge source="poi-1" target="poi-1">
+      <data key="d3">25.0</data>
+      <data key="d4">0.0</data>
+    </edge>
+  </graph>
+</graphml>"""
+PIN_PROC = {
+    "processes": 1088,
+    "exit_codes_nonzero": [],
+    "exit_codes_sha256":
+        "048c98e86ef85d7e4f8afdb0020045f34c09634d20a842927749f8cd1e344113",
+    "logs": 640,
+    "logs_sha256":
+        "2f9c2fda3230a138a19b8bbc047080c1b658f338d3321580e2607610ae19bc16",
+    "stdout_sha256":
+        "3d430697c4ea3fb20a66e4edacb973a9365f76477eb9b3f1bb275477c501ad69",
+    "rx_bytes": 17944320,
+    "queue_drops": 0,
+    "digest":
+        "314e3fd694871128937a5f828828d60b399ae766a820294a92b812ab93e3fdb1",
+    "cli_stdout": (
+        "PLAIN_TCP_SERVER_DONE 20000\n"
+        "PLAIN_TCP_OK 20000 225\n"
+        "[2.175305] [pid 0] server echoed 20000 bytes at t=2175304986\n"
+        "[2.277034] [pid 1] client verified 20000 bytes at t=2277034188\n"
+        '{"hosts": 4, "sim_seconds": 10.0, "processes": 4, "exit_codes": '
+        '{"0": 0, "2": 0, "3": 0, "1": 0}, "rx_bytes": 80000, '
+        '"queue_drops": 0}\n'),
+}
+
+
+def proc_plugins() -> dict:
+    """The phase's plugins, built from the checkout by the port's
+    build functions: name -> .so path."""
+    from shadow_tpu_torch.proc.native import (
+        compile_plugin,
+        compile_posix_plugin,
+    )
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {
+        "echo": compile_plugin(
+            os.path.join(root, "native", "plugins", "shim_echo.c")),
+        "clock": compile_plugin(
+            os.path.join(root, "native", "plugins", "shim_clock.c")),
+        "plain_tcp": compile_posix_plugin(
+            os.path.join(root, "tests", "plugins", "plain_tcp.c")),
+        "plain_udp": compile_posix_plugin(
+            os.path.join(root, "tests", "plugins", "plain_udp.c")),
+    }
+
+
+def proc_config(plugins: dict, cut: bool = False) -> str:
+    """Phase 24's config, or with `cut` the CLI's: one echo pair and one
+    epoll plain_tcp pair."""
+    def host(name, plugin, args, start):
+        return (f'<host id="{name}"><process plugin="{plugin}" '
+                f'starttime="{start}" arguments="{args}"/></host>')
+
+    n_echo, n_tcp, n_udp, n_clock = ((1, 1, 0, 0) if cut else
+                                     (PROC_ECHO_PAIRS, PROC_TCP_PAIRS,
+                                      PROC_UDP_PAIRS, PROC_CLOCKS))
+    hosts = []
+    for i in range(n_echo):
+        hosts += [host(f"esrv{i}", "echo", f"server 8888 {PROC_BYTES}", 1),
+                  host(f"ecli{i}", "echo",
+                       f"client esrv{i} 8888 {PROC_BYTES}", 2)]
+    for i in range(n_tcp):
+        mode = ("nonblocking-epoll" if cut else
+                PROC_IO_MODES[i * len(PROC_IO_MODES) // n_tcp])
+        hosts += [host(f"tsrv{i}", "plain_tcp", f"{mode} server 8080", 1),
+                  host(f"tcli{i}", "plain_tcp",
+                       f"{mode} client tsrv{i} 8080 {PROC_BYTES}", 2)]
+    for i in range(n_udp):
+        hosts += [host(f"usrv{i}", "plain_udp",
+                       f"server 8053 {PROC_UDP_COUNT}", 1),
+                  host(f"ucli{i}", "plain_udp",
+                       f"client usrv{i} 8053 {PROC_UDP_COUNT}", 2)]
+    for i in range(n_clock):
+        second = ('<process plugin="clock" starttime="1" stoptime="2" '
+                  'arguments="200 10"/>' if i % 2 else "")
+        hosts.append(f'<host id="clk{i}"><process plugin="clock" '
+                     f'starttime="1" arguments="200 10"/>{second}</host>')
+    used = ("echo", "plain_tcp") if cut else tuple(plugins)
+    decl = "".join(f'<plugin id="{k}" path="{plugins[k]}"/>' for k in used)
+    return (f'<shadow stoptime="{PROC_STOP_S}">'
+            f"<topology><![CDATA[{PROC_TOPO}]]></topology>"
+            f"{decl}{''.join(hosts)}</shadow>")
+
+
+def proc_pin_fields(exit_codes: dict, logs: list, stdout: bytes, leaves,
+                    convert) -> dict:
+    """What PIN_PROC holds of a tier's run: the exit codes, sha256s over
+    the log triples and the plugins' stdout, the delivered bytes, the
+    queue drops and the final-state digest."""
+    sha = lambda b: hashlib.sha256(b).hexdigest()
+    codes = sorted((int(p), int(c)) for p, c in exit_codes.items())
+    return {
+        "processes": len(codes),
+        "exit_codes_nonzero": [[p, c] for p, c in codes if c],
+        "exit_codes_sha256": sha(json.dumps(codes).encode()),
+        "logs": len(logs),
+        "logs_sha256": sha("".join(f"{t} {p} {m}\n"
+                                   for t, p, m in logs).encode()),
+        "stdout_sha256": sha(stdout),
+        "rx_bytes": int(leaves["hosts.net.sockets.rx_bytes"].sum()),
+        "queue_drops": int(leaves["queues.drops"].sum()),
+        "digest": convert.leaves_digest(leaves),
+    }
+
+
+def without_wall_seconds(stdout: str) -> str:
+    """A process-tier CLI's stdout with the summary's wall_seconds taken
+    out."""
+    out = []
+    for line in stdout.splitlines(keepends=True):
+        if line.startswith("{"):
+            d = json.loads(line)
+            d.pop("wall_seconds", None)
+            line = json.dumps(d) + "\n"
+        out.append(line)
+    return "".join(out)
+
+
+def phase_proc(merge, events, convert, dev, smi_line,
+               tgen_run: dict | None = None) -> dict:
+    """(a) `ProcessTier` on the card at PROC_HOSTS hosts against
+    PIN_PROC, the merge launched on every injecting window and held to
+    its plain version on inputs captured inside `_inject`, then timed on
+    one; (b) the CLI cut as a subprocess against the reference CLI's
+    stdout."""
+    import torch
+
+    from shadow_tpu_torch.config import parse_config
+    from shadow_tpu_torch.obs.profiler import WindowProfiler
+    from shadow_tpu_torch.proc import ProcessTier
+
+    t_phase = time.perf_counter()
+    pin = PIN_PROC or {}
+    plugins = proc_plugins()
+    plugins_s = time.perf_counter() - t_phase
+    cfg = parse_config(proc_config(plugins))
+    kernel = events.merge.fused_merge
+    inject = {"on": False, "calls": 0, "kept": [], "timed": None}
+
+    def record(*args):
+        if inject["on"]:
+            inject["calls"] += 1
+            if len(inject["kept"]) < 3:
+                inject["kept"].append(tuple(a.clone() for a in args))
+            if inject["calls"] == PROC_TIMED_CALL:
+                inject["timed"] = tuple(a.clone() for a in args)
+        return kernel(*args)
+
+    prof = WindowProfiler()
+    out: dict = {}
+
+    def run():
+        t0 = time.perf_counter()
+        tier = ProcessTier(cfg, device=dev, seed=PROC_SEED,
+                           overflow="spill", profiler=prof)
+        plain_inject = tier._inject
+
+        def traced_inject(st, rows, now):
+            inject["on"] = True
+            try:
+                return plain_inject(st, rows, now)
+            finally:
+                inject["on"] = False
+
+        tier._inject = traced_inject
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        syncs0 = tier.sim.engine.host_syncs
+        merge.launches = 0
+        t0 = time.perf_counter()
+        try:
+            st = tier.run()
+            torch.cuda.synchronize()
+            out["wall_s"] = time.perf_counter() - t0
+            out["launches"] = merge.launches
+            out["host_syncs"] = tier.sim.engine.host_syncs - syncs0
+            out["leaves"] = convert.engine_state_to_numpy(st)
+        finally:
+            tier.close()
+        return tier
+
+    events.merge.fused_merge = record
+    try:
+        tier, stdout = _fd_capture(run, decode=False)
+    finally:
+        events.merge.fused_merge = kernel
+    leaves = out.pop("leaves")
+    got = proc_pin_fields(tier.exit_codes, tier.logs, stdout, leaves,
+                          convert)
+    phases = prof.summary()["phases"]
+    wall, windows = out["wall_s"], max(tier.windows, 1)
+    inner = int(leaves["stats.n_inner_steps"].sum())
+    run_info = {
+        "hosts": PROC_HOSTS, "processes": got["processes"],
+        "windows": tier.windows, "injections": tier.injections,
+        "inject_merge_calls": inject["calls"],
+        "inner_steps": inner, "sweeps": int(leaves["stats.n_sweeps"].sum()),
+        "events": int(leaves["stats.n_executed"].sum()),
+        "wall_s": wall, "build_s": out["build_s"],
+        "plugins_build_s": plugins_s,
+        "ms_per_window": 1e3 * wall / windows,
+        "ms_per_inner_step": 1e3 * wall / max(inner, 1),
+        "host_reads_per_window": out["host_syncs"] / windows,
+        "tier_reads_per_window": tier.reads / windows,
+        "pump_share": phases.get("pump", {}).get("total_s", 0.0) / wall,
+        "step_share": phases.get("step", {}).get("total_s", 0.0) / wall,
+        "launches": out["launches"],
+        "exit_codes_nonzero": got["exit_codes_nonzero"],
+        "rx_bytes": got["rx_bytes"], "queue_drops": got["queue_drops"],
+        "spilled": int(leaves["queues.spill.n_spilled"].sum()),
+        "phase10_ms_per_inner_step": (tgen_run or {}).get(
+            "ms_per_inner_step"),
+    }
+    print(f"  proc tier: {json.dumps(run_info)} ({smi_line})")
+    for key, val in got.items():
+        check(val == pin.get(key),
+              f"proc tier: {key} {val} != JAX/CPU {pin.get(key)}")
+    check(got["processes"] == 1_088 and not got["exit_codes_nonzero"],
+          f"proc tier: exit codes {got['exit_codes_nonzero']}")
+    check(tier.injections > 0 and inject["calls"] >= tier.injections
+          and out["launches"] >= inject["calls"],
+          f"proc tier: {out['launches']} merge launches, "
+          f"{inject['calls']} inside _inject, for {tier.injections} "
+          "injecting windows")
+    for i, args in enumerate(inject["kept"] + [inject["timed"]]):
+        check(args is not None, "proc tier: no inject merge input at call "
+                                f"{PROC_TIMED_CALL}")
+        bad = compare_merge(merge, args)
+        check(bad == 0, f"merge kernel != plain on inject input {i}: "
+                        f"{bad} elements differ")
+        print(f"  merge == plain on inject input {i}: "
+              f"h={args[0].shape[0]} hc={args[0].shape[1]} "
+              f"w={args[5].shape[1]} m={args[3].shape[0]} "
+              f"admitted={int(args[7].sum())}")
+    timing = time_captured(merge, dev, inject["timed"], smi_line,
+                           f"captured inject (merge call {PROC_TIMED_CALL}"
+                           " inside ProcessTier._inject)")
+    inject["kept"].clear()
+    inject["timed"] = None
+    torch.cuda.empty_cache()
+
+    # (b) the command line on the cut, as a user runs it
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "proc.xml")
+        with open(path, "w") as f:
+            f.write(proc_config(plugins, cut=True))
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        p = subprocess.run(
+            [sys.executable, "-m", "shadow_tpu_torch", path, "--seed",
+             str(PROC_SEED)], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    check(p.returncode == 0,
+          f"proc cli: exit {p.returncode}: {p.stderr[-2000:]}")
+    check(without_wall_seconds(p.stdout) == pin.get("cli_stdout"),
+          "proc cli: stdout differs from the reference CLI's:\n"
+          f"{p.stdout[-2000:]}")
+    phase_s = time.perf_counter() - t_phase
+    print(json.dumps({"proc": run_info, "cli_s": cli_s, "phase_s": phase_s,
+                      "card": smi_line}))
+    return {"run": run_info, "timing": timing, "phase_s": phase_s,
+            "launches": out["launches"]}
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3109,13 +3427,13 @@ def main(argv=None) -> int:
                     help="stop after the kernel phases and their timing: "
                          "no PHOLD runs, no result lines")
     ap.add_argument("--only", default="",
-                    help="comma-separated phases (9-23) to run after "
+                    help="comma-separated phases (9-24) to run after "
                          "phases 1-3, skipping the others; prints no "
                          "result lines")
     opts = ap.parse_args(argv)
     only = {int(p) for p in opts.only.split(",") if p}
-    if not only <= set(range(9, 24)):
-        ap.error("--only takes phases 9 to 23")
+    if not only <= set(range(9, 25)):
+        ap.error("--only takes phases 9 to 24")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3186,6 +3504,8 @@ def main(argv=None) -> int:
                 elif p == 23:
                     phase_serve(merge, events, convert, dev, smi_line,
                                 fleet_only if 22 in only else None)
+                elif p == 24:
+                    phase_proc(merge, events, convert, dev, smi_line)
                 else:
                     phase_app({11: "tor", 12: "btc", 13: "mixed",
                                15: "tgen_frontier", 16: "tgen_faults"}[p],
@@ -3358,6 +3678,12 @@ def main(argv=None) -> int:
     serve_phase = phase_serve(merge, events, convert, dev, smi_line,
                               fleet_phase)
 
+    phase(f"24. the real-binary tier: {PROC_HOSTS} hosts of native "
+          "plugins through ProcessTier on the card, then the CLI's .so "
+          "path")
+    proc = phase_proc(merge, events, convert, dev, smi_line,
+                      tgen["runs"][0])
+
     kernels = [{
         "name": "merge",
         "route": "cuda",
@@ -3381,7 +3707,8 @@ def main(argv=None) -> int:
                      + fleet_phase["cli"]["launches"]
                      + sum(r["launches"]
                            for r in fleet_phase["runs"].values())
-                     + serve_phase["launches"]),
+                     + serve_phase["launches"]
+                     + proc["launches"]),
         "launches_batched": main_run["launches"],
         "launches_chained": chained_run["launches"],
         "launches_net": net["main"]["launches"],
@@ -3414,6 +3741,9 @@ def main(argv=None) -> int:
             fleet_phase["runs"]["fleet"]["launches_per_round"],
         "launches_serve": serve_phase["launches"],
         "launches_serve_by_hc": serve_phase["launches_by_hc"],
+        "launches_proc": proc["launches"],
+        "proc_injections": proc["run"]["injections"],
+        "proc_inject_merge_calls": proc["run"]["inject_merge_calls"],
         "max_abs_err": 0,
         "equal_to_plain": True,
         "ms": timing["main"]["us"] / 1e3,
@@ -3482,6 +3812,12 @@ def main(argv=None) -> int:
         "fleet_plain_ms": fleet_phase["timing"][fleet_hc]["plain_ms"],
         "fleet_yardstick_ms": fleet_phase["timing"][fleet_hc][
             "yardstick_ms"],
+        "proc_inject_hc": int(proc["timing"]["hc"]),
+        "proc_inject_w": int(proc["timing"]["w"]),
+        "proc_inject_us": proc["timing"]["us"],
+        "proc_inject_bound_us": proc["timing"]["bound_us"],
+        "proc_inject_plain_ms": proc["timing"]["plain_ms"],
+        "proc_inject_yardstick_ms": proc["timing"]["yardstick_ms"],
         "shapes": [{key: row[key] for key in
                     ("hc", "w", "nw", "regime", "us", "warm_us",
                      "bound_us", "share", "warps_per_block")}
@@ -3492,7 +3828,8 @@ def main(argv=None) -> int:
                    + [skew["timing"]["loop"], skew["timing"]["refill"],
                       deliver]
                    + [fleet_phase["timing"][hc]
-                      for hc in sorted(fleet_phase["timing"])]],
+                      for hc in sorted(fleet_phase["timing"])]
+                   + [proc["timing"]]],
         "build_s": build_s,
     }, {
         "name": "cbrt",

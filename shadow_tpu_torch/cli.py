@@ -38,9 +38,14 @@ with a per-lane `lanes` list, as the reference's fleet run prints them.
 lanes on the device, drained by SIGTERM/SIGINT (exit 0, the pending
 queue persisted to `--queue-file`) and resized by SIGHUP.
 
+A config whose plugins are existing `.so` files runs on the process
+tier (`proc/`): the plugins as green threads in the native runtime, the
+syscall exchange batched per window, the plugins' log lines and a
+summary on stdout, as the reference prints them.
+
 Refused with exit 2, each naming the ROADMAP.md Queue 1 item that will
-port it: `--spmd constraint` (item 7b); native `.so` plugins, the
-process tier (item 9).
+port it: `--spmd constraint` (item 7b); a `.so` config under `--mesh`
+above 1, the process tier on a mesh (item 9b).
 """
 
 from __future__ import annotations
@@ -637,13 +642,138 @@ def _refused(args, cfg=None) -> str | None:
             return msg
     if cfg is None:
         return None
+    if (args.mesh or 0) > 1 and any(_is_shim_plugin(cfg, p)
+                                    for p in cfg.plugins):
+        return (f"native .so plugins (the process tier) on a mesh of more "
+                f"than one shard are not ported ({item} 9b); drop --mesh")
+    return None
+
+
+def _is_shim_plugin(cfg, plugin) -> bool:
+    """Whether a <plugin> is a native shared object (the process
+    tier's), by its resolved path."""
     from shadow_tpu_torch.config import resolve_path
 
-    if any(resolve_path(p.path, cfg.base_dir).endswith(".so")
-           for p in cfg.plugins):
-        return (f"native .so plugins (the process tier) are not ported "
-                f"({item} 9)")
-    return None
+    path = resolve_path(plugin.path, cfg.base_dir)
+    return path.endswith(".so") and os.path.exists(path)
+
+
+def _mesh_config_refusal(args) -> str | None:
+    """`_refused` of the config file, read before `--mesh` starts its
+    ranks; None without a config file."""
+    if not args.mesh or args.mesh <= 1 or not args.config or args.test:
+        return None
+    try:
+        cfg = parse_config(args.config)
+    except (OSError, SyntaxError, ValueError):
+        return None  # each rank reports the config's own error
+    return _refused(args, cfg)
+
+
+def _run_proc_tier(args, cfg, overflow: str, dev, mesh) -> int:
+    """The process tier's run: plugin log lines and the summary on
+    stdout; 0 when every process exited 0."""
+    if not all(_is_shim_plugin(cfg, p) for p in cfg.plugins):
+        print("error: configs cannot mix native .so plugins with modeled "
+              "plugins yet; make every plugin a .so or none",
+              file=sys.stderr)
+        return 2
+    if args.metrics or args.metrics_port is not None or args.xprof:
+        print("note: --metrics/--metrics-port/--xprof are device-tier "
+              "flags (they ride the heartbeat harvest); the process "
+              "tier ignores them", file=sys.stderr)
+    unsupported = []
+    if args.resume:
+        unsupported.append("--resume")
+    if args.checkpoint_interval:
+        unsupported.append("--checkpoint-interval")
+    if unsupported:
+        print("error: the process tier (native .so plugins) does not "
+              f"support {', '.join(unsupported)} yet; native endpoint "
+              "streams are not captured in device checkpoints",
+              file=sys.stderr)
+        return 2
+    from shadow_tpu_torch.proc import ProcessTier
+    from shadow_tpu_torch.proc.tier import tier_summary
+    from shadow_tpu_torch.runtime.pressure import (
+        QueuePressureError,
+        pressure_bundle,
+    )
+    from shadow_tpu_torch.runtime.supervisor import (
+        EXIT_PRESSURE,
+        Supervisor,
+    )
+
+    t0 = time.perf_counter()
+    prof, _phase = _make_profiler(args)
+    with _phase("build"):
+        tier = ProcessTier(
+            cfg, device=dev, seed=args.seed, n_sockets=args.sockets,
+            capacity=args.capacity,
+            strict_overflow=not args.allow_queue_overflow,
+            tcp_cc=args.tcp_congestion_control,
+            rx_queue=args.router_queue, qdisc=args.interface_qdisc,
+            interface_buffer=args.interface_buffer, mesh=mesh,
+            locality=args.locality, trace=args.trace, profiler=prof,
+            overflow=overflow,
+        )
+    sup = Supervisor(
+        watchdog_timeout=args.watchdog, diag_dir=args.diag_dir,
+        label="shadow_tpu_torch.proc",
+        info=lambda: {
+            "tier": "process",
+            "live_pids": tier.live_pids(),
+            "exit_codes": {str(k): v for k, v in tier.exit_codes.items()},
+        },
+    )
+    try:
+        with sup:
+            st = tier.run(supervisor=sup)
+        wall = time.perf_counter() - t0
+    except QueuePressureError as e:
+        path = pressure_bundle(e, diag_dir=args.diag_dir,
+                               label="shadow_tpu_torch.proc")
+        print(f"shadow_tpu_torch: QUEUE PRESSURE under --overflow strict: "
+              f"{e}\ndiagnostic bundle -> {path}", file=sys.stderr)
+        return EXIT_PRESSURE
+    finally:
+        # abnormal exits (a stall abort is os._exit and skips this, but
+        # signals and exceptions land here) still print the plugin log
+        # lines so far and close the runtime
+        for t_ns, pid, msg in tier.logs:
+            print(f"[{t_ns / SECOND:.6f}] [pid {pid}] {msg}")
+        tier.close()
+    summary = {
+        "hosts": len(tier.sim.names),
+        "sim_seconds": cfg.stoptime,
+        "wall_seconds": round(wall, 3),
+        "processes": len(tier.pid_host),
+        "exit_codes": tier.exit_codes,
+        **tier_summary(tier, st),
+    }
+    if args.trace and st.trace is not None:
+        from shadow_tpu_torch.obs.trace import TraceDrain
+
+        tdrain = TraceDrain(args.trace, names=tier.sim.names,
+                            kind_names=list(tier.sim.kind_names))
+        tdrain.drain(st.trace)
+        tdrain.save(args.trace_out,
+                    profile=prof.export() if prof is not None else None,
+                    extra_meta={"seed": args.seed, "tier": "process"})
+        summary["trace"] = {
+            "records": tdrain.n_records, "lost": tdrain.lost,
+            "truncated": tdrain.truncated, "file": args.trace_out,
+        }
+        print(f"event trace: {tdrain.n_records} records -> "
+              f"{args.trace_out}", file=sys.stderr)
+    if prof is not None:
+        summary["profile"] = prof.summary()
+    print(json.dumps(summary))
+    if sup.stop_requested:
+        print(f"interrupted by signal {sup.stop_signum}; the process "
+              "tier has no checkpoint to write", file=sys.stderr)
+        return sup.exit_code()
+    return 0 if all(c == 0 for c in tier.exit_codes.values()) else 1
 
 
 def _build_info(device) -> str:
@@ -849,6 +979,10 @@ def main(argv=None, *, device=None, run_info: dict | None = None,
         import torch.distributed as dist
 
         if not dist.is_initialized():
+            msg = _mesh_config_refusal(args)
+            if msg is not None:
+                print(f"error: {msg}", file=sys.stderr)
+                return 2
             return _launch_mesh(argv, args, device, backend, run_info)
         from shadow_tpu_torch.parallel.mesh import make_mesh
 
@@ -903,6 +1037,11 @@ def main(argv=None, *, device=None, run_info: dict | None = None,
         # the sharded engine does not speak the reservoir's boundary
         # protocol: meshes keep counted drops unless asked otherwise
         overflow = "drop" if args.mesh else "spill"
+
+    # a config whose plugins are real shared objects runs on the process
+    # tier: native green threads and the window-batched syscall exchange
+    if any(_is_shim_plugin(cfg, p) for p in cfg.plugins):
+        return _run_proc_tier(args, cfg, overflow, dev, mesh)
 
     # --xprof is parsed before the build: a malformed span fails at once
     xprof_span = None

@@ -628,11 +628,16 @@ def build_simulation(
     host_order: Any = None,
     spmd: str = "auto",
     device=None,
+    app_model: Any = None,
 ) -> Simulation:
     """Config -> Simulation on `device` (None: CUDA, which must exist;
     pass "cpu" to run on the CPU).
 
-    The keywords are the reference's, less `app_model`. `mesh` (a
+    The keywords are the reference's. `app_model` replaces the models
+    the config's plugins resolve to (the process tier's
+    `ProcTierModel`); a model with `owns_process_lifecycle` stops its
+    processes itself, so hosts get no per-host stop and may give their
+    processes differing stoptimes. `mesh` (a
     `parallel.mesh.Mesh`) shards the hosts: the Simulation then runs
     this rank's shard on the mesh's device. `locality=True` (a mesh of
     more than one shard) reorders hosts so config-visible traffic
@@ -755,7 +760,8 @@ def build_simulation(
             if s.pcapdir:
                 pcap_dirs.add(s.pcapdir)
         stops = {p.stoptime for p in s.processes if p.stoptime}
-        if stops:
+        if stops and not getattr(app_model, "owns_process_lifecycle",
+                                 False):
             if len(s.processes) > 1 and (
                 len(stops) > 1 or len(stops) < len(s.processes)
             ):
@@ -768,8 +774,11 @@ def build_simulation(
                 )
             proc_stop[h.gid] = int(stops.pop() * SECOND)
 
-    parts = resolve_app_models(cfg, registry, hosts)
-    model = parts[0][1] if len(parts) == 1 else FusedModel(parts)
+    if app_model is not None:
+        model = app_model
+    else:
+        parts = resolve_app_models(cfg, registry, hosts)
+        model = parts[0][1] if len(parts) == 1 else FusedModel(parts)
     if snd_buf_bytes.any() and not model.needs_tcp:
         # without a TCP stack there is no send buffer for the cap to bound
         # (socketrecvbuffer sizes TCP's receive window; ignored without)

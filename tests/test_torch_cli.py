@@ -374,9 +374,9 @@ def test_metrics_port_scrape_passes_validation(tmp_path, monkeypatch):
 REFUSED = {
     "mesh": ["--test", "--mesh", "2", "--spmd", "constraint"],
     "spmd": ["--test", "--spmd", "constraint"],
-    "native_plugin": ["native.xml"],
+    "native_plugin": ["native.xml", "--mesh", "2"],
 }
-REFUSED_ITEM = {"mesh": "7b", "spmd": "7b", "native_plugin": "9"}
+REFUSED_ITEM = {"mesh": "7b", "spmd": "7b", "native_plugin": "9b"}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
@@ -386,9 +386,12 @@ def test_refused_flags_exit_2(name, tmp_path):
     # --dcn-slices, --locality and --collective-timeout
     # (tests/test_torch_shard_cli.py), and so do --fleet
     # (tests/test_torch_fleet_cli.py) and `serve`
-    # (tests/test_torch_serve.py): only --spmd constraint is refused
+    # (tests/test_torch_serve.py), and so do .so configs unsharded
+    # (tests/test_torch_proc*.py): only --spmd constraint and the process
+    # tier on a mesh of more than one shard are refused
     (tmp_path / "native.xml").write_text(PHOLD.replace(
         'path="shadow-plugin-test-phold"', 'path="libphold.so"'))
+    (tmp_path / "libphold.so").write_bytes(b"")
     t = run_cli("torch", tmp_path, REFUSED[name])
     assert t["rc"] == 2 and t["summary"] is None
     assert re.search(rf"ROADMAP\.md Queue 1 item {REFUSED_ITEM[name]}\b",

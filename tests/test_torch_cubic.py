@@ -51,7 +51,8 @@ from shadow_tpu_torch.transport import cbrt as tcbrt
 from shadow_tpu_torch.transport import tcp as ttcp
 from test_torch_phold import assert_leaves_equal, jax_leaves
 from test_torch_tcp import one_torch_thread  # noqa: F401 (autouse)
-from torch_tcp_harness import SECOND, build_stream
+from test_torch_tcp_matrix import run_both
+from torch_tcp_harness import SECOND
 
 
 def _glibc_236_fma() -> bool:
@@ -276,16 +277,8 @@ def test_cubic_hooks_match_reference(hook):
         np.testing.assert_array_equal(g.numpy(), w)
 
 
-# -- whole runs ----------------------------------------------------------------
-def run_both(stop_s, **kw):
-    eng, st = jmatrix.build(**kw)
-    stop = int(stop_s * SECOND)
-    lj = jax_leaves(jax.jit(eng.run)(st, jnp.int64(stop)))
-    teng, tst = build_stream(**kw)
-    lt = convert.engine_state_to_numpy(teng.run(tst, stop))
-    assert_leaves_equal(lj, lt)
-    return lj
-
+# -- whole runs (`run_both`: the lossless and lossy cells share one compiled
+# reference program) ----------------------------------------------------------
 
 @pytest.mark.parametrize("path", list(jmatrix.PATHS))
 def test_cubic_matrix_cell_matches_reference(path):

@@ -961,3 +961,64 @@ def test_served_on_cuda_matches_cpu():
                     for r in recs]
     assert got["cuda"] == got["cpu"]
     assert all(r["status"] == "done" for r in got["cuda"])
+
+
+def test_proc_tier_on_cuda_matches_cpu():
+    """The real-binary tier on the card (two echo pairs, two clock
+    hosts, one of them with a second clock stopped at 2 s) equals its
+    CPU run, which the CPU tests hold against the reference: exit codes,
+    log triples, the plugins' stdout and every final-state leaf, with
+    the merge launched inside the tier's injections."""
+    _need_card()
+    import shutil
+
+    from shadow_tpu_torch.config import parse_config
+    from shadow_tpu_torch.proc import ProcessTier
+
+    if shutil.which("gcc") is None:
+        pytest.skip("no C toolchain")
+    plugins = chip_smoke.proc_plugins()
+
+    def host(name, procs):
+        return f'<host id="{name}">' + "".join(
+            f'<process plugin="{p}" starttime="{start}"{stop} '
+            f'arguments="{args}"/>' for p, start, stop, args in procs
+        ) + "</host>"
+
+    hosts = [host("clock0", [("clock", 1, "", "200 10")]),
+             host("clock1", [("clock", 1, "", "200 10"),
+                             ("clock", 1, ' stoptime="2"', "200 10")])]
+    for i, n in enumerate((20_000, 9_000)):
+        hosts += [host(f"esrv{i}", [("echo", 1, "", f"server 8888 {n}")]),
+                  host(f"ecli{i}", [("echo", 2, "",
+                                     f"client esrv{i} 8888 {n}")])]
+    text = (f'<shadow stoptime="10"><topology><![CDATA['
+            f'{chip_smoke.PROC_TOPO}]]></topology>'
+            + "".join(f'<plugin id="{k}" path="{plugins[k]}"/>'
+                      for k in ("echo", "clock"))
+            + "".join(hosts) + "</shadow>")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        before = merge.launches
+
+        def run():
+            tier = ProcessTier(parse_config(text), device=dev, seed=4)
+            try:
+                with torch.inference_mode():
+                    st = tier.run()
+                    leaves = convert.engine_state_to_numpy(st)
+            finally:
+                tier.close()
+            return tier, leaves
+
+        (tier, leaves), stdout = chip_smoke._fd_capture(run, decode=False)
+        runs[dev] = (dict(tier.exit_codes), list(tier.logs), stdout,
+                     tier.lost_stream_bytes, tier.windows, leaves)
+        if dev == "cuda":
+            assert merge.launches - before >= tier.injections > 0
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert set(card[0].values()) == {0}
+    assert card[:5] == cpu[:5]
+    assert card[5].keys() == cpu[5].keys()
+    for key, a in cpu[5].items():
+        np.testing.assert_array_equal(card[5][key], a, err_msg=key)

@@ -226,11 +226,15 @@ def reference_lanes(pairs: int, fault_file) -> dict:
     """Phase 22's pin fields from the reference, lane by lane: each lane
     of a fleet is the reference's solo run of its scenario (its seed, its
     faults compiled with that seed, its latency scale through
-    `bind_lane`'s network), as tests/test_fleet.py holds. Its heartbeat
+    `bind_lane`'s network), as tests/test_fleet.py holds. The lanes run
+    one compiled program, each bound as the fleet binds it (its key, its
+    fault tables padded values-neutral to the lanes' common shape, its
+    restart template and latency scale as inputs). Its heartbeat
     segments give the [fleet] rows and the summary the CLI prints; a
     run to the stop in one call gives the lane's digest. (The
     reference's vmapped fleet at 4,096 hosts x 4 lanes asks XLA for a
     163 GB buffer on the CPU; the lanes alone fit.)"""
+    import functools
     import hashlib
 
     import jax
@@ -239,7 +243,9 @@ def reference_lanes(pairs: int, fault_file) -> dict:
     from shadow_tpu import config as jconfig
     from shadow_tpu import sim as jsim
     from shadow_tpu.core.engine import state_summary as jsummary
+    from shadow_tpu.faults.schedule import CompiledFaults
     from shadow_tpu.faults.schedule import compile_faults as jcompile
+    from shadow_tpu.runtime.fleet import _pad_faults as jpad
     from shadow_tpu.runtime.fleet import scaled_network as jscaled
     from shadow_tpu.utils.tracker import FLEET_HEADER
     from shadow_tpu_torch import convert
@@ -247,19 +253,52 @@ def reference_lanes(pairs: int, fault_file) -> dict:
 
     plan = chip_smoke.fleet_plan(fault_file, jcli)
     text = chip_smoke.tgen_config(pairs)
-    segments, digests, hosts = [], [], 0
-    for i, seed in enumerate(plan["seeds"]):
-        js = jsim.build_simulation(jconfig.parse_config(text),
-                                   **dict(chip_smoke.FLEET_BUILD_KW,
-                                          seed=seed))
-        eng, st0 = js.engine, js.state0
-        hosts = len(js.names)
-        kw = {"network": jscaled(eng.network, plan["latency_scale"][i])}
-        if plan["faults"][i]:
-            comp = jcompile(tuple(plan["faults"][i]), js.names,
-                            eng.cfg.n_hosts, seed)
-            kw.update(faults=comp, fault_reset=st0.hosts)
-        run = jax.jit(eng.bind_lane(**kw).run)
+    sims = [jsim.build_simulation(jconfig.parse_config(text),
+                                  **dict(chip_smoke.FLEET_BUILD_KW,
+                                         seed=seed))
+            for seed in plan["seeds"]]
+    base = sims[0].engine
+    hosts = len(sims[0].names)
+    tables = ("times", "alive", "fgrp", "lat_milli", "passp", "bw_scale")
+
+    @functools.lru_cache(maxsize=None)
+    def program(flags):
+        """One compiled solo run for every lane (`flags` None: a plan
+        without faults): the seed's key, the latency scale, the fault
+        tables and the restart template are its inputs, bound to the
+        engine as the reference's fleet binds a lane."""
+        def run(st, stop, key, lat, reset, arrays):
+            kw = {"base_key": key,
+                  "network": type(jscaled(base.network, 1.0))(
+                      base.network, lat)}
+            if flags is not None:
+                kw["fault_reset"] = reset
+                kw["faults"] = CompiledFaults(
+                    **dict(zip(tables, arrays)), has_crash=flags[0],
+                    has_link=flags[1], has_bw=flags[2],
+                    np_times=np.zeros((1,), np.int64),
+                    np_alive=np.ones((1, base.cfg.n_hosts), bool))
+            return base.bind_lane(**kw).run(st, stop)
+
+        return jax.jit(run)
+
+    # every lane's tables (a fault-free lane's compiled from no specs)
+    # padded to one shape, values-neutral, as the reference's fleet binds
+    # them (`_pad_faults`), so that all lanes share one compile
+    padded, flags_all = jpad([
+        jcompile(tuple(plan["faults"][i] or ()), js.names, base.cfg.n_hosts,
+                 plan["seeds"][i]) for i, js in enumerate(sims)])
+    segments, digests = [], []
+    for i, js in enumerate(sims):
+        st0 = js.state0
+        flags, arrays = None, ()
+        if any(flags_all):
+            flags = flags_all
+            arrays = tuple(padded[k][i] for k in (
+                "f_times", "f_alive", "f_fgrp", "f_lat", "f_passp", "f_bw"))
+        lat = jscaled(base.network, plan["latency_scale"][i])._lat_milli
+        run = functools.partial(program(flags), key=js.engine._base_key,
+                                lat=lat, reset=st0.hosts, arrays=arrays)
         digests.append(convert.leaves_digest(jax_leaves(jax.device_get(
             run(st0, jnp.int64(chip_smoke.FLEET_STOP_NS))))))
         st, seg = st0, []

@@ -71,6 +71,8 @@ def test_import_pulls_in_no_jax():
         "import shadow_tpu_torch.obs.servetrace\n"
         "import shadow_tpu_torch.tools.serve_client\n"
         "import shadow_tpu_torch.tools.serve_report\n"
+        "import shadow_tpu_torch.proc, shadow_tpu_torch.proc.native\n"
+        "import shadow_tpu_torch.proc.model, shadow_tpu_torch.proc.tier\n"
         "spec = importlib.util.spec_from_file_location("
         "'chip_smoke', 'chip_smoke.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
